@@ -1,0 +1,177 @@
+"""Weight conversion: reference torch state dicts <-> the port's parameter
+dicts, and carry-over of the JAX package's parameter trees.
+
+Counterpart of ``sequoia_tpu/models/convert.py`` (ViS part).  The port keeps
+the JAX package's stacked ViS layout, so a released fold
+(``gevaertlab/sequoia-{cancer}-{fold}``, torch names
+``transformer.layers.{i}.0.mixers.{h}.{f,s,c,...}``) loads directly with
+:func:`vis_from_torch` and writes back with :func:`vis_to_torch`.
+
+:func:`vis_params_from_numpy` and :func:`resnet_params_from_numpy` turn the
+JAX package's parameter trees, given as numpy arrays (``jax.device_get`` or
+``np.asarray`` of each leaf), into the port's, so one set of weights can run
+through both implementations.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from sequoia_tpu_torch.models.vis import ViSConfig
+
+
+def _np(x) -> np.ndarray:
+    """torch tensor / array-like -> float32 numpy (host)."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.as_tensor(_np(x).copy())
+
+
+# ---------------------------------------------------------------------------
+# ViS
+# ---------------------------------------------------------------------------
+
+def vis_config_from_state_dict(sd) -> ViSConfig:
+    """Infer the architecture from a torch state dict's shapes."""
+    num_clusters, input_dim = _np(sd["pos_emb1D"]).shape
+    depth = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("transformer.layers."))
+    nheads = 1 + max(int(k.split(".")[5]) for k in sd if ".mixers." in k)
+    dim_f = tuple(sd["transformer.layers.0.0.mixers.0.f.weight"].shape)[0]
+    dim_s = tuple(sd["transformer.layers.0.0.mixers.0.s.weight"].shape)[0]
+    dim_c = tuple(sd["transformer.layers.0.0.mixers.0.c.weight"].shape)[0]
+    num_outputs = tuple(sd["linear_head.1.weight"].shape)[0]
+    return ViSConfig(num_outputs=num_outputs, input_dim=input_dim, depth=depth,
+                     nheads=nheads, dim_f=dim_f, dim_s=dim_s, dim_c=dim_c,
+                     num_clusters=num_clusters)
+
+
+def vis_from_torch(sd, cfg: ViSConfig | None = None):
+    """Torch ViS state dict -> (cfg, params) in the stacked layout (f32,
+    on the CPU)."""
+    if cfg is None:
+        cfg = vis_config_from_state_dict(sd)
+    H = cfg.nheads
+
+    def get(name):
+        return _np(sd[name])
+
+    blocks: dict[str, list[np.ndarray]] = {k: [] for k in (
+        "wf", "bf", "ws", "bs", "wc", "bc",
+        "ln_f_scale", "ln_f_bias", "ln_s_scale", "ln_s_bias",
+        "wproj", "bproj", "ln_ff_scale", "ln_ff_bias", "w1", "b1", "w2", "b2")}
+    for i in range(cfg.depth):
+        mix = f"transformer.layers.{i}.0."
+
+        def heads(name, op):
+            return op([get(mix + f"mixers.{h}.{name}") for h in range(H)])
+
+        # per-head f/s linears (out, in) fused to (D, H*width)
+        blocks["wf"].append(np.concatenate([get(mix + f"mixers.{h}.f.weight").T
+                                            for h in range(H)], axis=1))
+        blocks["bf"].append(heads("f.bias", np.concatenate))
+        blocks["ws"].append(np.concatenate([get(mix + f"mixers.{h}.s.weight").T
+                                            for h in range(H)], axis=1))
+        blocks["bs"].append(heads("s.bias", np.concatenate))
+        blocks["wc"].append(np.stack([get(mix + f"mixers.{h}.c.weight").T
+                                      for h in range(H)]))
+        blocks["bc"].append(heads("c.bias", np.stack))
+        blocks["ln_f_scale"].append(heads("local_norm.weight", np.stack))
+        blocks["ln_f_bias"].append(heads("local_norm.bias", np.stack))
+        blocks["ln_s_scale"].append(heads("summary_norm.weight", np.stack))
+        blocks["ln_s_bias"].append(heads("summary_norm.bias", np.stack))
+        blocks["wproj"].append(get(mix + "projection.weight").T)
+        blocks["bproj"].append(get(mix + "projection.bias"))
+        ff = f"transformer.layers.{i}.1.net."
+        blocks["ln_ff_scale"].append(get(ff + "0.weight"))
+        blocks["ln_ff_bias"].append(get(ff + "0.bias"))
+        blocks["w1"].append(get(ff + "1.weight").T)
+        blocks["b1"].append(get(ff + "1.bias"))
+        blocks["w2"].append(get(ff + "3.weight").T)
+        blocks["b2"].append(get(ff + "3.bias"))
+
+    params = {
+        "pos_emb": _t(get("pos_emb1D")),
+        "blocks": {k: _t(np.stack(v)) for k, v in blocks.items()},
+        "head_ln_scale": _t(get("linear_head.0.weight")),
+        "head_ln_bias": _t(get("linear_head.0.bias")),
+        "head_w": _t(get("linear_head.1.weight").T),
+        "head_b": _t(get("linear_head.1.bias")),
+    }
+    return cfg, params
+
+
+def vis_to_torch(cfg: ViSConfig, params) -> "OrderedDict[str, np.ndarray]":
+    """The port's ViS params -> torch-named state dict (numpy values)."""
+    H, df, ds = cfg.nheads, cfg.dim_f, cfg.dim_s
+    b = {k: _np(v) for k, v in params["blocks"].items()}
+    sd: OrderedDict[str, np.ndarray] = OrderedDict()
+    sd["pos_emb1D"] = _np(params["pos_emb"])
+    for i in range(cfg.depth):
+        mix = f"transformer.layers.{i}.0."
+        for h in range(H):
+            m = mix + f"mixers.{h}."
+            sd[m + "local_norm.weight"] = b["ln_f_scale"][i, h]
+            sd[m + "local_norm.bias"] = b["ln_f_bias"][i, h]
+            sd[m + "summary_norm.weight"] = b["ln_s_scale"][i, h]
+            sd[m + "summary_norm.bias"] = b["ln_s_bias"][i, h]
+            sd[m + "s.weight"] = b["ws"][i][:, h * ds:(h + 1) * ds].T
+            sd[m + "s.bias"] = b["bs"][i][h * ds:(h + 1) * ds]
+            sd[m + "f.weight"] = b["wf"][i][:, h * df:(h + 1) * df].T
+            sd[m + "f.bias"] = b["bf"][i][h * df:(h + 1) * df]
+            sd[m + "c.weight"] = b["wc"][i, h].T
+            sd[m + "c.bias"] = b["bc"][i, h]
+        sd[mix + "projection.weight"] = b["wproj"][i].T
+        sd[mix + "projection.bias"] = b["bproj"][i]
+        ff = f"transformer.layers.{i}.1.net."
+        sd[ff + "0.weight"] = b["ln_ff_scale"][i]
+        sd[ff + "0.bias"] = b["ln_ff_bias"][i]
+        sd[ff + "1.weight"] = b["w1"][i].T
+        sd[ff + "1.bias"] = b["b1"][i]
+        sd[ff + "3.weight"] = b["w2"][i].T
+        sd[ff + "3.bias"] = b["b2"][i]
+    sd["linear_head.0.weight"] = _np(params["head_ln_scale"])
+    sd["linear_head.0.bias"] = _np(params["head_ln_bias"])
+    sd["linear_head.1.weight"] = _np(params["head_w"]).T
+    sd["linear_head.1.bias"] = _np(params["head_b"])
+    return sd
+
+
+def vis_params_from_numpy(params):
+    """A JAX ViS parameter tree (numpy leaves) -> the port's params: the
+    layouts are the same, only the containers change."""
+    return {k: ({kk: _t(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                else _t(v)) for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# ResNet
+# ---------------------------------------------------------------------------
+
+def resnet_params_from_numpy(params):
+    """A JAX ResNet parameter tree (HWIO conv kernels, folded-BN
+    ``{"scale", "bias"}``) -> the port's (OIHW conv weights, the same BN
+    dicts)."""
+    def conv(w):  # HWIO -> OIHW
+        return _t(_np(w).transpose(3, 2, 0, 1))
+
+    def convert(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k.startswith("conv") or k == "downsample_conv":
+                    out[k] = conv(v)
+                elif isinstance(v, (dict, list)):
+                    out[k] = convert(v)
+                else:
+                    out[k] = _t(v)
+            return out
+        return [convert(v) for v in node]
+
+    return convert(params)

@@ -1,0 +1,197 @@
+"""Fused ViS block stack for B = 1 serving: kernel K1 ``vis_blocks_fused``.
+
+Counterpart of ``sequoia_tpu/ops/pallas_vis.py``.  :func:`pack_vis_blocks`
+builds the same packed operands as the JAX function (per block a (16P, P)
+chunk of row-stacked weight slabs and an (8, 3P) f32 "smalls" block; layout
+in that module's docstring), :func:`vis_blocks_fused` runs the pos-emb add
+and every block, and :func:`vis_apply_fused` adds the token mean, head
+LayerNorm and (D, G) gene head outside the kernel, as ``vis.apply`` does.
+
+On a CUDA tensor :func:`vis_blocks_fused` launches the CUDA kernel
+(``csrc/vis_blocks.cu``, which says what bounds it on the H100 and how it is
+built); on a CPU tensor it runs :func:`vis_blocks_plain`, the same math in
+plain PyTorch.  The kernel rounds where the Pallas kernel rounds: the
+residual stream is stored in the compute type between blocks and the last
+block's output is f32.  GELU is exact erf (the Pallas kernel's
+Abramowitz-Stegun polynomial was only a Mosaic workaround).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sequoia_tpu_torch import _build
+from sequoia_tpu_torch.models import vis
+from sequoia_tpu_torch.ops.nn import LN_EPS, gelu
+
+CHUNK_ROWS = 16  # x P
+SMALL_ROWS = 8   # x 3P f32
+
+# smalls row, column-segment (k = segment index, P wide) assignments
+_SM = {"bf": (0, 0), "ln_f_scale": (0, 1), "ln_f_bias": (0, 2),
+       "bs": (1, 0), "ln_s_scale": (1, 1), "ln_s_bias": (1, 2),
+       "bc": (2, 0),
+       "bp_lo": (3, 0), "bp_hi": (3, 1),
+       "b1_lo": (4, 0), "b1_hi": (4, 1),
+       "b2_lo": (5, 0), "b2_hi": (5, 1),
+       "ln_ff_scale_lo": (6, 0), "ln_ff_scale_hi": (6, 1),
+       "ln_ff_bias_lo": (7, 0), "ln_ff_bias_hi": (7, 1)}
+
+
+def supported(cfg: vis.ViSConfig) -> bool:
+    """True when this config maps onto the packed layout."""
+    p = cfg.nheads * cfg.dim_f
+    return (cfg.nheads * cfg.dim_s == p and cfg.nheads * cfg.dim_c == p
+            and cfg.input_dim == 2 * p and p % 128 == 0)
+
+
+def pack_vis_blocks(cfg: vis.ViSConfig, params, dtype=torch.bfloat16):
+    """Block parameters -> ``(chunks (depth, 16P, P) dtype, smalls
+    (depth, 8, 3P) f32, pos_emb (N, D) dtype)``, on the params' device."""
+    if not supported(cfg):
+        raise ValueError("pack_vis_blocks: unsupported ViS shape")
+    p, h, df, dc = cfg.nheads * cfg.dim_f, cfg.nheads, cfg.dim_f, cfg.dim_c
+    b = {k: v.float() for k, v in params["blocks"].items()}
+    dev = b["wf"].device
+    chunks = torch.zeros((cfg.depth, CHUNK_ROWS * p, p), device=dev)
+    smalls = torch.zeros((cfg.depth, SMALL_ROWS, 3 * p), device=dev)
+
+    chunks[:, 0:2 * p] = b["wf"]
+    chunks[:, 2 * p:4 * p] = b["ws"]
+    for hh in range(h):  # block-diagonal combine
+        r, c0 = hh * df, hh * dc
+        chunks[:, 4 * p + r:4 * p + r + df, c0:c0 + dc] = b["wc"][:, hh, :df]
+        chunks[:, 5 * p + r:5 * p + r + df, c0:c0 + dc] = b["wc"][:, hh, df:]
+    for row0, name in ((6, "wproj"), (8, "w1"), (12, "w2")):
+        n_in = b[name].shape[1] // p  # row slabs per column half
+        chunks[:, row0 * p:(row0 + n_in) * p] = b[name][:, :, :p]
+        chunks[:, (row0 + n_in) * p:(row0 + 2 * n_in) * p] = b[name][:, :, p:]
+
+    def put(name, vec):
+        r, k = _SM[name]
+        smalls[:, r, k * p:(k + 1) * p] = vec.reshape(cfg.depth, p)
+
+    for name, key in (("bf", "bf"), ("ln_f_scale", "ln_f_scale"),
+                      ("ln_f_bias", "ln_f_bias"), ("bs", "bs"),
+                      ("ln_s_scale", "ln_s_scale"), ("ln_s_bias", "ln_s_bias"),
+                      ("bc", "bc")):
+        put(name, b[key])
+    for prefix, key in (("bp", "bproj"), ("b1", "b1"), ("b2", "b2"),
+                        ("ln_ff_scale", "ln_ff_scale"), ("ln_ff_bias", "ln_ff_bias")):
+        put(prefix + "_lo", b[key][:, :p])
+        put(prefix + "_hi", b[key][:, p:])
+    return chunks.to(dtype), smalls, params["pos_emb"].to(dtype)
+
+
+def _group_ln(v: torch.Tensor, nheads: int, scale, bias) -> torch.Tensor:
+    """Per-head LayerNorm of (rows, P) f32 over P // nheads wide groups."""
+    rows, p = v.shape
+    g = v.reshape(rows, nheads, p // nheads)
+    mean = g.mean(-1, keepdim=True)
+    var = (g - mean).square().mean(-1, keepdim=True)
+    return ((g - mean) * torch.rsqrt(var + LN_EPS)).reshape(rows, p) * scale + bias
+
+
+def vis_blocks_plain(x, pos, chunks, smalls, *, depth: int, nheads: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused block stack, the Pallas kernel's
+    math step by step: ``(N, D)`` f32 -> ``(N, D)`` f32."""
+    p = x.shape[1] // 2
+    cd = chunks.dtype
+
+    def dot(a, w):  # operands in the compute type, f32 accumulation
+        return torch.matmul(a.to(cd).float(), w.float())
+
+    xs = (x + pos.float()).to(cd)
+    for i in range(depth):
+        def row(name):
+            r, k = _SM[name]
+            return smalls[i, r, k * p:(k + 1) * p]
+
+        def w(lo, n_rows=1):
+            return chunks[i, lo * p:(lo + n_rows) * p]
+
+        local = gelu(_group_ln(dot(xs, w(0, 2)) + row("bf"), nheads,
+                               row("ln_f_scale"), row("ln_f_bias")))
+        sv = (dot(xs, w(2, 2)) + row("bs")).mean(0, keepdim=True)
+        summ = gelu(_group_ln(sv, nheads, row("ln_s_scale"), row("ln_s_bias")))
+        c = gelu(dot(local, w(4)) + dot(summ, w(5)) + row("bc"))
+
+        x32 = xs.float()
+        x_lo = x32[:, :p] + dot(c, w(6)) + row("bp_lo")
+        x_hi = x32[:, p:] + dot(c, w(7)) + row("bp_hi")
+        mean = (x_lo.sum(-1, keepdim=True) + x_hi.sum(-1, keepdim=True)) / (2 * p)
+        var = ((x_lo - mean).square().sum(-1, keepdim=True)
+               + (x_hi - mean).square().sum(-1, keepdim=True)) / (2 * p)
+        rstd = torch.rsqrt(var + LN_EPS)
+        y_lo = (x_lo - mean) * rstd * row("ln_ff_scale_lo") + row("ln_ff_bias_lo")
+        y_hi = (x_hi - mean) * rstd * row("ln_ff_scale_hi") + row("ln_ff_bias_hi")
+        h_lo = gelu(dot(y_lo, w(8)) + dot(y_hi, w(9)) + row("b1_lo"))
+        h_hi = gelu(dot(y_lo, w(10)) + dot(y_hi, w(11)) + row("b1_hi"))
+        x_lo = x_lo + dot(h_lo, w(12)) + dot(h_hi, w(13)) + row("b2_lo")
+        x_hi = x_hi + dot(h_lo, w(14)) + dot(h_hi, w(15)) + row("b2_hi")
+        out = torch.cat([x_lo, x_hi], dim=1)
+        xs = out.to(cd)
+    return out
+
+
+def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.Tensor:
+    n, d = x.shape
+    p = d // 2
+    hw = p // nheads
+    if chunks.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"vis_blocks_fused: chunks must be f32 or bf16, got {chunks.dtype}")
+    if (d != 2 * p or chunks.shape != (depth, CHUNK_ROWS * p, p)
+            or smalls.shape != (depth, SMALL_ROWS, 3 * p) or pos.shape != x.shape):
+        raise ValueError("vis_blocks_fused: operand shapes do not match the packed layout")
+    if p % 64 or 64 % hw:
+        raise ValueError(f"vis_blocks_fused kernel needs P % 64 == 0 and a head width "
+                         f"dividing 64, got P={p}, head width {hw}")
+    for t in (chunks, smalls, pos):
+        if t.device != x.device:
+            raise ValueError("vis_blocks_fused: operands on different devices")
+    cd = chunks.dtype
+    x = x.float().contiguous()
+    pos = pos.float().contiguous()
+    chunks = chunks.contiguous()
+    smalls = smalls.float().contiguous()
+
+    def buf(cols, dtype):
+        return torch.empty((n, cols), dtype=dtype, device=x.device)
+
+    xs, local, c, y, h = (buf(d, cd), buf(p, cd), buf(p, cd), buf(d, cd), buf(d, cd))
+    s, xf, out = buf(p, torch.float32), buf(d, torch.float32), buf(d, torch.float32)
+    sc = torch.empty((p,), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    rc = lib.sq_vis_blocks(
+        1 if cd == torch.bfloat16 else 0, x.data_ptr(), pos.data_ptr(),
+        chunks.data_ptr(), smalls.data_ptr(), n, p, depth, hw, xs.data_ptr(),
+        local.data_ptr(), s.data_ptr(), sc.data_ptr(), c.data_ptr(), xf.data_ptr(),
+        y.data_ptr(), h.data_ptr(), out.data_ptr(), _build.stream_ptr(x))
+    _build.check(rc, "vis_blocks_fused")
+    _build.count_launch("vis_blocks_fused", 1 + 8 * depth)
+    return out
+
+
+def vis_blocks_fused(x, pos_emb, chunks, smalls, *, depth: int, nheads: int) -> torch.Tensor:
+    """``(N, D)`` f32 tokens -> ``(N, D)`` f32 output of the pos-emb add and
+    all ``depth`` ViS blocks.  CUDA tensors run the kernel, CPU tensors the
+    plain version; token mean and head stay with the caller."""
+    if x.is_cuda:
+        return _vis_blocks_cuda(x, pos_emb, chunks, smalls, depth, nheads)
+    if x.device.type != "cpu":
+        raise ValueError(f"vis_blocks_fused: unsupported device {x.device}")
+    return vis_blocks_plain(x.float(), pos_emb, chunks, smalls, depth=depth, nheads=nheads)
+
+
+def vis_apply_fused(cfg: vis.ViSConfig, params, packed, x: torch.Tensor) -> torch.Tensor:
+    """Drop-in ``vis.apply`` for B = 1 serving: ``(1, N, D) -> (1, G)``, with
+    ``packed`` from :func:`pack_vis_blocks`."""
+    chunks, smalls, pos = packed
+    if x.ndim != 3 or x.shape[0] != 1:
+        raise ValueError(f"fused path serves B=1, got input shape {tuple(x.shape)}")
+    if x.shape[1] != pos.shape[0] or x.shape[2] != cfg.input_dim:
+        raise ValueError(f"input {tuple(x.shape)} does not match N={pos.shape[0]}, "
+                         f"D={cfg.input_dim}")
+    tokens = vis_blocks_fused(x[0].float(), pos, chunks, smalls,
+                              depth=cfg.depth, nheads=cfg.nheads)
+    return vis.head(params, tokens[None])

@@ -1,0 +1,269 @@
+"""Per-slide k-means: kmeans++ seeding + Lloyd iterations on the device.
+
+Counterpart of ``sequoia_tpu/ops/kmeans.py``.  Same algorithm as the
+reference's ``sklearn.cluster.KMeans(n_clusters=100, random_state=0)``:
+kmeans++ seeding, Lloyd with sklearn's relative tolerance
+``tol * mean(var(X))``, empty clusters relocated to the farthest points, and
+a final donor repair so no cluster ends empty when there are enough points.
+Padded rows (``mask`` False) never win an assignment and never contribute.
+
+Differences of form from the JAX module:
+
+* the ``while_loop`` is a Python loop with one host sync per iteration;
+* ``jax.lax.top_k`` (index order on ties) is a stable descending sort;
+* the final donor repair runs on the host in numpy, and only when the final
+  assignment left a cluster empty (otherwise it changes nothing);
+* the RNG is a ``torch.Generator``: seeded centers differ from JAX's, so
+  :func:`kmeans_fit` agrees with JAX in inertia, and :func:`kmeans_lloyd`
+  from shared centers agrees exactly.
+
+``use_pallas=True`` (the JAX flag name) runs each Lloyd step through the K5
+kernel ``ops/cuda_kmeans.lloyd_stats``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sequoia_tpu_torch.ops import cuda_kmeans
+from sequoia_tpu_torch.utils.device import resolve_device
+
+
+def _pairwise_sq_dist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(N, D), (k, D) -> (N, k) squared distances (f32)."""
+    xx = (x * x).sum(1, keepdim=True)
+    cc = (centers * centers).sum(1)
+    return torch.clamp(xx + cc - 2.0 * (x @ centers.T), min=0.0)
+
+
+def _plusplus_init(gen: torch.Generator, x: torch.Tensor, mask: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """kmeans++ (D^2 sampling) over the valid rows."""
+    maskf = mask.to(x.dtype)
+    first = torch.multinomial(maskf, 1, generator=gen)
+    centers = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
+    centers[0] = x[first[0]]
+    d2 = torch.where(mask, ((x - x[first]) ** 2).sum(1), 0.0)
+    for i in range(1, k):
+        w = torch.where(mask & (d2 > 0), d2, 0.0)
+        # all-zero d2 (fewer distinct points than clusters): sample the mask
+        w = torch.where(w.sum() > 0, w, maskf)
+        c = x[torch.multinomial(w, 1, generator=gen)]
+        centers[i] = c[0]
+        d2 = torch.minimum(d2, torch.where(mask, ((x - c) ** 2).sum(1), 0.0))
+    return centers
+
+
+def _assign(x, mask, centers):
+    d2 = _pairwise_sq_dist(x, centers)
+    labels = torch.argmin(d2, dim=1)  # first index on ties
+    best = d2.gather(1, labels[:, None])[:, 0]
+    return labels, torch.where(mask, best, 0.0)
+
+
+def _stats(x, mask, centers, use_pallas: bool):
+    """(sums (k, D), counts (k,), best (N,)) of the current assignment."""
+    k = centers.shape[0]
+    if use_pallas:
+        kpad = ((k + 127) // 128) * 128
+        cpad = F.pad(centers, (0, 0, 0, kpad - k), value=1e8)  # sentinels never win
+        sums, counts, _, best = cuda_kmeans.lloyd_stats(x, mask, cpad)
+        return sums[:k], counts[:k], best
+    labels, best = _assign(x, mask, centers)
+    onehot = (labels[:, None] == torch.arange(k, device=x.device)).to(x.dtype)
+    onehot = onehot * mask.to(x.dtype)[:, None]
+    return onehot.T @ x, onehot.sum(0), best
+
+
+def _donor_repair(x, mask, labels, centers, best):
+    """Fill each cluster the final assignment left empty with the farthest
+    valid point of a donor cluster (>= 2 members), one round per cluster in
+    cluster order (sklearn ``_relocate_empty_clusters`` semantics)."""
+    k = centers.shape[0]
+    counts = torch.bincount(labels[mask], minlength=k)
+    if not bool((counts == 0).any()):
+        return labels, centers, best
+    lab = labels.cpu().numpy().copy()
+    bst = best.cpu().numpy().copy()
+    msk = mask.cpu().numpy()
+    cnt = counts.cpu().numpy().copy()
+    moves = []
+    for c in range(k):
+        if cnt[c] != 0:
+            continue
+        score = np.where(msk & (cnt[lab] >= 2), bst, -np.inf)
+        p = int(np.argmax(score))
+        if not np.isfinite(score[p]):
+            continue
+        cnt[lab[p]] -= 1
+        cnt[c] += 1
+        lab[p] = c
+        bst[p] = 0.0  # the point becomes its cluster's center
+        moves.append((c, p))
+    centers = centers.clone()
+    for c, p in moves:
+        centers[c] = x[p]
+    dev = x.device
+    return (torch.as_tensor(lab, device=dev), centers, torch.as_tensor(bst, device=dev))
+
+
+def _lloyd(x, mask, centers, max_iter: int, tol_abs, use_pallas: bool = False):
+    n, k = x.shape[0], centers.shape[0]
+    # with fewer valid points than clusters, k - n_valid clusters can never
+    # fill: only unexpected empties keep the loop alive
+    min_empty = max(0, k - int(mask.sum()))
+    kk = min(k, n)
+    n_iter = 0
+    while n_iter < max_iter:
+        sums, counts, best = _stats(x, mask, centers, use_pallas)
+        new_centers = torch.where(counts[:, None] > 0,
+                                  sums / torch.clamp(counts[:, None], min=1.0), centers)
+        # empty clusters move to the farthest valid points (masked rows have
+        # best = 0 and sort last; ties keep index order)
+        empty = counts == 0
+        far = torch.sort(best, descending=True, stable=True).indices[:kk]
+        pos = torch.cumsum(empty.to(torch.int64), 0) - 1
+        candidates = x[far[torch.clamp(pos, 0, kk - 1)]]
+        new_centers = torch.where(empty[:, None], candidates, new_centers)
+        shift = ((new_centers - centers) ** 2).sum()
+        had_empty = empty.sum() > min_empty
+        centers = new_centers
+        n_iter += 1
+        if not bool((shift > tol_abs) | had_empty):  # one host sync per step
+            break
+    labels, best = _assign(x, mask, centers)
+    labels, centers, best = _donor_repair(x, mask, labels, centers, best)
+    return centers, labels, best.sum(), n_iter
+
+
+def _tol_abs(x, mask, tol: float):
+    """sklearn's relative tolerance over the valid rows: tol * mean(var)."""
+    maskf = mask.to(x.dtype)[:, None]
+    n_valid = torch.clamp(maskf.sum(), min=1.0)
+    mean = (x * maskf).sum(0) / n_valid
+    var = (((x - mean) * maskf) ** 2).sum(0) / n_valid
+    return tol * var.mean()
+
+
+def kmeans_fit(x: torch.Tensor, mask: torch.Tensor, gen: torch.Generator,
+               n_clusters: int = 100, max_iter: int = 300, tol: float = 1e-4,
+               use_pallas: bool = False):
+    """One slide: x (N, D), mask (N,) bool, ``gen`` on x's device.  Returns
+    (centers (k, D), labels (N,) -- arbitrary on masked rows, inertia,
+    n_iter)."""
+    x = x.float()
+    centers = _plusplus_init(gen, x, mask, n_clusters)
+    return _lloyd(x, mask, centers, max_iter, _tol_abs(x, mask, tol), use_pallas)
+
+
+def kmeans_lloyd(x: torch.Tensor, mask: torch.Tensor, init_centers: torch.Tensor,
+                 max_iter: int = 300, tol: float = 1e-4, use_pallas: bool = False):
+    """Lloyd iterations from explicit initial centers; same return contract
+    as :func:`kmeans_fit`."""
+    x = x.float()
+    return _lloyd(x, mask, init_centers.float(), max_iter, _tol_abs(x, mask, tol),
+                  use_pallas)
+
+
+def cluster_means(x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                  n_clusters: int = 100) -> torch.Tensor:
+    """Mean raw feature per final label (the reference's cluster_features);
+    NaN for an empty cluster, as ``np.mean`` over an empty slice."""
+    onehot = (labels[:, None] == torch.arange(n_clusters, device=x.device)).to(x.dtype)
+    onehot = onehot * mask.to(x.dtype)[:, None]
+    counts = onehot.sum(0)[:, None]
+    sums = onehot.T @ x
+    return torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
+                       torch.full_like(sums, float("nan")))
+
+
+def kmeans_cluster_features(features: np.ndarray, n_clusters: int = 100, seed: int = 0,
+                            backend: str = "device", device=None) -> np.ndarray:
+    """(N, D) patch features -> (k, D) cluster-mean features.
+
+    backend='device': this module's kmeans++/Lloyd.  backend='hybrid':
+    sklearn-exact kmeans++ seeding on the host, then Lloyd on the device.
+    backend='sklearn' (the reference's own KMeans) is not ported: the GPU
+    machine has no sklearn (ROADMAP.md)."""
+    if backend == "sklearn":
+        raise NotImplementedError("kmeans backend 'sklearn' is not ported (ROADMAP.md)")
+    if backend not in ("device", "hybrid"):
+        raise ValueError(f"backend must be 'device' or 'hybrid'; got {backend!r}")
+    dev = resolve_device(device)
+    features = np.asarray(features, np.float32)
+    x = torch.as_tensor(features, device=dev)
+    mask = torch.ones((features.shape[0],), dtype=torch.bool, device=dev)
+    if backend == "hybrid":
+        init = torch.as_tensor(sklearn_plusplus_centers(features, n_clusters, seed), device=dev)
+        _, labels, _, _ = kmeans_lloyd(x, mask, init)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        _, labels, _, _ = kmeans_fit(x, mask, gen, n_clusters=n_clusters)
+    return cluster_means(x, labels, mask, n_clusters).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# host seeding with sklearn's exact stream (numpy copies of the JAX module's)
+# ---------------------------------------------------------------------------
+
+def _sklearn_sq_dists(A: np.ndarray, B: np.ndarray,
+                      b_norms: np.ndarray | None = None) -> np.ndarray:
+    """Squared euclidean distances with sklearn's float semantics (float32
+    inputs: one float64 pass, downcast, clip at 0)."""
+    if A.dtype == np.float32 or B.dtype == np.float32:
+        A64 = A.astype(np.float64)
+        B64 = B.astype(np.float64)
+        d = -2.0 * (A64 @ B64.T)
+        d += (A64 * A64).sum(axis=1)[:, None]
+        d += (B64 * B64).sum(axis=1)[None, :]
+        d = d.astype(np.float32)
+    else:
+        d = -2.0 * (A @ B.T)
+        d += (A * A).sum(axis=1)[:, None]
+        d += (b_norms if b_norms is not None else (B * B).sum(axis=1))[None, :]
+    np.maximum(d, 0.0, out=d)
+    return d
+
+
+def plusplus_indices(X: np.ndarray, n_clusters: int,
+                     random_state: np.random.RandomState) -> np.ndarray:
+    """Greedy kmeans++ drawing sklearn's RandomState stream and float
+    arithmetic: n_local_trials = 2 + int(log(k)), first center by
+    ``random_state.choice``, candidates by ``uniform * current_pot``
+    searchsorted into the cumulative D^2 mass, greedy potential minimum."""
+    n_samples = X.shape[0]
+    n_local_trials = 2 + int(np.log(n_clusters))
+    weights = np.ones(n_samples, X.dtype) / n_samples
+
+    indices = np.full(n_clusters, -1, dtype=int)
+    indices[0] = random_state.choice(n_samples, p=weights)
+    closest = _sklearn_sq_dists(X[indices[0]][None], X)[0]
+    sample_weight = np.ones(n_samples, X.dtype)
+    current_pot = closest @ sample_weight
+
+    for c in range(1, n_clusters):
+        rand_vals = random_state.uniform(size=n_local_trials) * current_pot
+        candidate_ids = np.searchsorted(np.cumsum(sample_weight * closest), rand_vals)
+        np.clip(candidate_ids, None, closest.size - 1, out=candidate_ids)
+
+        dist = _sklearn_sq_dists(X[candidate_ids], X)
+        np.minimum(closest, dist, out=dist)
+        pots = dist @ sample_weight.reshape(-1, 1)
+
+        best = int(np.argmin(pots))
+        current_pot = pots[best]
+        closest = dist[best]
+        indices[c] = candidate_ids[best]
+    return indices
+
+
+def sklearn_plusplus_centers(features: np.ndarray, n_clusters: int,
+                             seed: int = 0) -> np.ndarray:
+    """kmeans++ seeding identical to ``KMeans(random_state=seed)``'s,
+    including its mean-centering before seeding; returns the original rows."""
+    X = np.ascontiguousarray(features, np.float32)
+    Xc = X - X.mean(axis=0)
+    rs = seed if isinstance(seed, np.random.RandomState) else np.random.RandomState(seed)
+    return X[plusplus_indices(Xc, n_clusters, rs)].astype(np.float32)

@@ -1,0 +1,132 @@
+"""The PyTorch port imports nothing of JAX or of the JAX package, builds and
+imports no kernel toolchain at import time, and its entry points refuse to
+run on the CPU unless asked to."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "sequoia_tpu"}
+
+
+def _port_files():
+    return sorted((ROOT / "sequoia_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_names(tree):
+    """Top-level package names of every import anywhere in the module."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def _module_level_imports(tree):
+    """Imports executed when the module is imported (not inside a def)."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                stack.extend(getattr(node, field, []))
+        elif isinstance(node, ast.ExceptHandler):
+            stack.extend(node.body)
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for want in ("sequoia_tpu_torch/serve.py", "sequoia_tpu_torch/ops/cuda_vis.py",
+                 "sequoia_tpu_torch/ops/cuda_resnet.py",
+                 "sequoia_tpu_torch/ops/cuda_kmeans.py", "chip_smoke.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_package_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    # exact top-level names: ``sequoia_tpu_torch`` itself is allowed
+    bad = [(line, name) for line, name in _imported_names(tree) if name in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_module_level_triton_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in _module_level_imports(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""])
+        assert not any(n.split(".")[0] == "triton" for n in names), path.name
+
+
+def test_import_loads_no_jax_module():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sequoia_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sequoia_tpu', 'triton'))\n"
+        "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from sequoia_tpu_torch.models import resnet, vis
+    from sequoia_tpu_torch.ops import kmeans
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.pipeline.fused import make_slide_program
+    from sequoia_tpu_torch.serve import SlidePredictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = resnet.random_params(torch.Generator().manual_seed(0))
+    cfg = vis.ViSConfig(num_outputs=4, input_dim=256, depth=1, nheads=4, dim_f=32,
+                        dim_s=32, dim_c=32, num_clusters=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FeatureExtractor("resnet", params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_slide_program(params, cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlidePredictor(None, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans.kmeans_cluster_features(np.zeros((8, 4), np.float32), n_clusters=2)
+
+
+def test_unported_options_raise():
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.ops import kmeans
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+
+    params = resnet.random_params(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FeatureExtractor("uni", params, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FeatureExtractor("resnet", params, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        kmeans.kmeans_cluster_features(np.zeros((8, 4), np.float32), n_clusters=2,
+                                       backend="sklearn", device="cpu")
+    x = torch.zeros((1, 32, 32, 3))
+    for cfg in (resnet.ResNetConfig(fused_stages=(2,)), resnet.ResNetConfig(cp_stages=(3,))):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            resnet.forward_extract(cfg, params, x)
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    """Without nvcc the build raises instead of falling back."""
+    from sequoia_tpu_torch import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc()
