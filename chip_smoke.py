@@ -9,19 +9,34 @@ Phases, each printing one JSON line:
 2. build: the CUDA kernels built from ``sequoia_tpu_torch/csrc`` (nvcc,
    ``sm_90a``), with the seconds it took;
 3. kernels: each kernel (K1 vis_blocks_fused, K2 stem16, K3
-   bottleneck_chain_cp, K5 lloyd_stats) against its plain PyTorch version on
-   the card at the main path's shapes, in f32 and bf16 (K5 is f32 only), with
-   the error against the stated tolerance, the kernel's time, the plain
-   version's, one PyTorch library call's where one computes the same function,
-   and the bound (the least time the card could take for the same work);
+   bottleneck_chain_cp, K4 bottleneck_chain, K5 lloyd_stats) against its
+   plain PyTorch version on the card at the main path's shapes, in f32 and
+   bf16 (K5 is f32 only), with the error against the stated tolerance, the
+   kernel's time, the plain version's, one PyTorch library call's for the
+   same function (K1: the plain ``vis`` block loop on cuBLAS; K2, K3, K4:
+   cuDNN ``F.conv2d`` + BN + ReLU of the same layers; K5: a distance GEMM,
+   argmin and ``index_add_``), and the bound (the least time the card could
+   take for the same work).  K3 and K4 are timed at layer1's shape and also
+   checked and timed at the three stage tails (layers 2-4 after their
+   stride-2 block); then ResNet ``early_pallas`` + ``cp_stages=(2, 3, 4)``
+   on one batch against the plain extractor;
 4. main path: a ``SlidePredictor`` with random ResNet-50 and 5-fold ViS
    weights at full width (D=2048, depth 6, 16 heads, 20,820 genes, bf16),
    ResNet ``early_pallas``, k-means ``use_pallas`` and the fused ViS, runs
    ``predict_patches`` on a 4096-patch and a 60-patch slide of random 256-px
    patches; every launch counter must rise, the outputs must be finite
-   (1, 20820), and the same slides through the plain versions must agree.
+   (1, 20820), and the same slides through the plain versions must agree;
+5. WSI path: two synthetic AppMag-20 slides (8192 x 8192 level 0 with a
+   textured tissue ellipse over about 75% of it, a 4x-down level 1) served
+   from the slide with
+   ``predict_wsi`` one by one and ``predict_slides`` over both: tissue
+   screen -> ResNet-50 with ``fused_stages=(1, 2, 3, 4)`` (K4) -> k-means
+   (K5) -> 5-fold ViS (K1), against a plain predictor (same kept patches,
+   features within 5%, Pearson r >= 0.99), then a run at
+   ``max_patches=256`` that must stop decoding early.
 
-The last lines are the kernels table, the ``nvidia-smi`` line and
+The last lines are the kernels table (``launches`` sums the counts of the
+two paths' runs, each read from 0), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
 script exits non-zero and prints no result.
@@ -29,6 +44,8 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -39,6 +56,10 @@ import time
 # batch 128, k = 100 padded to 128 centers, ViS D = 2048 over 100 tokens)
 PATCHES, SMALL_SLIDE, PATCH, FEAT_BATCH = 4096, 60, 256, 128
 K, KPAD, D, GENES, FOLDS = 100, 128, 2048, 20820, 5
+# the ResNet chain shapes at 256 px: (stage, first stride-1 block, map side)
+CHAIN_LAYER1, CHAIN_TAILS = (1, 0, 64), ((2, 1, 32), (3, 1, 16), (4, 1, 8))
+# the WSI path: level-0 side, the early-stop run's cap
+WSI_SIDE, WSI_CAP = 8192, 256
 
 # card peaks (H100 SXM data sheet, dense): the bound of a kernel is the
 # larger of bytes / HBM rate and operations / peak rate for their type
@@ -51,6 +72,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # can round one ulp (2^-8) apart and carry into the next GEMM.
 TOL = {"stem16": {"float32": 1e-5, "bfloat16": 1e-2},
        "bottleneck_chain_cp": {"float32": 1e-4, "bfloat16": 3e-2},
+       "bottleneck_chain": {"float32": 1e-4, "bfloat16": 3e-2},
        "vis_blocks_fused": {"float32": 1e-4, "bfloat16": 3e-2},
        "lloyd_stats": {"float32": 1e-5}}
 
@@ -61,6 +83,8 @@ SOURCES = {
                "sequoia_tpu/ops/pallas_resnet.py:285"),
     "bottleneck_chain_cp": ("sequoia_tpu_torch/csrc/conv_gemm.cu",
                             "sequoia_tpu/ops/pallas_resnet.py:377"),
+    "bottleneck_chain": ("sequoia_tpu_torch/csrc/conv_gemm.cu",
+                         "sequoia_tpu/ops/pallas_resnet.py:151"),
     "lloyd_stats": ("sequoia_tpu_torch/csrc/lloyd_stats.cu",
                     "sequoia_tpu/ops/pallas_kmeans.py:81"),
 }
@@ -141,26 +165,73 @@ def check_stem16(torch, dev, dtype: str) -> dict:
     return res
 
 
-def check_chain(torch, dev, dtype: str) -> dict:
+def check_chain(torch, dev, dtype: str, kname: str) -> dict:
+    """K3 (``bottleneck_chain_cp``, (C, P)) or K4 (``bottleneck_chain``,
+    (P, C)) against its plain version at layer1 and the three stage tails;
+    the row's numbers are layer1's, the tails' go under ``tails``."""
     from sequoia_tpu_torch.models import resnet
-    from sequoia_tpu_torch.ops import cuda_resnet
+    from sequoia_tpu_torch.ops import cuda_resnet as cr
 
+    pc = kname == "bottleneck_chain"
+    fold, kernel, plain_fn = ((cr.stage_chain_weights, cr.bottleneck_chain,
+                               cr.bottleneck_chain_plain) if pc else
+                              (cr.stage_chain_weights_cp, cr.bottleneck_chain_cp,
+                               cr.bottleneck_chain_cp_plain))
     g = torch.Generator(device=dev).manual_seed(2)
     dt = getattr(torch, dtype)
     params = resnet.random_params(g)
-    H = W = PATCH // 4
-    x = torch.relu(torch.randn((FEAT_BATCH, 64, H * W), generator=g, device=dev)).to(dt)
-    flat, meta = cuda_resnet.stage_chain_weights_cp(params["layer1"], 0, dt)
-    run = lambda: cuda_resnet.bottleneck_chain_cp(x, flat, meta=meta, H=H, W=W)  # noqa: E731
-    plain = lambda: cuda_resnet.bottleneck_chain_cp_plain(  # noqa: E731
-        x, flat, meta=meta, H=H, W=W)
-    out = run()
-    res = compare(torch, "bottleneck_chain_cp", dtype, out, plain())
-    res.update(ms=time_ms(torch, run, 5), plain_ms=time_ms(torch, plain, 2), library_ms=None)
-    flops = 2 * FEAT_BATCH * H * W * sum(ci * w + 9 * w * w + w * co + (ci * co if ds else 0)
-                                         for ci, w, co, ds in meta)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes(x, out, *flat), flops, dtype)
+    res, tails = None, []
+    for stage, start, H in (CHAIN_LAYER1, *CHAIN_TAILS):
+        blocks = params[f"layer{stage}"]
+        flat, meta = fold(blocks, start, dt)
+        x = torch.relu(torch.randn((FEAT_BATCH, meta[0][0], H * H), generator=g,
+                                   device=dev)).to(dt)
+        xk = x.transpose(1, 2).contiguous() if pc else x
+        run = lambda: kernel(xk, flat, meta=meta, H=H, W=H)  # noqa: E731
+        plain = lambda: plain_fn(xk, flat, meta=meta, H=H, W=H)  # noqa: E731
+        out = run()
+        r = compare(torch, kname, dtype, out, plain())
+        # yardstick: cuDNN's conv + BN + ReLU chain of the same blocks (the
+        # plain extractor's own loop), in the layout the kernel's path uses
+        x4 = x.reshape(FEAT_BATCH, -1, H, H).contiguous(
+            memory_format=torch.channels_last if pc else torch.contiguous_format)
+
+        def lib(x4=x4, blocks=blocks[start:]):
+            for blk in blocks:
+                x4 = resnet._bottleneck(x4, blk, 1)
+            return x4
+
+        flops = 2 * FEAT_BATCH * H * H * sum(ci * w + 9 * w * w + w * co
+                                             + (ci * co if ds else 0)
+                                             for ci, w, co, ds in meta)
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes(x, out, *flat), flops, dtype)
+        r.update(ms=time_ms(torch, run, 3), library_ms=time_ms(torch, lib, 3))
+        if stage == CHAIN_LAYER1[0]:
+            r["plain_ms"] = time_ms(torch, plain, 2)
+            res = r
+        else:
+            tails.append({"stage": stage, "map": H, **r})
+    res["tails"] = tails
     return res
+
+
+def check_cp_stages(torch, dev) -> dict:
+    """ResNet-50 ``early_pallas`` + ``cp_stages=(2, 3, 4)`` (K2 + K3 over
+    every stride-1 run) on one batch against the plain extractor."""
+    from sequoia_tpu_torch.models import resnet
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = resnet.random_params(g)
+    u8 = torch.randint(0, 256, (FEAT_BATCH, PATCH, PATCH, 3), generator=g, device=dev,
+                       dtype=torch.uint8)
+    cfg = dict(compute_dtype=torch.bfloat16)
+    got = resnet.extract_from_uint8(
+        resnet.ResNetConfig(early_pallas=True, cp_stages=(2, 3, 4), **cfg), params, u8)
+    want = resnet.extract_from_uint8(resnet.ResNetConfig(**cfg), params, u8)
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not bool(torch.isfinite(got).all()) or rel > 0.05:
+        raise AssertionError(f"cp_stages extractor: max rel diff {rel:.3g} > 0.05")
+    return {"shape": list(got.shape), "max_rel_diff_vs_plain": rel, "tol": 0.05}
 
 
 def check_lloyd(torch, dev) -> dict:
@@ -220,6 +291,7 @@ def check_vis(torch, dev, dtype: str) -> dict:
     from sequoia_tpu_torch.ops import cuda_vis
 
     cfg = vis.ViSConfig(num_outputs=GENES, input_dim=D, num_clusters=K)
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(4)
     params = vis.init(cfg, g)
     chunks, smalls, pos = cuda_vis.pack_vis_blocks(cfg, params, getattr(torch, dtype))
@@ -229,8 +301,22 @@ def check_vis(torch, dev, dtype: str) -> dict:
     plain = lambda: cuda_vis.vis_blocks_plain(x, pos, chunks, smalls, **kw)  # noqa: E731
     out = run()
     res = compare(torch, "vis_blocks_fused", dtype, out, plain())
+    # yardstick: the plain ViS block loop (pos-emb add and the blocks of
+    # vis.apply, cuBLAS GEMMs) on the same tokens
+    # with its weight matrices already in the compute type, as K1's are
+    vcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    blocks = [{k: v[i].to(dt) if k.startswith("w") else v[i] for k, v in params["blocks"].items()}
+              for i in range(cfg.depth)]
+    pos_emb = params["pos_emb"].to(dt)
+
+    def lib():
+        y = x[None].to(dt) + pos_emb
+        for bp in blocks:
+            y = vis._block(vcfg, y, bp)
+        return y
+
     res.update(ms=time_ms(torch, run, 10), plain_ms=time_ms(torch, plain, 10),
-               library_ms=None)
+               library_ms=time_ms(torch, lib, 10))
     p, hw, item = D // 2, D // 2 // cfg.nheads, chunks.element_size()
     weights = cfg.depth * (14 * p * p + 2 * p * hw)  # the diagonal of the combine only
     # every weight meets each of the K tokens, but the summary's share of the
@@ -249,20 +335,34 @@ def pearson(np, a, b) -> float:
     return float(np.corrcoef(np.ravel(a), np.ravel(b))[0, 1])
 
 
-def main_path(torch, dev, launches: dict) -> None:
-    import numpy as np
-    from sequoia_tpu_torch import _build
+def models(torch, dev):
+    """Random ResNet-50 and 5-fold ViS weights at full width, from seeds."""
     from sequoia_tpu_torch.models import resnet, vis
-    from sequoia_tpu_torch.ops import kmeans as km
-    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
-    from sequoia_tpu_torch.serve import SlidePredictor
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    rparams = resnet.random_params(g)
+    rparams = resnet.random_params(torch.Generator(device=dev).manual_seed(0))
     vcfg = vis.ViSConfig(num_outputs=GENES, input_dim=D, depth=6, nheads=16, dim_f=64,
                          dim_s=64, dim_c=64, num_clusters=K, compute_dtype="bfloat16")
     folds = [(vcfg, vis.init(vcfg, torch.Generator(device=dev).manual_seed(100 + i)))
              for i in range(FOLDS)]
+    return rparams, folds
+
+
+def check_launched(launches: dict, kernels, path: str) -> None:
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path} did not launch {missing}")
+
+
+def main_path(torch, dev, rparams, folds) -> dict:
+    """Phase 4; returns the kernels' launch counts of the kernel path's run."""
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.ops import kmeans as km
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.serve import SlidePredictor
+
+    g = torch.Generator(device=dev).manual_seed(6)
     slides = {n: torch.randint(0, 256, (n, PATCH, PATCH, 3), generator=g, device=dev,
                                dtype=torch.uint8) for n in (PATCHES, SMALL_SLIDE)}
 
@@ -286,10 +386,9 @@ def main_path(torch, dev, launches: dict) -> None:
         torch.cuda.synchronize()
         secs[n] = time.perf_counter() - t0
         per_slide[n] = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    launches.update(_build.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path did not launch {missing}")
+    launches = dict(_build.LAUNCHES)
+    check_launched(launches, ("stem16", "bottleneck_chain_cp", "vis_blocks_fused",
+                              "lloyd_stats"), "main path")
 
     for n, u8 in slides.items():
         y = preds[n]
@@ -342,6 +441,156 @@ def main_path(torch, dev, launches: dict) -> None:
         stage("vis_folds_s", p.predict_cluster_features, cf)
         emit({"phase": "stages", "path": label, "patches": PATCHES, **stages,
               "lloyd_steps": steps})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving from a whole-slide image
+# ---------------------------------------------------------------------------
+
+def make_slide(torch, dev, seed: int):
+    """A synthetic AppMag-20 slide: an 8192 x 8192 level 0 of background
+    (242) with a textured tissue ellipse over about 75% of it (the colour
+    and texture of tests/test_pipeline_e2e.synthetic_wsi), and a 4x-down
+    level 1, built on the card from a seed and held on the host."""
+    from sequoia_tpu_torch.data.wsi import ArrayReader
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = WSI_SIDE
+    ys = torch.arange(n, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(n, device=dev, dtype=torch.float32)[None, :]
+    ellipse = ((ys - n * (0.5 + 0.01 * seed)) / (0.5 * n)) ** 2 + (
+        (xs - n / 2) / (0.49 * n)) ** 2 < 1
+    tex = torch.randint(-40, 40, (n, n, 3), generator=g, device=dev, dtype=torch.int16)
+    tissue = (torch.tensor([188, 105, 160], dtype=torch.int16, device=dev) + tex
+              ).clamp(0, 255).to(torch.uint8)
+    lv0 = torch.where(ellipse[..., None], tissue, torch.full_like(tissue, 242))
+    levels = [lv0.cpu().numpy(), lv0[::4, ::4].cpu().numpy()]
+    return ArrayReader(levels, properties={"aperio.AppMag": "20"})
+
+
+def wsi_path(torch, dev, rparams, folds) -> dict:
+    """Phase 5; returns the kernels' launch counts of the kernel path's run."""
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.ops import masking
+    from sequoia_tpu_torch.pipeline import patch_gen
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.serve import SlidePredictor
+
+    slides = [make_slide(torch, dev, s) for s in (1, 2)]
+
+    def predictor(kernels: bool, **kw) -> SlidePredictor:
+        rcfg = resnet.ResNetConfig(compute_dtype=torch.bfloat16,
+                                   fused_stages=(1, 2, 3, 4) if kernels else ())
+        ext = FeatureExtractor("resnet", rparams, batch_size=FEAT_BATCH, cfg=rcfg,
+                               patch_size=PATCH, device=dev)
+        return SlidePredictor(ext, folds, n_clusters=K, use_pallas_kmeans=kernels,
+                              use_fused_vis=kernels, patch_size=PATCH, device=dev, **kw)
+
+    def capture(p) -> list:
+        """Record the kept features each predict_features call receives."""
+        seen, orig = [], p.predict_features
+
+        def spy(feats):
+            seen.append(feats)
+            return orig(feats)
+
+        p.predict_features = spy
+        return seen
+
+    fast, plain = predictor(True), predictor(False)
+    warm = torch.randint(0, 256, (SMALL_SLIDE, PATCH, PATCH, 3), device=dev,
+                         dtype=torch.uint8, generator=torch.Generator(device=dev).manual_seed(7))
+    for p in (fast, plain):  # warm-up: cuDNN plans for channels_last, allocator
+        p.predict_patches(warm)
+    n_cands = [len(fast._candidates(s)[1]) for s in slides]
+    torch.cuda.synchronize()
+
+    def serve(p, label: str) -> dict:
+        feats = capture(p)
+        out = {"preds": [], "seconds": [], "kept": [], "launches": []}
+        for s in slides:
+            before, kept0 = dict(_build.LAUNCHES), p.io_stats["kept"]
+            t0 = time.perf_counter()
+            out["preds"].append(p.predict_wsi(s))
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["kept"].append(p.io_stats["kept"] - kept0)
+            out["launches"].append({k: _build.LAUNCHES[k] - before[k] for k in before})
+        t0 = time.perf_counter()
+        out["slides"] = list(p.predict_slides(slides))
+        torch.cuda.synchronize()
+        out["slides_seconds"] = time.perf_counter() - t0
+        out["feats"] = feats[:len(slides)]
+        del p.predict_features
+        return out
+
+    _build.reset_launches()
+    got = serve(fast, "kernels")
+    launches = dict(_build.LAUNCHES)
+    check_launched(launches, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
+                   "WSI path")
+    ref = serve(plain, "plain")
+
+    for i in range(len(slides)):
+        y, want = got["preds"][i], ref["preds"][i]
+        if y.shape != (1, GENES) or not np.isfinite(y).all():
+            raise AssertionError(f"WSI slide {i}: prediction {y.shape} not finite (1, G)")
+        fa, fb = got["feats"][i], ref["feats"][i]
+        feat_rel = float((fa - fb).abs().max() / fb.abs().max())
+        r = pearson(np, y, want)
+        r_slides = pearson(np, got["slides"][i][1], y)
+        emit({"phase": "wsi", "slide": i, "level0": [WSI_SIDE, WSI_SIDE],
+              "candidates": n_cands[i], "kept": got["kept"][i], "kept_plain": ref["kept"][i],
+              "seconds": got["seconds"][i], "plain_seconds": ref["seconds"][i],
+              "launches": got["launches"][i], "features_max_rel_diff": feat_rel,
+              "pearson_r_vs_plain": r, "pearson_r_predict_slides_vs_wsi": r_slides})
+        if got["kept"][i] != ref["kept"][i] or not 0 < got["kept"][i] <= n_cands[i]:
+            raise AssertionError(f"WSI slide {i}: kept {got['kept'][i]} vs plain "
+                                 f"{ref['kept'][i]} of {n_cands[i]} candidates")
+        if feat_rel > 0.05 or r < 0.99 or r_slides < 0.99:
+            raise AssertionError(f"WSI slide {i} disagrees with the plain path")
+
+    # decoding stops once max_patches are kept
+    capped = predictor(True, max_patches=WSI_CAP)
+    decoded, orig = [], capped._decode_chunks
+
+    def counting(candidates, decode_chunk=64, stop=None):
+        for chunk in orig(candidates, decode_chunk, stop):
+            decoded.append(len(chunk))
+            yield chunk
+
+    capped._decode_chunks = counting
+    y = capped.predict_wsi(slides[0])
+    if capped.io_stats["kept"] != WSI_CAP or sum(decoded) >= n_cands[0]:
+        raise AssertionError(f"max_patches={WSI_CAP}: kept {capped.io_stats['kept']}, "
+                             f"decoded {sum(decoded)} of {n_cands[0]} candidates")
+    # where a slide's time goes: the slide mask + candidate grid, then per
+    # batch of candidates the tissue screen and the backbone alone
+    t0 = time.perf_counter()
+    cands = fast._candidates(slides[0])
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    batch = torch.as_tensor(next(fast._decode_chunks(cands, FEAT_BATCH)), device=dev)
+    screen_ms = time_ms(torch, lambda: masking.patch_keep_flags(
+        batch, background_threshold=patch_gen.BACKGROUND_THRESHOLD), 5)
+    backbone_ms = {label: time_ms(torch, lambda p=p: p.extractor.raw_fwd(
+        p.extractor.params, batch), 3) for label, p in (("kernels", fast), ("plain", plain))}
+    emit({"phase": "wsi_summary", "slides": len(slides),
+          "seconds_per_slide": sum(got["seconds"]) / len(slides),
+          "plain_seconds_per_slide": sum(ref["seconds"]) / len(slides),
+          "predict_slides_seconds": got["slides_seconds"],
+          "plain_predict_slides_seconds": ref["slides_seconds"],
+          "bottleneck_chain_launches_per_slide": [
+              lc["bottleneck_chain"] for lc in got["launches"]],
+          "mask_and_grid_s": mask_s, "screen_ms_per_batch": screen_ms,
+          "backbone_ms_per_batch": backbone_ms, "batch": FEAT_BATCH,
+          "capped_run": {"max_patches": WSI_CAP, "kept": capped.io_stats["kept"],
+                         "decoded": sum(decoded), "candidates": n_cands[0],
+                         "finite": bool(np.isfinite(y).all())}})
+    return launches
 
 
 def main() -> int:
@@ -371,7 +620,11 @@ def main() -> int:
 
     results = {}
     for dtype in ("float32", "bfloat16"):
-        for kname, fn in (("stem16", check_stem16), ("bottleneck_chain_cp", check_chain),
+        for kname, fn in (("stem16", check_stem16),
+                          ("bottleneck_chain_cp",
+                           functools.partial(check_chain, kname="bottleneck_chain_cp")),
+                          ("bottleneck_chain",
+                           functools.partial(check_chain, kname="bottleneck_chain")),
                           ("vis_blocks_fused", check_vis)):
             r = fn(torch, dev, dtype)
             emit({"phase": "kernel", "name": kname, "dtype": dtype, **r})
@@ -379,10 +632,14 @@ def main() -> int:
     r = check_lloyd(torch, dev)
     emit({"phase": "kernel", "name": "lloyd_stats", "dtype": "float32", **r})
     results["lloyd_stats"] = r
+    emit({"phase": "extractor_cp_stages", **check_cp_stages(torch, dev)})
     torch.cuda.empty_cache()
 
-    launches = dict.fromkeys(results, 0)
-    main_path(torch, dev, launches)
+    rparams, folds = models(torch, dev)
+    main = main_path(torch, dev, rparams, folds)
+    torch.cuda.empty_cache()
+    wsi = wsi_path(torch, dev, rparams, folds)
+    launches = {k: main[k] + wsi[k] for k in results}
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],

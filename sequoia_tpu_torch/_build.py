@@ -34,12 +34,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"vis_blocks_fused": 0, "stem16": 0,
-                            "bottleneck_chain_cp": 0, "lloyd_stats": 0}
+                            "bottleneck_chain_cp": 0, "bottleneck_chain": 0,
+                            "lloyd_stats": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "sq_conv_gemm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _I, _P],
+    "sq_pc_gemm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _P],
     "sq_lloyd_stats": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "sq_vis_blocks": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P],

@@ -1,7 +1,7 @@
-"""ResNet-50 feature extractor: ``(B, H, W, 3)`` normalized patches ->
-``(B, 2048)`` features, as the reference's ``forward_extract``.
+"""ResNet feature extractor: ``(B, H, W, C)`` normalized patches ->
+``(B, feature_dim)`` features, as the reference's ``forward_extract``.
 
-Counterpart of ``sequoia_tpu/models/resnet.py:38-429``.  Same public layout
+Counterpart of ``sequoia_tpu/models/resnet.py``.  Same public layout
 (``forward_extract`` takes channels-last images), same config fields, eval-BN
 folded at load time into ``{"scale", "bias"}`` per channel.  Inside, the
 port works in PyTorch's NCHW with OIHW conv weights.  The reference's
@@ -9,13 +9,23 @@ port works in PyTorch's NCHW with OIHW conv weights.  The reference's
 (on the 8x8 layer4 map of a 256-px patch only the top-left 7x7 window),
 flattened channel-major, and a global mean below 7x7.
 
-``ResNetConfig.early_pallas`` runs stem + maxpool + layer1 through the CUDA
-kernels K2 ``stem16`` and K3 ``bottleneck_chain_cp`` (``ops/cuda_resnet.py``;
-the flag keeps its JAX name).  The other convolutions (the stride-2
-transition blocks and layers 2-4) run as ``F.conv2d``, with TF32 off
-(``ops.nn.precision``), as the JAX package leaves them to XLA.
-``fused_stages`` and ``cp_stages`` need kernel K4 and its stage wiring, which
-are not ported yet (ROADMAP.md): they raise.
+The kernel options keep their JAX names and their JAX precedence, stage by
+stage: ``early_pallas`` takes stem + maxpool + layer1 through K2 ``stem16``
+and K3 ``bottleneck_chain_cp``; then a stage in ``fused_stages`` runs its
+stride-1 blocks through K4 ``bottleneck_chain`` in the (P, C) layout; then a
+stage in ``cp_stages`` runs them through K3 in the (C, P) layout; else the
+plain block loop (``ops/cuda_resnet.py``).  The stride-2 transition blocks
+and every block outside those stages run as ``F.conv2d``, with TF32 off
+(``ops.nn.precision``), as the JAX package leaves them to XLA.  With
+``fused_stages`` the backbone runs in ``torch.channels_last``, so K4's
+``(B, H*W, C)`` view of a stage is a view, not a transpose; a stage of
+``cp_stages`` or ``early_pallas`` wants NCHW and pays one copy where the two
+layouts meet.
+
+Also here: basic blocks (resnet18/34), ``config_for_depth``, the 4- and
+1-channel variants (reference ``RNfour``/``RNone``, ``pool_stride=1``) and
+the ``ResNetProject`` head (``sequoia_tpu/models/resnet.py:104-148,
+437-505``).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from sequoia_tpu_torch.ops import cuda_resnet
 from sequoia_tpu_torch.ops.nn import compute_dtype as _dtype
+from sequoia_tpu_torch.utils import torch_init
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -43,11 +54,12 @@ Params = dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
-    """``block='bottleneck'`` covers resnet50/101/152 (``'basic'``,
-    resnet18/34, is not ported yet).  ``early_pallas`` switches the K2/K3
-    CUDA kernels on for stem + maxpool + layer1; ``fused_stages`` /
-    ``cp_stages`` are not ported yet; ``pool_stride`` is the AvgPool2d(7)
-    stride (1 for the reference's RNfour/RNone variants)."""
+    """``block='bottleneck'`` covers resnet50/101/152; ``'basic'`` covers
+    resnet18/34.  ``early_pallas`` switches the K2/K3 CUDA kernels on for
+    stem + maxpool + layer1; ``fused_stages`` (1-based) runs those stages'
+    stride-1 blocks through K4, ``cp_stages`` through K3; ``pool_stride`` is
+    the AvgPool2d(7) stride (1 for the reference's RNfour/RNone
+    variants)."""
 
     compute_dtype: Any = torch.float32
     blocks_per_stage: tuple[int, ...] = BLOCKS_PER_STAGE
@@ -77,6 +89,17 @@ class ResNetConfig:
         return self.feature_dim
 
 
+DEPTH_TO_STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+                   101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+def config_for_depth(depth: int, compute_dtype=torch.float32) -> ResNetConfig:
+    """resnet{18,34,50,101,152} configs (reference resnet.py constructors)."""
+    return ResNetConfig(compute_dtype=compute_dtype,
+                        blocks_per_stage=DEPTH_TO_STAGES[depth],
+                        block="basic" if depth in (18, 34) else "bottleneck")
+
+
 def _conv(x, w, stride=1):
     """NCHW conv with OIHW weights, torch padding k//2."""
     return F.conv2d(x, w.to(x.dtype), stride=stride, padding=w.shape[-1] // 2)
@@ -91,6 +114,15 @@ def _bottleneck(x, p, stride):
     y = torch.relu(_bn(_conv(x, p["conv1"]), p["bn1"]))
     y = torch.relu(_bn(_conv(y, p["conv2"], stride), p["bn2"]))
     y = _bn(_conv(y, p["conv3"]), p["bn3"])
+    if "downsample_conv" in p:
+        x = _bn(_conv(x, p["downsample_conv"], stride), p["downsample_bn"])
+    return torch.relu(y + x)
+
+
+def _basic_block(x, p, stride):
+    """torchvision BasicBlock (resnet18/34): two 3x3 convs, expansion 1."""
+    y = torch.relu(_bn(_conv(x, p["conv1"], stride), p["bn1"]))
+    y = _bn(_conv(y, p["conv2"]), p["bn2"])
     if "downsample_conv" in p:
         x = _bn(_conv(x, p["downsample_conv"], stride), p["downsample_bn"])
     return torch.relu(y + x)
@@ -138,16 +170,11 @@ def _early_pallas(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward_extract(cfg: ResNetConfig, params: Params, images: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) normalized float -> (B, feature_dim_for(H, W)) f32."""
-    if cfg.fused_stages or cfg.cp_stages:
-        raise NotImplementedError("fused_stages / cp_stages need kernel K4 "
-                                  "bottleneck_chain, not ported yet (ROADMAP.md)")
-    if cfg.block != "bottleneck":
-        raise NotImplementedError("basic-block ResNets (resnet18/34) are not "
-                                  "ported yet (ROADMAP.md)")
+    """(B, H, W, C) normalized float -> (B, feature_dim_for(H, W)) f32."""
     x = images.to(_dtype(cfg.compute_dtype))
+    layout = torch.channels_last if cfg.fused_stages else torch.contiguous_format
     start_stage = 0
-    if (cfg.early_pallas and x.shape[3] == 3
+    if (cfg.early_pallas and cfg.block == "bottleneck" and x.shape[3] == 3
             and "conv1_s2d" in params and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0):
         x = _early_pallas(params, x)
         start_stage = 1
@@ -157,14 +184,51 @@ def forward_extract(cfg: ResNetConfig, params: Params, images: torch.Tensor) -> 
         else:
             x = _conv(x.permute(0, 3, 1, 2), params["conv1"], stride=2)
         x = F.max_pool2d(torch.relu(_bn(x, params["bn1"])), 3, 2, 1)
+    x = x.contiguous(memory_format=layout)
+    block_fn = _bottleneck if cfg.block == "bottleneck" else _basic_block
     for s in range(start_stage, len(cfg.blocks_per_stage)):
-        for i, blk in enumerate(params[f"layer{s + 1}"]):
-            x = _bottleneck(x, blk, 2 if (s > 0 and i == 0) else 1)
+        blocks = params[f"layer{s + 1}"]
+        start = 0
+        if s > 0:  # the stride-2 transition block stays F.conv2d
+            x = block_fn(x, blocks[0], 2)
+            start = 1
+        chain = cfg.block == "bottleneck" and len(blocks) > start
+        if chain and (s + 1) in cfg.fused_stages:
+            x = _fused_chain(x, blocks, start)
+        elif chain and (s + 1) in cfg.cp_stages:
+            x = _fused_chain_cp(x, blocks, start).contiguous(memory_format=layout)
+        else:
+            for blk in blocks[start:]:
+                x = block_fn(x, blk, 1)
     x = x.float()
     if x.shape[2] >= 7 and x.shape[3] >= 7:
         # AvgPool2d(7) with fixed windows, flattened channel-major
         return F.avg_pool2d(x, 7, stride=cfg.pool_stride).reshape(x.shape[0], -1)
     return x.mean((2, 3))  # maps below 7x7: global mean (small test inputs)
+
+
+def _fused_chain(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
+    """Run blocks[start:] (all stride 1) through K4 in the (P, C) layout.
+    The JAX row-chunk rule is kept: whole rows, at most 512 pixels for bf16
+    and 256 for f32."""
+    b, c, h, w = x.shape
+    flat, meta = cuda_resnet.stage_chain_weights(blocks, start, x.dtype)
+    target = 512 if x.dtype == torch.bfloat16 else 256
+    rows = min(h, max(1, target // w))
+    while (h * w) % (w * rows):
+        rows -= 1
+    # a view for a channels_last x: (B, H, W, C) is its storage order
+    out = cuda_resnet.bottleneck_chain(x.permute(0, 2, 3, 1).reshape(b, h * w, c), flat,
+                                       meta=meta, H=h, W=w, row_chunk=w * rows)
+    return out.reshape(b, h, w, meta[-1][2]).permute(0, 3, 1, 2)
+
+
+def _fused_chain_cp(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
+    """Run blocks[start:] (all stride 1) through K3 in the (C, P) layout."""
+    b, c, h, w = x.shape
+    flat, meta = cuda_resnet.stage_chain_weights_cp(blocks, start, x.dtype)
+    out = cuda_resnet.bottleneck_chain_cp(x.reshape(b, c, h * w), flat, meta=meta, H=h, W=w)
+    return out.reshape(b, meta[-1][2], h, w)
 
 
 def preprocess_uint8(images_u8: torch.Tensor) -> torch.Tensor:
@@ -268,3 +332,76 @@ def random_params(gen: torch.Generator, dtype=torch.float32) -> Params:
             cin = cout
         params[f"layer{s + 1}"] = layer
     return enable_s2d_stem(params)
+
+
+# ---------------------------------------------------------------------------
+# Variants (reference src/resnet.py RNfour / RNone / ResNetProject: not used by
+# the main pipeline, part of the API surface)
+# ---------------------------------------------------------------------------
+
+def random_params_channels(gen: torch.Generator, in_channels: int,
+                           dtype=torch.float32) -> Params:
+    """ResNet-50 with a non-RGB stem (4-channel fluorescence / 1-channel
+    grayscale variants); the space-to-depth stem is rebuilt for it."""
+    params = random_params(gen, dtype)
+    cout, _, kh, kw = params["conv1"].shape
+    w = torch.randn((cout, in_channels, kh, kw), generator=gen, dtype=dtype, device=gen.device)
+    params["conv1"] = w * float(np.sqrt(2.0 / (kh * kw * in_channels)))
+    params.pop("conv1_s2d", None)
+    return enable_s2d_stem(params)
+
+
+def resnet50_4channel(gen: torch.Generator | None = None, sd=None) -> Params:
+    """4-channel-input ResNet-50 (reference ``RNfour``).  Run with
+    ``ResNetConfig(pool_stride=1)``: RNfour pools ``AvgPool2d(7, stride=1)``."""
+    if sd is not None:
+        return resnet50_from_torch(sd)
+    return random_params_channels(gen, 4)
+
+
+def resnet50_1channel(gen: torch.Generator | None = None, sd=None) -> Params:
+    """1-channel-input ResNet-50 (reference ``RNone``).  Run with
+    ``ResNetConfig(pool_stride=1)``."""
+    if sd is not None:
+        return resnet50_from_torch(sd)
+    return random_params_channels(gen, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetProjectConfig:
+    """Reference ``ResNetProject``: backbone embedding -> Linear(hdim) ->
+    tanh -> dropout -> Linear(1)."""
+
+    hdim: int = 200
+    input_dim: int = 2048
+    dropout: float = 0.3
+    compute_dtype: Any = torch.float32
+
+
+def resnet_project_init(cfg: ResNetProjectConfig, gen: torch.Generator) -> Params:
+    pw, pb = torch_init.linear_params(gen, cfg.input_dim, cfg.hdim)
+    fw, fb = torch_init.linear_params(gen, cfg.hdim, 1)
+    return {"project_w": pw, "project_b": pb, "fc_w": fw, "fc_b": fb}
+
+
+def resnet_project_extract(cfg: ResNetProjectConfig, proj_params: Params,
+                           backbone_params: Params, images: torch.Tensor, *,
+                           train: bool = False, gen: torch.Generator | None = None
+                           ) -> torch.Tensor:
+    """Backbone features -> tanh(Linear(hdim)), dropout (from ``gen``) when
+    training."""
+    feats = forward_extract(ResNetConfig(cfg.compute_dtype), backbone_params, images)
+    x = torch.tanh(feats @ proj_params["project_w"] + proj_params["project_b"])
+    if train and cfg.dropout > 0:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - cfg.dropout
+        x = torch.where(keep, x / (1.0 - cfg.dropout), torch.zeros((), device=x.device))
+    return x
+
+
+def resnet_project_forward(cfg: ResNetProjectConfig, proj_params: Params,
+                           backbone_params: Params, images: torch.Tensor, *,
+                           train: bool = False, gen: torch.Generator | None = None
+                           ) -> torch.Tensor:
+    x = resnet_project_extract(cfg, proj_params, backbone_params, images,
+                               train=train, gen=gen)
+    return x @ proj_params["fc_w"] + proj_params["fc_b"]

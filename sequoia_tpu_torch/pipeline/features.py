@@ -4,7 +4,10 @@ per-patch embeddings.
 Counterpart of ``sequoia_tpu/pipeline/features.py:34-144`` (the in-memory
 ``FeatureExtractor``).  Patches travel to the device as uint8 in fixed
 ``batch_size`` blocks, the tail block zero-padded to the full batch; the
-ImageNet normalization runs on the device with the backbone.  Only
+ImageNet normalization runs on the device with the backbone.  ``raw_fwd``
+is the backbone as one ``(params, u8) -> (N, D)`` function honouring
+``cfg``, so a caller can run more device work on the same uploaded batch
+(serving's tissue screen, ``serve.SlidePredictor._fused_program``).  Only
 ``feat_type="resnet"`` is ported; the UNI backbone, the mesh (multi-device)
 mode and the HDF5 feature stage (``compute_features``) are not yet
 (ROADMAP.md).
@@ -51,7 +54,13 @@ class FeatureExtractor:
         self.params = tree_to(params, self.device)
 
     def upload(self, block_u8: np.ndarray) -> torch.Tensor:
+        """Host block -> the extractor's device."""
         return torch.as_tensor(block_u8).to(self.device, non_blocking=True)
+
+    def raw_fwd(self, params, u8: torch.Tensor) -> torch.Tensor:
+        """(N, ps, ps, 3) uint8 on the device -> (N, D) f32 features through
+        ``cfg`` (its kernel options included)."""
+        return resnet_mod.extract_from_uint8(self.cfg, params, u8)
 
     @torch.no_grad()
     def features(self, patches_u8) -> torch.Tensor:
@@ -69,7 +78,7 @@ class FeatureExtractor:
                 pad = torch.zeros((bs - m,) + tuple(block.shape[1:]), dtype=block.dtype,
                                   device=block.device)
                 block = torch.cat([block, pad])
-            feats = resnet_mod.extract_from_uint8(self.cfg, self.params, block)
+            feats = self.raw_fwd(self.params, block)
             out[start:start + m] = feats[:m]
         return out
 

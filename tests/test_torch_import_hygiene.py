@@ -47,7 +47,9 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("sequoia_tpu_torch/serve.py", "sequoia_tpu_torch/ops/cuda_vis.py",
                  "sequoia_tpu_torch/ops/cuda_resnet.py",
-                 "sequoia_tpu_torch/ops/cuda_kmeans.py", "chip_smoke.py"):
+                 "sequoia_tpu_torch/ops/cuda_kmeans.py", "sequoia_tpu_torch/ops/masking.py",
+                 "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
+                 "chip_smoke.py"):
         assert want in names
 
 
@@ -104,9 +106,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.models import resnet, vis
     from sequoia_tpu_torch.ops import kmeans
     from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.pipeline.fused import make_slide_program
+    from sequoia_tpu_torch.serve import SlidePredictor
 
     params = resnet.random_params(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -116,10 +120,13 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         kmeans.kmeans_cluster_features(np.zeros((8, 4), np.float32), n_clusters=2,
                                        backend="sklearn", device="cpu")
-    x = torch.zeros((1, 32, 32, 3))
-    for cfg in (resnet.ResNetConfig(fused_stages=(2,)), resnet.ResNetConfig(cp_stages=(3,))):
+    cfg = vis.ViSConfig(num_outputs=4, input_dim=256, depth=1, nheads=4, dim_f=32,
+                        dim_s=32, dim_c=32, num_clusters=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_slide_program(params, cfg, {}, backbone="uni", device="cpu")
+    for model_type in ("vit", "he2rna"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            resnet.forward_extract(cfg, params, x)
+            SlidePredictor(None, [], model_type=model_type, device="cpu")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
