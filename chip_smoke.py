@@ -16,24 +16,32 @@ Phases, each printing one JSON line:
    same function (K1: the plain ``vis`` block loop on cuBLAS; K2, K3, K4:
    cuDNN ``F.conv2d`` + BN + ReLU of the same layers; K5: a distance GEMM,
    argmin and ``index_add_``), and the bound (the least time the card could
-   take for the same work).  K3 and K4 are timed at layer1's shape and also
-   checked and timed at the three stage tails (layers 2-4 after their
-   stride-2 block); then ResNet ``early_pallas`` + ``cp_stages=(2, 3, 4)``
-   on one batch against the plain extractor;
+   take for the same work).  K3 and K4 (bf16: the tensor-core kernel of
+   ``conv_wgmma.cu``; f32: the FMA kernels of ``conv_gemm.cu``) are timed at
+   layer1's shape and also checked and timed at the three stage tails
+   (layers 2-4 after their stride-2 block) and, in bf16, checked at three
+   off-path edge shapes, each with its share of the bound and TFLOP/s; then
+   a ``chain_totals`` line (K3 and K4 per extractor batch, layer1 + tails,
+   kernel against library), a ``chain_weight_fold`` line (the per-batch cost
+   of folding and casting each stage's chain weights, as every forward
+   does), and ResNet ``early_pallas`` + ``cp_stages=(2, 3, 4)`` on one batch
+   against the plain extractor;
 4. main path: a ``SlidePredictor`` with random ResNet-50 and 5-fold ViS
    weights at full width (D=2048, depth 6, 16 heads, 20,820 genes, bf16),
    ResNet ``early_pallas``, k-means ``use_pallas`` and the fused ViS, runs
    ``predict_patches`` on a 4096-patch and a 60-patch slide of random 256-px
    patches; every launch counter must rise, the outputs must be finite
    (1, 20820), and the same slides through the plain versions must agree;
+   then a ``torch.profiler`` trace of one extractor batch of each predictor
+   (device ms by kernel, idle share) and each stage's time;
 5. WSI path: two synthetic AppMag-20 slides (8192 x 8192 level 0 with a
    textured tissue ellipse over about 75% of it, a 4x-down level 1) served
-   from the slide with
-   ``predict_wsi`` one by one and ``predict_slides`` over both: tissue
-   screen -> ResNet-50 with ``fused_stages=(1, 2, 3, 4)`` (K4) -> k-means
-   (K5) -> 5-fold ViS (K1), against a plain predictor (same kept patches,
-   features within 5%, Pearson r >= 0.99), then a run at
-   ``max_patches=256`` that must stop decoding early.
+   from the slide with ``predict_wsi`` one by one and ``predict_slides``
+   over both: tissue screen -> ResNet-50 with ``fused_stages=(1, 2, 3, 4)``
+   (K4) -> k-means (K5) -> 5-fold ViS (K1), against a plain predictor (same
+   kept patches, features within 5%, Pearson r >= 0.99), then a run at
+   ``max_patches=256`` that must stop decoding early, and the same trace of
+   one batch of candidates.
 
 The last lines are the kernels table (``launches`` sums the counts of the
 two paths' runs, each read from 0), the ``nvidia-smi`` line and
@@ -58,6 +66,11 @@ PATCHES, SMALL_SLIDE, PATCH, FEAT_BATCH = 4096, 60, 256, 128
 K, KPAD, D, GENES, FOLDS = 100, 128, 2048, 20820, 5
 # the ResNet chain shapes at 256 px: (stage, first stride-1 block, map side)
 CHAIN_LAYER1, CHAIN_TAILS = (1, 0, 64), ((2, 1, 32), (3, 1, 16), (4, 1, 8))
+# off-path chain shapes for the edges of the bf16 tensor-core kernel: (batch,
+# stage, first block, H, W): a projection block first over 8 x 16 maps, one
+# 8 x 8 image (fewer rows than a tile), and 9 x 15 maps (tiles that straddle
+# images, a ragged last tile)
+CHAIN_EDGES = ((3, 1, 0, 8, 16), (1, 4, 1, 8, 8), (2, 2, 0, 9, 15))
 # the WSI path: level-0 side, the early-stop run's cap
 WSI_SIDE, WSI_CAP = 8192, 256
 
@@ -81,9 +94,11 @@ SOURCES = {
                          "sequoia_tpu/ops/pallas_vis.py:255"),
     "stem16": ("sequoia_tpu_torch/csrc/conv_gemm.cu",
                "sequoia_tpu/ops/pallas_resnet.py:285"),
-    "bottleneck_chain_cp": ("sequoia_tpu_torch/csrc/conv_gemm.cu",
+    # the kernels line reports K3/K4's bf16 row: the tensor-core kernel (f32
+    # runs the FMA kernels of conv_gemm.cu)
+    "bottleneck_chain_cp": ("sequoia_tpu_torch/csrc/conv_wgmma.cu",
                             "sequoia_tpu/ops/pallas_resnet.py:377"),
-    "bottleneck_chain": ("sequoia_tpu_torch/csrc/conv_gemm.cu",
+    "bottleneck_chain": ("sequoia_tpu_torch/csrc/conv_wgmma.cu",
                          "sequoia_tpu/ops/pallas_resnet.py:151"),
     "lloyd_stats": ("sequoia_tpu_torch/csrc/lloyd_stats.cu",
                     "sequoia_tpu/ops/pallas_kmeans.py:81"),
@@ -110,6 +125,38 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profile_batch(torch, fn, iters: int = 3) -> dict:
+    """Device time of fn (one extractor batch) by kernel name from a
+    torch.profiler trace, and the device's idle share of the traced window
+    (host clock, ending in a synchronize; the profiler's own host cost is in
+    the window, so the share is an upper estimate)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # warm-up: the tracer's own start-up stays out
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms_per_batch": wall_ms / iters, "device_ms_per_batch": busy_ms / iters,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "device_events_per_batch": sum(n for _, n in by_name.values()) / iters,
+            "top": [{"kernel": k[:90], "ms_per_batch": ms / iters, "calls_per_batch": n / iters}
+                    for k, (ms, n) in top]}
 
 
 def nbytes(*ts) -> int:
@@ -167,8 +214,10 @@ def check_stem16(torch, dev, dtype: str) -> dict:
 
 def check_chain(torch, dev, dtype: str, kname: str) -> dict:
     """K3 (``bottleneck_chain_cp``, (C, P)) or K4 (``bottleneck_chain``,
-    (P, C)) against its plain version at layer1 and the three stage tails;
-    the row's numbers are layer1's, the tails' go under ``tails``."""
+    (P, C)) against its plain version at layer1 and the three stage tails
+    and, in bf16 (the tensor-core route), at the off-path edge shapes; the
+    row's numbers are layer1's, the tails' go under ``tails``, the edges'
+    under ``edges``."""
     from sequoia_tpu_torch.models import resnet
     from sequoia_tpu_torch.ops import cuda_resnet as cr
 
@@ -180,20 +229,24 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(2)
     dt = getattr(torch, dtype)
     params = resnet.random_params(g)
-    res, tails = None, []
-    for stage, start, H in (CHAIN_LAYER1, *CHAIN_TAILS):
+    shapes = [(FEAT_BATCH, stage, start, H, H) for stage, start, H in (CHAIN_LAYER1,
+                                                                       *CHAIN_TAILS)]
+    if dtype == "bfloat16":
+        shapes += CHAIN_EDGES
+    res, tails, edges = None, [], []
+    for batch, stage, start, H, W in shapes:
         blocks = params[f"layer{stage}"]
         flat, meta = fold(blocks, start, dt)
-        x = torch.relu(torch.randn((FEAT_BATCH, meta[0][0], H * H), generator=g,
+        x = torch.relu(torch.randn((batch, meta[0][0], H * W), generator=g,
                                    device=dev)).to(dt)
         xk = x.transpose(1, 2).contiguous() if pc else x
-        run = lambda: kernel(xk, flat, meta=meta, H=H, W=H)  # noqa: E731
-        plain = lambda: plain_fn(xk, flat, meta=meta, H=H, W=H)  # noqa: E731
+        run = lambda: kernel(xk, flat, meta=meta, H=H, W=W)  # noqa: E731
+        plain = lambda: plain_fn(xk, flat, meta=meta, H=H, W=W)  # noqa: E731
         out = run()
         r = compare(torch, kname, dtype, out, plain())
         # yardstick: cuDNN's conv + BN + ReLU chain of the same blocks (the
         # plain extractor's own loop), in the layout the kernel's path uses
-        x4 = x.reshape(FEAT_BATCH, -1, H, H).contiguous(
+        x4 = x.reshape(batch, -1, H, W).contiguous(
             memory_format=torch.channels_last if pc else torch.contiguous_format)
 
         def lib(x4=x4, blocks=blocks[start:]):
@@ -201,18 +254,52 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
                 x4 = resnet._bottleneck(x4, blk, 1)
             return x4
 
-        flops = 2 * FEAT_BATCH * H * H * sum(ci * w + 9 * w * w + w * co
-                                             + (ci * co if ds else 0)
-                                             for ci, w, co, ds in meta)
+        flops = 2 * batch * H * W * sum(ci * w + 9 * w * w + w * co + (ci * co if ds else 0)
+                                        for ci, w, co, ds in meta)
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes(x, out, *flat), flops, dtype)
-        r.update(ms=time_ms(torch, run, 3), library_ms=time_ms(torch, lib, 3))
-        if stage == CHAIN_LAYER1[0]:
+        r.update(ms=time_ms(torch, run, 10), library_ms=time_ms(torch, lib, 10))
+        r.update(bound_share=r["bound_ms"] / r["ms"], tflops=flops / r["ms"] / 1e9)
+        if (batch, stage, start, H) == (FEAT_BATCH, *CHAIN_LAYER1):
             r["plain_ms"] = time_ms(torch, plain, 2)
             res = r
-        else:
+        elif batch == FEAT_BATCH:
             tails.append({"stage": stage, "map": H, **r})
-    res["tails"] = tails
+        else:
+            edges.append({"batch": batch, "stage": stage, "first_block": start,
+                          "map": [H, W], **r})
+    res["tails"], res["edges"] = tails, edges
     return res
+
+
+def chain_totals(results: dict) -> dict:
+    """K3's and K4's per-extractor-batch time (layer1 + the three tails),
+    kernel against library, from their bf16 rows."""
+    out = {}
+    for kname in ("bottleneck_chain", "bottleneck_chain_cp"):
+        rows = [results[kname], *results[kname]["tails"]]
+        out[kname] = {key: sum(r[key] for r in rows)
+                      for key in ("ms", "library_ms", "bound_ms")}
+        out[kname]["kernel_over_library"] = out[kname]["ms"] / out[kname]["library_ms"]
+    return out
+
+
+def time_weight_folds(torch, dev) -> dict:
+    """The per-batch cost of folding and casting the chain weights, which
+    models/resnet.py does on every forward (stage_chain_weights* per chained
+    stage: layer1 from block 0, the tails from block 1), bf16, device ms per
+    stage and in all."""
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.ops import cuda_resnet as cr
+
+    params = resnet.random_params(torch.Generator(device=dev).manual_seed(8))
+    out = {}
+    for kname, fold in (("bottleneck_chain", cr.stage_chain_weights),
+                        ("bottleneck_chain_cp", cr.stage_chain_weights_cp)):
+        ms = {f"layer{stage}": time_ms(torch, lambda fold=fold, stage=stage, start=start: fold(
+            params[f"layer{stage}"], start, torch.bfloat16), 5)
+              for stage, start, _ in (CHAIN_LAYER1, *CHAIN_TAILS)}
+        out[kname] = {**ms, "all": sum(ms.values())}
+    return out
 
 
 def check_cp_stages(torch, dev) -> dict:
@@ -416,9 +503,14 @@ def main_path(torch, dev, rparams, folds) -> dict:
         if vis_r < 0.999 or feat_rel > 0.05 or r < 0.99:
             raise AssertionError(f"{n}-patch slide disagrees with the plain path")
 
-    # where a slide's time goes: each stage of predict_patches alone, host
-    # clock around work that ends in a synchronize
+    # where a slide's time goes: one extractor batch traced, then each stage
+    # of predict_patches alone, host clock around work that ends in a
+    # synchronize
     u8 = slides[PATCHES]
+    for label, p in (("kernels", fast), ("plain", plain)):
+        emit({"phase": "profile", "path": "from_patches", "predictor": label,
+              "batch": FEAT_BATCH, **profile_batch(torch, lambda p=p: p.extractor.raw_fwd(
+                  p.extractor.params, u8[:FEAT_BATCH]))})
     for label, p in (("kernels", fast), ("plain", plain)):
         stages = {}
 
@@ -578,6 +670,10 @@ def wsi_path(torch, dev, rparams, folds) -> dict:
         batch, background_threshold=patch_gen.BACKGROUND_THRESHOLD), 5)
     backbone_ms = {label: time_ms(torch, lambda p=p: p.extractor.raw_fwd(
         p.extractor.params, batch), 3) for label, p in (("kernels", fast), ("plain", plain))}
+    for label, p in (("kernels", fast), ("plain", plain)):
+        emit({"phase": "profile", "path": "wsi", "predictor": label, "batch": FEAT_BATCH,
+              **profile_batch(torch, lambda p=p: p.extractor.raw_fwd(p.extractor.params,
+                                                                     batch))})
     emit({"phase": "wsi_summary", "slides": len(slides),
           "seconds_per_slide": sum(got["seconds"]) / len(slides),
           "plain_seconds_per_slide": sum(ref["seconds"]) / len(slides),
@@ -632,6 +728,10 @@ def main() -> int:
     r = check_lloyd(torch, dev)
     emit({"phase": "kernel", "name": "lloyd_stats", "dtype": "float32", **r})
     results["lloyd_stats"] = r
+    emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
+          **chain_totals(results)})
+    emit({"phase": "chain_weight_fold", "dtype": "bfloat16", "per": "extractor batch",
+          **time_weight_folds(torch, dev)})
     emit({"phase": "extractor_cp_stages", **check_cp_stages(torch, dev)})
     torch.cuda.empty_cache()
 

@@ -11,11 +11,14 @@ row-padded space-to-depth input ``(B, 16, (H2+3)*W2)`` and returns
 (NHWC flattened).  The weight folding functions take the port's OIHW conv
 weights.
 
-On CUDA tensors all three run the CUDA kernels of ``csrc/conv_gemm.cu``
-(which says what bounds them on the H100 and what their design does about
-it); on CPU tensors they run the plain PyTorch versions beside them.  All
-round to the compute type where the Pallas kernels do: after each ReLU of
-y1, y2 and the block output.
+On CUDA tensors all three run CUDA kernels (each source says what bounds
+it on the H100 and what its design does about it): ``stem16`` and the f32
+chains the CUDA-core kernels of ``csrc/conv_gemm.cu``; the bf16 chains, K3
+and K4 alike, the tensor-core (``wgmma``) kernel of ``csrc/conv_wgmma.cu`` in
+the (P, C) layout, K3 after a transpose in (its last launch writes the
+(C, P) layout).  On CPU tensors they run the plain PyTorch versions beside
+them.  All round to the compute type where the Pallas kernels do: after each
+ReLU of y1, y2 and the block output.
 """
 
 from __future__ import annotations
@@ -215,6 +218,9 @@ def bottleneck_chain_cp(x: torch.Tensor, flat_weights: tuple, *, meta: tuple,
     _check("bottleneck_chain_cp", x, *flat_weights)
     if not x.is_cuda:
         return bottleneck_chain_cp_plain(x, flat_weights, meta=meta, H=H, W=W)
+    if x.dtype == torch.bfloat16:  # the (C_out, K) weights are a K-major B
+        return _tc_chain(x.transpose(1, 2).contiguous(), flat_weights, meta=meta, W=W,
+                         kmajor=True, out_cp=True, counter="bottleneck_chain_cp")
     cd = x.dtype
     x = x.contiguous()
     for i, (ci, width, cout, has_ds) in enumerate(meta):
@@ -294,6 +300,9 @@ def bottleneck_chain(x: torch.Tensor, flat_weights: tuple, *, meta: tuple, H: in
     _check("bottleneck_chain", x, *flat_weights)
     if not x.is_cuda:
         return bottleneck_chain_plain(x, flat_weights, meta=meta, H=H, W=W)
+    if x.dtype == torch.bfloat16:
+        return _tc_chain(x.contiguous(), flat_weights, meta=meta, W=W, kmajor=False,
+                         counter="bottleneck_chain")
     cd = x.dtype
     x = x.contiguous()
     for i, (ci, width, cout, has_ds) in enumerate(meta):
@@ -312,4 +321,94 @@ def bottleneck_chain(x: torch.Tensor, flat_weights: tuple, *, meta: tuple, H: in
             _launch_pc(_PC_PLAIN, y2, w3, b3, out, K=width, N=cout, R=x)
         _build.count_launch("bottleneck_chain", 3)
         x = out
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core route (csrc/conv_wgmma.cu), shared by K3 and K4
+# ---------------------------------------------------------------------------
+
+def _wg_check(mode, X, Wop, bias, *, K, N, C=0, K1=0, X2=None, R=None) -> None:
+    """Raise on what the tensor-core kernel does not take: it reads bf16 in
+    16-byte chunks of 8 channels from contiguous, 16-byte aligned tensors."""
+    ops = [t for t in (X, Wop, X2, R) if t is not None]
+    for t in ops:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"pc_wgmma: the tensor-core route takes bf16, got {t.dtype}")
+    for t in (*ops, bias):
+        if t.device != X.device:
+            raise ValueError("pc_wgmma: operands on different devices")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("pc_wgmma: operands must be contiguous and 16-byte aligned")
+    if mode == _PC_TAPS3 and (C % 8 or K != 9 * C):
+        raise ValueError(f"pc_wgmma: the 3x3 taps need C % 8 == 0 and K == 9*C, "
+                         f"got C={C}, K={K}")
+    if K % 8 or N % 8:
+        raise ValueError(f"pc_wgmma: K={K} and N={N} must be multiples of 8")
+    if mode == _PC_CONCAT and (K1 % 8 or not 0 < K1 < K):
+        raise ValueError(f"pc_wgmma: the concat split K1={K1} must be a multiple of 8 "
+                         f"inside K={K}")
+    if bias.numel() != N or bias.dtype != torch.float32:
+        raise ValueError(f"pc_wgmma: bias must be {N} f32 values")
+
+
+def _wg_gemm_plain(mode, X, Wop, bias, *, K, N, kmajor, W=1, C=0, X2=None, R=None,
+                   K1=0, out_cp=False) -> torch.Tensor:
+    """Plain PyTorch version of one tensor-core launch (same operands)."""
+    if mode == _PC_TAPS3:
+        a = torch.cat([_shifted(X, W, dy, dx, dim=-2) for dy, dx in TAPS], dim=-1)
+    elif mode == _PC_CONCAT:
+        a = torch.cat([X, X2], dim=-1)
+    else:
+        a = X
+    w = Wop.t() if kmajor else Wop
+    y = torch.matmul(a.float(), w.float()) + bias.reshape(-1)
+    if R is not None:
+        y = y + R.float()
+    y = torch.relu(y).to(X.dtype)
+    return y.transpose(1, 2).contiguous() if out_cp else y
+
+
+def _wg_gemm(mode, X, Wop, bias, *, K, N, kmajor, counter, W=1, C=0, X2=None, R=None,
+             K1=0, out_cp=False) -> torch.Tensor:
+    """One bf16 tensor-core GEMM per image: (B, P, N) = relu(Aop(X[b]) . B +
+    bias [+ R[b]]), B = ``Wop`` stored (K, N), or (N, K) when ``kmajor``;
+    ``out_cp`` returns it as (B, N, P)."""
+    _wg_check(mode, X, Wop, bias, K=K, N=N, C=C, K1=K1, X2=X2, R=R)
+    if not X.is_cuda:
+        return _wg_gemm_plain(mode, X, Wop, bias, K=K, N=N, kmajor=kmajor, W=W, C=C,
+                              X2=X2, R=R, K1=K1, out_cp=out_cp)
+    B, P = X.shape[0], X.shape[1]
+    out = torch.empty((B, N, P) if out_cp else (B, P, N), dtype=X.dtype, device=X.device)
+    rc = _build.library().sq_pc_wgmma(
+        mode, int(kmajor), X.data_ptr(), None if X2 is None else X2.data_ptr(),
+        Wop.data_ptr(), bias.data_ptr(), None if R is None else R.data_ptr(),
+        out.data_ptr(), B * P, P, K, K1, N, W, C, int(out_cp), _build.stream_ptr(X))
+    _build.check(rc, "pc_wgmma")
+    _build.count_launch(counter)
+    return out
+
+
+def _tc_chain(x, flat_weights, *, meta, W: int, kmajor: bool, counter: str,
+              out_cp: bool = False):
+    """The bf16 chain in the (P, C) layout, three tensor-core launches per
+    block: (B, H*W, Cin) -> (B, H*W, Cout), or (B, Cout, H*W) with
+    ``out_cp`` (the last launch writes K3's layout).  ``kmajor`` says the
+    weights are K3's (C_out, K) orientation instead of K4's (K, C_out); both
+    are read as they are."""
+    cd = x.dtype
+    for i, (ci, width, cout, has_ds) in enumerate(meta):
+        w1, b1, w2, b2, w3, b3 = (t.contiguous() for t in flat_weights[6 * i:6 * i + 6])
+        w1, w2, w3 = w1.to(cd), w2.to(cd), w3.to(cd)
+        b1, b2, b3 = b1.float(), b2.float(), b3.float()
+        kw = dict(kmajor=kmajor, counter=counter)
+        y1 = _wg_gemm(_PC_PLAIN, x, w1, b1, K=ci, N=width, **kw)
+        y2 = _wg_gemm(_PC_TAPS3, y1, w2, b2, K=9 * width, N=width, W=W, C=width, **kw)
+        kw["out_cp"] = out_cp and i == len(meta) - 1
+        if has_ds:
+            x = _wg_gemm(_PC_CONCAT, y2, w3, b3, K=width + ci, K1=width, N=cout, X2=x, **kw)
+        else:
+            if ci != cout:
+                raise ValueError("bottleneck_chain: identity block needs cin == cout")
+            x = _wg_gemm(_PC_PLAIN, y2, w3, b3, K=width, N=cout, R=x, **kw)
     return x
