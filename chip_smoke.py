@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``sequoia_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only stem16,vis_blocks_fused   # phases 1-3 for these
 
 Phases, each printing one JSON line:
 
@@ -16,8 +17,15 @@ Phases, each printing one JSON line:
    same function (K1: the plain ``vis`` block loop on cuBLAS; K2, K3, K4:
    cuDNN ``F.conv2d`` + BN + ReLU of the same layers; K5: a distance GEMM,
    argmin and ``index_add_``), and the bound (the least time the card could
-   take for the same work).  K3 and K4 (bf16: the tensor-core kernel of
-   ``conv_wgmma.cu``; f32: the FMA kernels of ``conv_gemm.cu``) are timed at
+   take for the same work).  K1 and K2 (bf16: the tensor-core kernels of
+   ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: the FMA kernels of
+   ``vis_blocks.cu`` and ``conv_gemm.cu``) also report their share of the
+   bound, GB/s and TFLOP/s, and in bf16 are checked at off-path edge shapes
+   (K1: 7 and 130 tokens at P = 512, depth 1; K2: one image, three images,
+   a ragged H2 != W2 map); K1 reports its launches per call and, from a
+   ``torch.profiler`` trace of one call, the device gaps between them.  K3
+   and K4 (bf16: the tensor-core kernel of ``conv_wgmma.cu``; f32: the FMA
+   kernels of ``conv_gemm.cu``) are timed at
    layer1's shape and also checked and timed at the three stage tails
    (layers 2-4 after their stride-2 block) and, in bf16, checked at three
    off-path edge shapes, each with its share of the bound and TFLOP/s; then
@@ -56,6 +64,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -73,6 +82,10 @@ CHAIN_LAYER1, CHAIN_TAILS = (1, 0, 64), ((2, 1, 32), (3, 1, 16), (4, 1, 8))
 CHAIN_EDGES = ((3, 1, 0, 8, 16), (1, 4, 1, 8, 8), (2, 2, 0, 9, 15))
 # the WSI path: level-0 side, the early-stop run's cap
 WSI_SIDE, WSI_CAP = 8192, 256
+# off-path bf16 edge shapes: K1 (tokens, P, heads) at depth 1; K2 (batch, H2,
+# W2): one image, three, and a map whose 4032 pixels end in a ragged tile
+VIS_EDGES = ((7, 512, 8), (130, 512, 8))
+STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
 
 # card peaks (H100 SXM data sheet, dense): the bound of a kernel is the
 # larger of bytes / HBM rate and operations / peak rate for their type
@@ -89,13 +102,13 @@ TOL = {"stem16": {"float32": 1e-5, "bfloat16": 1e-2},
        "vis_blocks_fused": {"float32": 1e-4, "bfloat16": 3e-2},
        "lloyd_stats": {"float32": 1e-5}}
 
+# the kernels line reports each kernel's bf16 row: K1-K4 the tensor-core
+# kernels (f32 runs the FMA kernels of vis_blocks.cu and conv_gemm.cu)
 SOURCES = {
-    "vis_blocks_fused": ("sequoia_tpu_torch/csrc/vis_blocks.cu",
+    "vis_blocks_fused": ("sequoia_tpu_torch/csrc/vis_wgmma.cu",
                          "sequoia_tpu/ops/pallas_vis.py:255"),
-    "stem16": ("sequoia_tpu_torch/csrc/conv_gemm.cu",
+    "stem16": ("sequoia_tpu_torch/csrc/stem_wgmma.cu",
                "sequoia_tpu/ops/pallas_resnet.py:285"),
-    # the kernels line reports K3/K4's bf16 row: the tensor-core kernel (f32
-    # runs the FMA kernels of conv_gemm.cu)
     "bottleneck_chain_cp": ("sequoia_tpu_torch/csrc/conv_wgmma.cu",
                             "sequoia_tpu/ops/pallas_resnet.py:377"),
     "bottleneck_chain": ("sequoia_tpu_torch/csrc/conv_wgmma.cu",
@@ -113,6 +126,46 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rates(res: dict, nbytes_: float, flops: float) -> dict:
+    """Share of the bound, GB/s and TFLOP/s of a kernel row's time."""
+    return {"bound_share": res["bound_ms"] / res["ms"], "gbps": nbytes_ / res["ms"] / 1e6,
+            "tflops": flops / res["ms"] / 1e9}
+
+
+def launch_gaps(torch, fn, match: str) -> dict:
+    """One call of fn traced with torch.profiler: its device kernels whose
+    name holds ``match``, their count, the span from the first start to the
+    last end, and the gaps between one kernel's end and the next one's start
+    (negative where programmatic dependent launch lets them overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                if e.device_type == DeviceType.CUDA and match in e.name)
+    if not ev:
+        raise AssertionError(f"profile: no device kernel named *{match}* in the trace")
+    gaps = [b[0] - a[1] for a, b in zip(ev, ev[1:])] or [0.0]
+    # per kernel (its name without namespace and arguments): launches, mean
+    # time from start to end, mean gap from the previous kernel's end
+    by_name: dict = {}
+    for i, (s, e, name) in enumerate(ev):
+        fn = re.search(r"(\w+(?:<[^()]*>)?)\(", name.replace("(anonymous namespace)::", ""))
+        short = fn.group(1) if fn else name[:60]
+        n, dur, gap = by_name.get(short, (0, 0.0, 0.0))
+        by_name[short] = (n + 1, dur + e - s, gap + (s - ev[i - 1][1] if i else 0.0))
+    return {"kernels_traced": len(ev), "span_ms": (ev[-1][1] - ev[0][0]) / 1e3,
+            "kernel_ms_sum": sum(e - s for s, e, _ in ev) / 1e3,
+            "gap_us_mean": sum(gaps) / len(gaps), "gap_us_min": min(gaps),
+            "gap_us_max": max(gaps), "gap_us_sum": sum(gaps),
+            "by_kernel": {k: {"launches": n, "us_mean": dur / n, "gap_before_us_mean": gap / n}
+                          for k, (n, dur, gap) in by_name.items()}}
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -207,8 +260,17 @@ def check_stem16(torch, dev, dtype: str) -> dict:
     p_out = h2 * w2
     res.update(ms=time_ms(torch, run, 10), plain_ms=time_ms(torch, plain, 2),
                library_ms=time_ms(torch, lib, 10))
-    res["bound_ms"], res["bound_by"] = bound_ms(
-        nbytes(x16, a, b, out), 2 * FEAT_BATCH * 64 * 256 * p_out, dtype)
+    flops = 2 * FEAT_BATCH * 64 * 256 * p_out
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes(x16, a, b, out), flops, dtype)
+    res.update(rates(res, nbytes(x16, a, b, out), flops))
+    if dtype == "bfloat16":
+        res["edges"] = []
+        for batch, eh, ew in STEM_EDGES:
+            e16 = torch.randn((batch, 16, (eh + 3) * ew), generator=g, device=dev).to(dt)
+            e16[:, 12:] = 0  # the 4 padding channels, as the extractor's input
+            got = cuda_resnet.stem16(e16, a, b, H2=eh, W2=ew)
+            res["edges"].append({"batch": batch, "map": [eh, ew], **compare(
+                torch, "stem16", dtype, got, cuda_resnet.stem16_plain(e16, a, b, H2=eh, W2=ew))})
     return res
 
 
@@ -409,8 +471,28 @@ def check_vis(torch, dev, dtype: str) -> dict:
     # every weight meets each of the K tokens, but the summary's share of the
     # combine (p * hw per block) meets only the one token-mean row
     flops = 2 * K * weights - 2 * (K - 1) * cfg.depth * p * hw
-    res["bound_ms"], res["bound_by"] = bound_ms(
-        weights * item + nbytes(smalls, x, pos, out), flops, dtype)
+    moved = weights * item + nbytes(smalls, x, pos, out)
+    res["bound_ms"], res["bound_by"] = bound_ms(moved, flops, dtype)
+    res.update(rates(res, moved, flops))
+    from sequoia_tpu_torch import _build
+
+    before = _build.LAUNCHES["vis_blocks_fused"]
+    run()
+    res["launches_per_call"] = _build.LAUNCHES["vis_blocks_fused"] - before
+    res["profile"] = launch_gaps(torch, run, "vis_")
+    if dtype == "bfloat16":
+        res["edges"] = []
+        for n, ep, heads in VIS_EDGES:
+            ecfg = vis.ViSConfig(num_outputs=16, input_dim=2 * ep, depth=1, nheads=heads,
+                                 dim_f=ep // heads, dim_s=ep // heads, dim_c=ep // heads,
+                                 num_clusters=n)
+            ech, esm, epos = cuda_vis.pack_vis_blocks(ecfg, vis.init(ecfg, g), dt)
+            ex = torch.randn((n, 2 * ep), generator=g, device=dev)
+            ekw = dict(depth=1, nheads=heads)
+            res["edges"].append({"tokens": n, "P": ep, "depth": 1, **compare(
+                torch, "vis_blocks_fused", dtype,
+                cuda_vis.vis_blocks_fused(ex, epos, ech, esm, **ekw),
+                cuda_vis.vis_blocks_plain(ex, epos, ech, esm, **ekw))})
     return res
 
 
@@ -531,8 +613,13 @@ def main_path(torch, dev, rparams, folds) -> dict:
         stage("kmeans_seeding_s", km.kmeans_fit, f, mask,
               torch.Generator(device=dev).manual_seed(0), K, 0)
         stage("vis_folds_s", p.predict_cluster_features, cf)
+        # the Lloyd steps of both backends (K5, plain) on this path's features
+        # from the same seeding: the count follows near-ties in the distances
+        by_backend = {name: km.kmeans_fit(f.float(), mask, torch.Generator(
+            device=dev).manual_seed(p.kmeans_seed), K, use_pallas=flag)[3]
+            for name, flag in (("lloyd_stats", True), ("plain", False))}
         emit({"phase": "stages", "path": label, "patches": PATCHES, **stages,
-              "lloyd_steps": steps})
+              "lloyd_steps": steps, "lloyd_steps_by_backend": by_backend})
     return launches
 
 
@@ -690,7 +777,14 @@ def wsi_path(torch, dev, rparams, folds) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="", help="comma-separated kernel names: run phases "
+                    "1-3 for these alone and print no result line")
+    only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one GPU",
@@ -715,16 +809,23 @@ def main() -> int:
           "library": str(_build.build().relative_to(_build.BUILD_DIR.parent.parent))})
 
     results = {}
+    checks = (("stem16", check_stem16),
+              ("bottleneck_chain_cp", functools.partial(check_chain, kname="bottleneck_chain_cp")),
+              ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
+              ("vis_blocks_fused", check_vis))
+    unknown = set(only) - {k for k, _ in checks}
+    if unknown:
+        raise SystemExit(f"chip_smoke: --only takes {[k for k, _ in checks]}, got {unknown}")
     for dtype in ("float32", "bfloat16"):
-        for kname, fn in (("stem16", check_stem16),
-                          ("bottleneck_chain_cp",
-                           functools.partial(check_chain, kname="bottleneck_chain_cp")),
-                          ("bottleneck_chain",
-                           functools.partial(check_chain, kname="bottleneck_chain")),
-                          ("vis_blocks_fused", check_vis)):
+        for kname, fn in checks:
+            if only and kname not in only:
+                continue
             r = fn(torch, dev, dtype)
             emit({"phase": "kernel", "name": kname, "dtype": dtype, **r})
             results[kname] = r  # the bf16 row (the main path's type) is kept
+    if only:
+        print(smi, flush=True)
+        return 0
     r = check_lloyd(torch, dev)
     emit({"phase": "kernel", "name": "lloyd_stats", "dtype": "float32", **r})
     results["lloyd_stats"] = r

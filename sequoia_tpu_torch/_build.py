@@ -48,6 +48,9 @@ _SIGNATURES = {
     "sq_lloyd_stats": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "sq_vis_blocks": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P],
+    "sq_vis_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P],
+    "sq_stem_wgmma": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

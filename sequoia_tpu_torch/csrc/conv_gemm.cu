@@ -4,7 +4,9 @@
 //
 // Replaces sequoia_tpu/ops/pallas_resnet.py:stem16 (_stem16_kernel),
 // :bottleneck_chain_cp (_chain_cp_kernel) and :bottleneck_chain
-// (_chain_kernel).
+// (_chain_kernel) in f32 only: bf16 runs the tensor-core kernels of
+// stem_wgmma.cu (K2) and conv_wgmma.cu (K3, K4), and the C entries here
+// refuse it.
 //
 // (C, P) kernel, conv_gemm_kernel:
 // Every launch computes out[b] = epilogue(A . Bop(X[b])) with A the folded
@@ -227,12 +229,10 @@ extern "C" int sq_pc_gemm(int dtype, int mode, const void* X, const void* X2,
                           int B, int P, int K, int K1, int N, int W, int C,
                           long long xs, long long x2s, long long rs, long long os,
                           void* stream) {
-  if (mode < A_PLAIN || mode > A_CONCAT) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 || mode < A_PLAIN || mode > A_CONCAT) return (int)cudaErrorInvalidValue;
   if (mode == A_TAPS3 && (C <= 0 || K != 9 * C)) return (int)cudaErrorInvalidValue;
   PcArgs a{X, X2, Wt, bias, R, out, P, K, K1, N, W, C, xs, x2s, rs, os};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == BF16) launch_pc<__nv_bfloat16>(mode, a, B, s);
-  else launch_pc<float>(mode, a, B, s);
+  launch_pc<float>(mode, a, B, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -241,10 +241,8 @@ extern "C" int sq_conv_gemm(int dtype, int mode, const void* A, const float* bia
                             int B, int M, int K, int K1, int N, int W,
                             long long xc, long long xs, long long x2s,
                             long long rs, long long os, int relu, void* stream) {
-  if (mode < B_PLAIN || mode > B_CONCAT) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 || mode < B_PLAIN || mode > B_CONCAT) return (int)cudaErrorInvalidValue;
   ConvArgs a{A, bias, X, X2, R, out, M, K, K1, N, W, xc, xs, x2s, rs, os, relu};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == BF16) launch<__nv_bfloat16>(mode, a, B, s);
-  else launch<float>(mode, a, B, s);
+  launch<float>(mode, a, B, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

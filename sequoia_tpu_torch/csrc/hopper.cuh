@@ -5,7 +5,11 @@
 //     the async proxy through which wgmma reads its operands;
 //   - the wgmma shared-memory matrix descriptor for the 128-byte swizzle;
 //   - wgmma.mma_async m64nNk16, bf16 operands from shared memory, f32
-//     accumulators in registers, with its fence, commit and wait.
+//     accumulators in registers, with its fence, commit and wait; m64n104k16
+//     also with an MN-major (transposed) A;
+//   - programmatic dependent launch (griddepcontrol) and thread-block
+//     clusters: the cluster barrier, a CTA's rank, and loads from another
+//     CTA's shared memory (distributed shared memory).
 //
 // Layout of a 128-byte-swizzled operand tile in shared memory: rows of 128
 // bytes (64 bf16); 16-byte chunk c of row r lies at chunk c ^ (r % 8) of its
@@ -164,6 +168,86 @@ template <int TRANS_B> struct Wgmma<256, TRANS_B> {
         : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
   }
 };
+
+// d (64 x 104) += A (64 x 16) . B (16 x 104), bf16: 52 floats a thread, the
+// fragment as above (j = 0..12).  TRANS_A = 1 reads an MN-major A (one row
+// of 64 M values per K index, as an MN-major B), TRANS_B as above.
+template <int TRANS_A, int TRANS_B> struct Wgmma104 {
+  __device__ static __forceinline__ void mma(float (&d)[52], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51"
+        "}, %52, %53, p, 1, 1, %55, %56;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "l"(a), "l"(b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+  }
+};
+
+// programmatic dependent launch: griddep_wait blocks until the grids this
+// one depends on (the previous launch on the stream, when this one was
+// launched with programmatic stream serialization) have completed and their
+// memory is visible; griddep_launch lets the next such launch start its
+// blocks.  Both are no-ops for a grid launched without the attribute.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// every thread of every CTA of the cluster arrives and waits; shared-memory
+// writes before it are visible to the whole cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// the address of shared address `addr` of this CTA in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// a barrier of the 128 threads of warpgroup `wg` only (named barrier 1 + wg)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
 
 }  // namespace hopper
 }  // namespace sq

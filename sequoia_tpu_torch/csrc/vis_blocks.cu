@@ -1,7 +1,9 @@
 // K1 vis_blocks_fused: the positional-embedding add and all `depth` ViS
 // SummaryMixing blocks of one slide (B = 1 serving).
 //
-// Replaces sequoia_tpu/ops/pallas_vis.py:vis_blocks_fused (_kernel).  It reads
+// Replaces sequoia_tpu/ops/pallas_vis.py:vis_blocks_fused (_kernel) in f32
+// (bf16 runs the tensor-core kernel of vis_wgmma.cu; the C entry here
+// refuses it).  It reads
 // the same packed operands (pack_vis_blocks): per block a (16P, P) chunk of
 // row-stacked weight slabs in the compute type and an (8, 3P) f32 "smalls"
 // block of biases and LayerNorm affines, with P = H*hw and D = 2P.
@@ -26,20 +28,17 @@
 // is used for 100 rows only (2 FLOP per weight element per token, ~100 FLOP
 // per byte in bf16, far below the card's ~295 FLOP/byte ridge), so the floor
 // is reading ~14.1 P^2 weights per block once (~169 MB in bf16 at depth 6).
-// This first kernel streams each slab once per 64-token tile from L2 and
-// computes on the CUDA cores in f32 FMA; split-K and tensor cores are later
-// work.
-#include "common.cuh"
+// This kernel streams each slab once per 64-token tile from L2 and computes
+// on the CUDA cores in f32 FMA (full f32: the parity path).
+#include "vis_common.cuh"
 
 using namespace sq;
+using namespace sq::vis;
 
 namespace {
 
-enum Epi { E_LOCAL = 0, E_STORE_F32 = 1, E_COMBINE = 2, E_PROJ = 3, E_FF1 = 4, E_FF2 = 5 };
-
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
 constexpr int NTHREADS = (BM / TM) * (BN / TN);
-constexpr float LN_EPS = 1e-5f;
 
 struct VisGemm {
   const void* A;      // (M, K) activations in the compute type, row stride K
@@ -145,73 +144,6 @@ __global__ void __launch_bounds__(NTHREADS) vis_gemm(VisGemm g) {
   }
 }
 
-// xs = round(x + pos), both f32 (pallas_vis.py:186)
-template <class T>
-__global__ void vis_init(const float* __restrict__ x, const float* __restrict__ pos,
-                         T* __restrict__ xs, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) xs[i] = from_f<T>(x[i] + pos[i]);
-}
-
-// One block per 64 summary columns (whole heads): token mean of s, per-head
-// LN + GELU, round, then the block-diagonal Wc_sum product for these columns.
-template <class T>
-__global__ void __launch_bounds__(64)
-vis_summary(const float* __restrict__ s, int M, int P, int hw,
-            const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-            const T* __restrict__ wcs, float* __restrict__ sc) {
-  __shared__ float v[64];
-  __shared__ float stat[64][2];
-  const int c = threadIdx.x, n = blockIdx.x * 64 + c;
-  float sum = 0.f;
-  for (int m = 0; m < M; ++m) sum += s[(size_t)m * P + n];
-  v[c] = sum / M;
-  __syncthreads();
-  if (c < 64 / hw) {
-    const int c0 = c * hw;
-    float mean = 0.f;
-    for (int i = 0; i < hw; ++i) mean += v[c0 + i];
-    mean /= hw;
-    float var = 0.f;
-    for (int i = 0; i < hw; ++i) {
-      const float d = v[c0 + i] - mean;
-      var = fmaf(d, d, var);
-    }
-    stat[c][0] = mean;
-    stat[c][1] = 1.f / sqrtf(var / hw + LN_EPS);
-  }
-  __syncthreads();
-  const int h = c / hw;
-  const float u = (v[c] - stat[h][0]) * stat[h][1] * ln_scale[n] + ln_bias[n];
-  __syncthreads();
-  v[c] = round_to<T>(gelu_erf(u));
-  __syncthreads();
-  const int k0 = blockIdx.x * 64;
-  float acc = 0.f;
-  for (int k = 0; k < 64; ++k) acc = fmaf(v[k], to_f(wcs[(size_t)(k0 + k) * P + n]), acc);
-  sc[n] = acc;
-}
-
-// y = round(LN(xf)) over the D = 2P columns of one token row (two-pass variance)
-template <class T>
-__global__ void __launch_bounds__(256)
-vis_ln(const float* __restrict__ xf, int D, const float* __restrict__ scale,
-       const float* __restrict__ bias, T* __restrict__ y) {
-  __shared__ float red[32];
-  const float* row = xf + (size_t)blockIdx.x * D;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) s += row[i];
-  const float mean = block_sum(s, red) / D;
-  float q = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float d = row[i] - mean;
-    q = fmaf(d, d, q);
-  }
-  const float rstd = 1.f / sqrtf(block_sum(q, red) / D + LN_EPS);
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    y[(size_t)blockIdx.x * D + i] = from_f<T>((row[i] - mean) * rstd * scale[i] + bias[i]);
-}
-
 template <class T, int EPI>
 void gemm(const VisGemm& g, cudaStream_t s) {
   dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
@@ -265,21 +197,14 @@ int run(const float* x, const float* pos, const T* chunks, const float* smalls, 
 
 }  // namespace
 
-// launches: 1 + 8 * depth
+// f32 only; launches: 1 + 8 * depth
 extern "C" int sq_vis_blocks(int dtype, const float* x, const float* pos,
                              const void* chunks, const float* smalls, int M, int P,
                              int depth, int hw, void* xs, void* local, float* s,
                              float* sc, void* c, float* xf, void* y, void* h,
                              float* out, void* stream) {
-  if (P % 64 != 0 || 64 % hw != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 || P % 64 != 0 || 64 % hw != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == BF16) {
-    using T = __nv_bfloat16;
-    return run<T>(x, pos, static_cast<const T*>(chunks), smalls, M, P, depth, hw,
-                  static_cast<T*>(xs), static_cast<T*>(local), s, sc,
-                  static_cast<T*>(c), xf, static_cast<T*>(y), static_cast<T*>(h),
-                  out, st);
-  }
   return run<float>(x, pos, static_cast<const float*>(chunks), smalls, M, P, depth,
                     hw, static_cast<float*>(xs), static_cast<float*>(local), s, sc,
                     static_cast<float*>(c), xf, static_cast<float*>(y),

@@ -12,13 +12,14 @@ row-padded space-to-depth input ``(B, 16, (H2+3)*W2)`` and returns
 weights.
 
 On CUDA tensors all three run CUDA kernels (each source says what bounds
-it on the H100 and what its design does about it): ``stem16`` and the f32
-chains the CUDA-core kernels of ``csrc/conv_gemm.cu``; the bf16 chains, K3
-and K4 alike, the tensor-core (``wgmma``) kernel of ``csrc/conv_wgmma.cu`` in
-the (P, C) layout, K3 after a transpose in (its last launch writes the
-(C, P) layout).  On CPU tensors they run the plain PyTorch versions beside
-them.  All round to the compute type where the Pallas kernels do: after each
-ReLU of y1, y2 and the block output.
+it on the H100 and what its design does about it): in f32 the CUDA-core
+kernels of ``csrc/conv_gemm.cu``; in bf16 the tensor-core (``wgmma``)
+kernels, ``stem16`` that of ``csrc/stem_wgmma.cu`` and the chains, K3 and K4
+alike, that of ``csrc/conv_wgmma.cu`` in the (P, C) layout, K3 after a
+transpose in (its last launch writes the (C, P) layout).  On CPU tensors
+they run the plain PyTorch versions beside them.  All round to the compute
+type where the Pallas kernels do: after each ReLU of y1, y2 and the block
+output.
 """
 
 from __future__ import annotations
@@ -170,24 +171,90 @@ def stem16_plain(x16, a, b, *, H2: int, W2: int) -> torch.Tensor:
     return torch.relu(y).to(x16.dtype)
 
 
+# pixels per tile of the tensor-core stem (csrc/stem_wgmma.cu)
+STEM_TILE = 128
+
+
+def stem16_tiles_plain(x16, a, b, *, H2: int, W2: int) -> torch.Tensor:
+    """Plain PyTorch version of the tensor-core stem's tile walk
+    (``csrc/stem_wgmma.cu``): the pixels in tiles of :data:`STEM_TILE`, the
+    ragged last one zero-padded; each (ky, channel, 8-pixel chunk) item read
+    as the chunk, the two values before it and the one after it, those
+    neighbours zero where they leave the image row; row kx of the tap stack
+    is values kx..kx+7 of those 11; then per tile the (64, 256) . (256, 128)
+    product, bias, ReLU and one rounding.  Needs W2 % 8 == 0, as the kernel."""
+    if W2 % 8:
+        raise ValueError(f"stem16: the tensor-core stem needs W2 % 8 == 0, got W2={W2}")
+    B, P = x16.shape[0], H2 * W2
+    tiles = -(-P // STEM_TILE)
+    q0 = torch.arange(tiles * STEM_TILE // 8, device=x16.device)[:, None] * 8
+    e = torch.arange(11, device=x16.device)[None, :]
+    c0 = q0 % W2
+    ok = (q0 < P) & ((e >= 2) & (e < 10) | (e < 2) & (c0 > 0) | (e == 10) & (c0 + 8 < W2))
+    src = (q0 + e - 2).clamp(0, P - 1)
+    rows = []
+    for ky in range(4):
+        base = x16[:, :, ky * W2:ky * W2 + P]
+        window = torch.where(ok, base[:, :, src], torch.zeros((), dtype=x16.dtype,
+                                                              device=x16.device))
+        rows += [window[..., kx:kx + 8].reshape(B, 16, -1) for kx in range(4)]
+    stack = torch.cat(rows, dim=1).reshape(B, 256, tiles, STEM_TILE)  # row (ky*4+kx)*16 + c
+    y = torch.einsum("mk,bktp->bmtp", a.float(), stack.float()).reshape(B, 64, -1)[..., :P]
+    return torch.relu(y + b.float().reshape(64, 1)).to(x16.dtype)
+
+
+def _stem_wgmma_check(x16, a, b, *, W2: int) -> None:
+    """Raise on what the tensor-core stem does not take: bf16 operands,
+    contiguous and 16-byte aligned, whole 16-byte chunks of a pixel row."""
+    for t in (x16, a):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"stem16: the tensor-core route takes bf16, got {t.dtype}")
+    for t in (x16, a, b):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("stem16: the tensor-core route needs contiguous, 16-byte "
+                             "aligned operands")
+    if W2 % 8:
+        raise ValueError(f"stem16: the tensor-core stem needs W2 % 8 == 0, got W2={W2}")
+    if b.dtype != torch.float32 or b.numel() != 64:
+        raise ValueError("stem16: bias must be 64 f32 values")
+
+
+def _stem16_cuda(x16, a, b, *, H2: int, W2: int) -> torch.Tensor:
+    """One kernel launch: bf16 the tensor-core stem (``sq_stem_wgmma``), f32
+    the CUDA-core tap-gather GEMM (``sq_conv_gemm``)."""
+    B, _, P_in = x16.shape
+    P = H2 * W2
+    lib = _build.library()
+    if x16.dtype == torch.bfloat16:
+        a, b = a.to(torch.bfloat16).contiguous(), b.float().contiguous()
+        _stem_wgmma_check(x16, a, b, W2=W2)
+        out = torch.empty((B, 64, P), dtype=x16.dtype, device=x16.device)
+        rc = lib.sq_stem_wgmma(x16.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               B, H2, W2, _build.stream_ptr(x16))
+        _build.check(rc, "stem16")
+    else:
+        x16 = x16.contiguous()
+        out = torch.empty((B, 64, P), dtype=x16.dtype, device=x16.device)
+        _launch(_STEM, a.to(x16.dtype).contiguous(), b.float().contiguous(), x16, out,
+                M=64, K=256, N=P, W=W2, xc=P_in, xs=16 * P_in)
+    _build.count_launch("stem16")
+    return out
+
+
 def stem16(x16: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, H2: int,
            W2: int) -> torch.Tensor:
     """(B, 16, (H2+3)*W2) -> (B, 64, H2*W2) stem activations (conv + BN +
     ReLU).  The 16 channels are the 12 space-to-depth channels and 4 zero
-    ones; the rows carry 2 zero rows on top and 1 below."""
+    ones; the rows carry 2 zero rows on top and 1 below.  On the card bf16
+    takes the tensor-core kernel (W2 % 8 == 0, x16 contiguous and 16-byte
+    aligned, or it raises), f32 the CUDA-core one."""
     B, c16, P_in = x16.shape
     if c16 != 16 or P_in != (H2 + 3) * W2 or a.shape != (64, 256):
         raise ValueError(f"stem16: bad shapes x16 {tuple(x16.shape)}, A {tuple(a.shape)}")
     _check("stem16", x16, a, b)
     if not x16.is_cuda:
         return stem16_plain(x16, a, b, H2=H2, W2=W2)
-    P = H2 * W2
-    x16 = x16.contiguous()
-    out = torch.empty((B, 64, P), dtype=x16.dtype, device=x16.device)
-    _launch(_STEM, a.to(x16.dtype).contiguous(), b.float().contiguous(), x16, out,
-            M=64, K=256, N=P, W=W2, xc=P_in, xs=16 * P_in)
-    _build.count_launch("stem16")
-    return out
+    return _stem16_cuda(x16, a, b, H2=H2, W2=W2)
 
 
 def bottleneck_chain_cp_plain(x, flat_weights, *, meta, H: int, W: int) -> torch.Tensor:

@@ -7,10 +7,13 @@ in that module's docstring), :func:`vis_blocks_fused` runs the pos-emb add
 and every block, and :func:`vis_apply_fused` adds the token mean, head
 LayerNorm and (D, G) gene head outside the kernel, as ``vis.apply`` does.
 
-On a CUDA tensor :func:`vis_blocks_fused` launches the CUDA kernel
-(``csrc/vis_blocks.cu``, which says what bounds it on the H100 and how it is
-built); on a CPU tensor it runs :func:`vis_blocks_plain`, the same math in
-plain PyTorch.  The kernel rounds where the Pallas kernel rounds: the
+On a CUDA tensor :func:`vis_blocks_fused` launches the CUDA kernels: bf16
+the tensor-core kernel of ``csrc/vis_wgmma.cu`` (swapped, split-K GEMMs in
+thread-block clusters; :func:`vis_blocks_split_plain` is its decomposition
+in plain PyTorch), f32 the CUDA-core kernel of ``csrc/vis_blocks.cu`` (each
+source says what bounds it on the H100 and what its design does about it).
+On a CPU tensor it runs :func:`vis_blocks_plain`, the same math in plain
+PyTorch.  The kernel rounds where the Pallas kernel rounds: the
 residual stream is stored in the compute type between blocks and the last
 block's output is f32.  GELU is exact erf (the Pallas kernel's
 Abramowitz-Stegun polynomial was only a Mosaic workaround).
@@ -134,6 +137,91 @@ def vis_blocks_plain(x, pos, chunks, smalls, *, depth: int, nheads: int) -> torc
     return out
 
 
+# the tensor-core kernel's decomposition (csrc/vis_wgmma.cu): output
+# features per CTA, tokens per CTA, K per slab, and the cluster sizes that
+# split K of (f, s) and of (proj, ff1, ff2)
+FEAT_TILE, TOKEN_TILE, SLAB = 64, 104, 64
+SPLIT_F, SPLIT_FF = 8, 4
+
+
+def _split_gemm(act, w, split: int) -> torch.Tensor:
+    """(T, K) . (K, N) in f32 as the kernel forms it: per CTA of a cluster
+    of ``split`` the product W^T . act^T over its share of the K slabs (CTA
+    r takes slabs [r*nk/split, (r+1)*nk/split)), the f32 partials summed in
+    rank order; returned (T, N)."""
+    nk = act.shape[1] // SLAB
+    a, wt = act.float(), w.float().t()
+    total = torch.zeros((w.shape[1], act.shape[0]), device=act.device)
+    for r in range(split):
+        lo, hi = r * nk // split * SLAB, (r + 1) * nk // split * SLAB
+        total = total + wt[:, lo:hi] @ a[:, lo:hi].t()
+    return total.t()
+
+
+def _diag_gemm(act, w) -> torch.Tensor:
+    """The block-diagonal combine as the kernel forms it: features [n0, n0 +
+    64) from K rows [n0, n0 + 64) only."""
+    out = torch.empty((act.shape[0], w.shape[1]), device=act.device)
+    for n0 in range(0, w.shape[1], FEAT_TILE):
+        sl = slice(n0, n0 + FEAT_TILE)
+        out[:, sl] = (w[sl, sl].float().t() @ act[:, sl].float().t()).t()
+    return out
+
+
+def vis_blocks_split_plain(x, pos, chunks, smalls, *, depth: int,
+                           nheads: int) -> torch.Tensor:
+    """Plain PyTorch version of the tensor-core kernel's decomposition:
+    tokens zero-padded to whole tiles of :data:`TOKEN_TILE`, every GEMM
+    swapped and split over K as :func:`_split_gemm` (the combine block
+    diagonal, unsplit), the summary mean over the N real tokens, and the
+    epilogues and rounding points of :func:`vis_blocks_plain`.  ``(N, D)``
+    f32 -> ``(N, D)`` f32."""
+    n, p = x.shape[0], x.shape[1] // 2
+    cd = chunks.dtype
+    pad = -(-n // TOKEN_TILE) * TOKEN_TILE - n
+    xs = torch.nn.functional.pad(x.float() + pos.float(), (0, 0, 0, pad)).to(cd)
+    for i in range(depth):
+        def row(*names):
+            return torch.cat([smalls[i, r, k * p:(k + 1) * p]
+                              for r, k in (_SM[nm] for nm in names)])
+
+        def w(*slabs):  # output columns side by side: (K, len(slabs) * P)
+            return torch.cat([chunks[i, lo * p:(lo + rows) * p] for lo, rows in slabs], dim=1)
+
+        local = gelu(_group_ln(_split_gemm(xs, w((0, 2)), SPLIT_F) + row("bf"), nheads,
+                               row("ln_f_scale"), row("ln_f_bias"))).to(cd)
+        sv = (_split_gemm(xs, w((2, 2)), SPLIT_F) + row("bs"))[:n].mean(0, keepdim=True)
+        summ = gelu(_group_ln(sv, nheads, row("ln_s_scale"), row("ln_s_bias"))).to(cd)
+        sc = _diag_gemm(summ, w((5, 1)))
+        c = gelu(_diag_gemm(local, w((4, 1))) + sc + row("bc")).to(cd)
+        xf = xs.float() + _split_gemm(c, w((6, 1), (7, 1)), SPLIT_FF) + row("bp_lo", "bp_hi")
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + LN_EPS) * row("ln_ff_scale_lo", "ln_ff_scale_hi")
+             + row("ln_ff_bias_lo", "ln_ff_bias_hi")).to(cd)
+        h = gelu(_split_gemm(y, w((8, 2), (10, 2)), SPLIT_FF) + row("b1_lo", "b1_hi")).to(cd)
+        out = xf + _split_gemm(h, w((12, 2), (14, 2)), SPLIT_FF) + row("b2_lo", "b2_hi")
+        xs = out.to(cd)
+    return out[:n]
+
+
+def _wgmma_check(x, pos, chunks, smalls, *, nheads: int) -> None:
+    """Raise on what the tensor-core kernel does not take: bf16 chunks, an
+    even head width (two features a lane in the per-head LN), contiguous
+    16-byte aligned operands."""
+    p = x.shape[1] // 2
+    if chunks.dtype != torch.bfloat16:
+        raise TypeError(f"vis_blocks_fused: the tensor-core route takes bf16 chunks, "
+                        f"got {chunks.dtype}")
+    if (p // nheads) % 2:
+        raise ValueError(f"vis_blocks_fused: the tensor-core route needs an even head "
+                         f"width, got {p // nheads}")
+    for t in (x, pos, chunks, smalls):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("vis_blocks_fused: the tensor-core route needs contiguous, "
+                             "16-byte aligned operands")
+
+
 def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.Tensor:
     n, d = x.shape
     p = d // 2
@@ -161,12 +249,16 @@ def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.T
     xs, local, c, y, h = (buf(d, cd), buf(p, cd), buf(p, cd), buf(d, cd), buf(d, cd))
     s, xf, out = buf(p, torch.float32), buf(d, torch.float32), buf(d, torch.float32)
     sc = torch.empty((p,), dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), pos.data_ptr(), chunks.data_ptr(), smalls.data_ptr(), n, p,
+            depth, hw, xs.data_ptr(), local.data_ptr(), s.data_ptr(), sc.data_ptr(),
+            c.data_ptr(), xf.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(),
+            _build.stream_ptr(x))
     lib = _build.library()
-    rc = lib.sq_vis_blocks(
-        1 if cd == torch.bfloat16 else 0, x.data_ptr(), pos.data_ptr(),
-        chunks.data_ptr(), smalls.data_ptr(), n, p, depth, hw, xs.data_ptr(),
-        local.data_ptr(), s.data_ptr(), sc.data_ptr(), c.data_ptr(), xf.data_ptr(),
-        y.data_ptr(), h.data_ptr(), out.data_ptr(), _build.stream_ptr(x))
+    if cd == torch.bfloat16:
+        _wgmma_check(x, pos, chunks, smalls, nheads=nheads)
+        rc = lib.sq_vis_wgmma(*args)
+    else:
+        rc = lib.sq_vis_blocks(0, *args)
     _build.check(rc, "vis_blocks_fused")
     _build.count_launch("vis_blocks_fused", 1 + 8 * depth)
     return out

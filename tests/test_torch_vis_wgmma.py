@@ -1,0 +1,155 @@
+"""The bf16 tensor-core route of K1 (ops/cuda_vis.py, csrc/vis_wgmma.cu) on
+the CPU: the wrapper's routing and checks against a stand-in for the kernel
+library, and the plain version of the kernel's decomposition (swapped,
+split-K GEMMs over token tiles of 104) against the JAX Pallas kernel in
+interpret mode and against the port's plain block stack."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sequoia_tpu.models import vis as jvis
+from sequoia_tpu.ops import pallas_vis as jpv
+from sequoia_tpu_torch import _build
+from sequoia_tpu_torch.models import convert as tconvert
+from sequoia_tpu_torch.models import vis as tvis
+from sequoia_tpu_torch.ops import cuda_vis as tpv
+
+
+def _cfgs(depth, n):
+    """P = 256 in 4 heads of 64, as tests/test_torch_vis.py."""
+    base = dict(num_outputs=32, input_dim=512, depth=depth, nheads=4, dim_f=64, dim_s=64,
+                dim_c=64, num_clusters=n)
+    return jvis.ViSConfig(**base), tvis.ViSConfig(**base)
+
+
+def _carry(jparams):
+    return tconvert.vis_params_from_numpy(jax.tree.map(np.asarray, jparams))
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each C call, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    return lib
+
+
+def _packed(dtype, depth=2, n=10, nheads=4, p=256):
+    cfg = tvis.ViSConfig(num_outputs=8, input_dim=2 * p, depth=depth, nheads=nheads,
+                         dim_f=p // nheads, dim_s=p // nheads, dim_c=p // nheads,
+                         num_clusters=n)
+    params = tvis.init(cfg, torch.Generator().manual_seed(0))
+    chunks, smalls, pos = tpv.pack_vis_blocks(cfg, params, dtype)
+    return torch.randn((n, 2 * p), generator=torch.Generator().manual_seed(1)), pos, chunks, smalls
+
+
+# ---------------------------------------------------------------------------
+# the wrapper: which kernel, what it refuses
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "sq_vis_wgmma"),
+                                         (torch.float32, "sq_vis_blocks")],
+                         ids=["bf16", "f32"])
+def test_cuda_route_picks_the_kernel(fake_lib, dtype, entry):
+    x, pos, chunks, smalls = _packed(dtype, depth=2)
+    out = tpv._vis_blocks_cuda(x, pos, chunks, smalls, 2, 4)
+    assert out.shape == x.shape and out.dtype == torch.float32
+    [(name, args)] = fake_lib.calls
+    assert name == entry
+    # f32 keeps the FMA kernel's entry, which takes the dtype first (0 = f32)
+    shift = 0 if entry == "sq_vis_wgmma" else 1
+    if shift:
+        assert args[0] == 0
+    assert args[shift + 4:shift + 8] == (10, 256, 2, 64)  # M, P, depth, hw
+    assert len(args) == len(_build._SIGNATURES[entry])
+    assert _build.LAUNCHES["vis_blocks_fused"] == 1 + 8 * 2
+
+
+def test_bf16_route_rejects_odd_head_width(fake_lib):
+    x, pos, chunks, smalls = _packed(torch.bfloat16, depth=1, nheads=128, p=128)  # hw = 1
+    with pytest.raises(ValueError, match="even head width"):
+        tpv._vis_blocks_cuda(x, pos, chunks, smalls, 1, 128)
+    assert fake_lib.calls == []
+
+
+def test_bf16_route_rejects_unaligned_chunks(fake_lib):
+    x, pos, chunks, smalls = _packed(torch.bfloat16, depth=1)
+    flat = torch.zeros(chunks.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(chunks.shape)  # 2-byte offset, still contiguous
+    shifted.copy_(chunks)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpv._vis_blocks_cuda(x, pos, shifted, smalls, 1, 4)
+    with pytest.raises(TypeError, match="bf16"):
+        tpv._wgmma_check(x, pos, chunks.float(), smalls, nheads=4)
+    assert fake_lib.calls == []
+
+
+def test_cpu_tensors_run_the_plain_version(fake_lib):
+    x, pos, chunks, smalls = _packed(torch.bfloat16, depth=1)
+    out = tpv.vis_blocks_fused(x, pos, chunks, smalls, depth=1, nheads=4)
+    assert fake_lib.calls == [] and _build.LAUNCHES["vis_blocks_fused"] == 0
+    torch.testing.assert_close(out, tpv.vis_blocks_plain(x, pos, chunks, smalls, depth=1,
+                                                         nheads=4), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's decomposition against JAX and the plain stack
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("depth,n", [(1, 7), (2, 100), (1, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plain_matches_jax_interpret(dtype, depth, n):
+    jcfg, tcfg = _cfgs(depth, n)
+    jp = jvis.init(jcfg, jax.random.PRNGKey(depth + n))
+    x = np.random.default_rng(n).normal(size=(n, 512)).astype(np.float32)
+    jchunks, jsmalls, jpos = jpv.pack_vis_blocks(jcfg, jp, dtype=getattr(jnp, dtype))
+    want = np.asarray(jpv.vis_blocks_fused(jnp.asarray(x), jpos, jchunks, jsmalls, depth=depth,
+                                           nheads=4, interpret=True))
+    chunks, smalls, pos = tpv.pack_vis_blocks(tcfg, _carry(jp), getattr(torch, dtype))
+    got = tpv.vis_blocks_split_plain(torch.as_tensor(x), pos, chunks, smalls, depth=depth,
+                                     nheads=4).numpy()
+    assert got.shape == (n, 512)
+    if dtype == "float32":  # tests/test_torch_vis.py:129
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    else:  # tests/test_torch_vis.py:161-162: same rounding points, one ulp apart at most
+        assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n", [7, 130])
+def test_split_plain_is_the_plain_stack_f32(n):
+    """In f32 the split decomposition is the same function as the plain stack,
+    up to f32 summation order."""
+    x, pos, chunks, smalls = _packed(torch.float32, depth=2, n=n)
+    got = tpv.vis_blocks_split_plain(x, pos, chunks, smalls, depth=2, nheads=4)
+    want = tpv.vis_blocks_plain(x, pos, chunks, smalls, depth=2, nheads=4)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_split_gemm_partition():
+    """Every K slab goes to exactly one CTA of the cluster, also where the
+    slabs do not divide evenly or are fewer than the CTAs (small integers, so
+    every order of summation is exact)."""
+    g = torch.Generator().manual_seed(3)
+    for k, split in ((512, 8), (320, 4), (128, 4)):
+        act = torch.randint(-3, 4, (9, k), generator=g).float()
+        w = torch.randint(-3, 4, (k, 64), generator=g).float()
+        torch.testing.assert_close(tpv._split_gemm(act, w, split), act @ w, rtol=0, atol=0)
