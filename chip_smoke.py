@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only stem16,vis_blocks_fused   # phases 1-3 for these
+    python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
 
 Phases, each printing one JSON line:
 
@@ -17,7 +18,17 @@ Phases, each printing one JSON line:
    same function (K1: the plain ``vis`` block loop on cuBLAS; K2, K3, K4:
    cuDNN ``F.conv2d`` + BN + ReLU of the same layers; K5: a distance GEMM,
    argmin and ``index_add_``), and the bound (the least time the card could
-   take for the same work).  K1 and K2 (bf16: the tensor-core kernels of
+   take for the same work).  K5 (``lloyd_wgmma.cu``, centered 3xTF32 on the
+   tensor cores) is held against both plain versions: the mirror of its
+   recipe (``lloyd_stats_tc_plain``) and the JAX kernel's uncentered f32
+   recipe (``lloyd_stats_plain``, also at two ragged point counts); it
+   reports its launches per call, each of its kernels' traced time, and its
+   share of two bounds (TF32 tensor cores, f32 CUDA cores).  Then a
+   ``kmeans_near_tie`` line (Lloyd fits with K5, plain f32 and plain f64
+   from one seeding on near-equal features: steps, what kept each alive,
+   labels equal to the f64 fit's) and a ``lloyd_step`` line (one K5-mode
+   Lloyd step: K5's device time against the rest of the step and the host
+   sync).  K1 and K2 (bf16: the tensor-core kernels of
    ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: the FMA kernels of
    ``vis_blocks.cu`` and ``conv_gemm.cu``) also report their share of the
    bound, GB/s and TFLOP/s, and in bf16 are checked at off-path edge shapes
@@ -41,7 +52,9 @@ Phases, each printing one JSON line:
    patches; every launch counter must rise, the outputs must be finite
    (1, 20820), and the same slides through the plain versions must agree;
    then a ``torch.profiler`` trace of one extractor batch of each predictor
-   (device ms by kernel, idle share) and each stage's time;
+   (device ms by kernel, idle share) and each stage's time, with the Lloyd
+   steps of ``kmeans_fit`` and, from one seeding, of K5, plain f32 and plain
+   f64 with their labels' agreement with f64;
 5. WSI path: two synthetic AppMag-20 slides (8192 x 8192 level 0 with a
    textured tissue ellipse over about 75% of it, a 4x-down level 1) served
    from the slide with ``predict_wsi`` one by one and ``predict_slides``
@@ -90,7 +103,7 @@ STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
 # card peaks (H100 SXM data sheet, dense): the bound of a kernel is the
 # larger of bytes / HBM rate and operations / peak rate for their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
 
 # kernel vs plain version on the same inputs: max |kernel - plain| / max |plain|.
 # f32: the two sum in different orders (f32 rounding only).  bf16: both round
@@ -101,6 +114,13 @@ TOL = {"stem16": {"float32": 1e-5, "bfloat16": 1e-2},
        "bottleneck_chain": {"float32": 1e-4, "bfloat16": 3e-2},
        "vis_blocks_fused": {"float32": 1e-4, "bfloat16": 3e-2},
        "lloyd_stats": {"float32": 1e-5}}
+# K5 against the mirror of its own recipe: the same labels, so equal counts,
+# and sums of the same rows in another order (f32 rounding only)
+LLOYD_TC_SUMS_TOL = 1e-6
+# the near-tie fixture: m + sigma * noise around one m = 0.5 |N(0, 1)| of
+# width D, as ResNet features of near-equal patches (|x|^2 ~ 500 against a
+# squared spread of D sigma^2 ~ 0.05)
+NEAR_TIE_SIGMA = 0.005
 
 # the kernels line reports each kernel's bf16 row: K1-K4 the tensor-core
 # kernels (f32 runs the FMA kernels of vis_blocks.cu and conv_gemm.cu)
@@ -113,7 +133,7 @@ SOURCES = {
                             "sequoia_tpu/ops/pallas_resnet.py:377"),
     "bottleneck_chain": ("sequoia_tpu_torch/csrc/conv_wgmma.cu",
                          "sequoia_tpu/ops/pallas_resnet.py:151"),
-    "lloyd_stats": ("sequoia_tpu_torch/csrc/lloyd_stats.cu",
+    "lloyd_stats": ("sequoia_tpu_torch/csrc/lloyd_wgmma.cu",
                     "sequoia_tpu/ops/pallas_kmeans.py:81"),
 }
 
@@ -384,12 +404,16 @@ def check_cp_stages(torch, dev) -> dict:
 
 
 def check_lloyd(torch, dev) -> dict:
+    """K5 on clustered points (as a slide's Lloyd steps see them: no point
+    sits on a near-tie that f32 summation order could flip) against the
+    mirror of its recipe at the main path's k = 100 centers, and against the
+    JAX kernel's recipe with 128 centers padded by 1e8 sentinels at the full
+    and two ragged point counts.  The row's times are the main path's shape."""
     import torch.nn.functional as F
-    from sequoia_tpu_torch.ops import cuda_kmeans
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.ops import cuda_kmeans as ck
 
     g = torch.Generator(device=dev).manual_seed(3)
-    # clustered points near their centers, as in the Lloyd steps of a slide,
-    # so that no point sits on a near-tie that f32 summation order could flip
     true = torch.randn((K, D), generator=g, device=dev)
     lab = torch.randint(0, K, (PATCHES,), generator=g, device=dev)
     x = true[lab] + 0.1 * torch.randn((PATCHES, D), generator=g, device=dev)
@@ -397,42 +421,177 @@ def check_lloyd(torch, dev) -> dict:
     cpad = F.pad(centers, (0, 0, 0, KPAD - K), value=1e8)
     mask = torch.ones((PATCHES,), dtype=torch.bool, device=dev)
     mask[-96:] = False  # ragged valid count: masked rows contribute nothing
-    run = lambda: cuda_kmeans.lloyd_stats(x, mask, cpad)  # noqa: E731
-    plain = lambda: cuda_kmeans.lloyd_stats_plain(x, mask, cpad)  # noqa: E731
-    (s1, c1, i1, b1), (s2, c2, i2, b2) = run(), plain()
-    if not torch.equal(c1, c2):
-        raise AssertionError("lloyd_stats: counts differ from the plain version")
-    if bool(b1[-96:].ne(0).any()):
-        raise AssertionError("lloyd_stats: masked rows have best != 0")
-    res = compare(torch, "lloyd_stats", "float32", s1, s2)
     tol = TOL["lloyd_stats"]["float32"]
-    if float((i1 - i2).abs() / i2.abs()) > tol:
-        raise AssertionError(f"lloyd_stats: inertia {float(i1)} vs {float(i2)}")
-    # best = |x|^2 + |c|^2 - 2 x.c cancels most digits for a point near its
-    # center: it is exact only to f32 precision of those terms
+    plan = ck.LloydPlan(x, mask)
+    run = lambda: plan.stats(centers)  # noqa: E731
+    mirror = lambda: ck.lloyd_stats_tc_plain(x, mask, centers)  # noqa: E731
+
+    # the kernel against the mirror of its recipe: the same labels
+    (s1, c1, i1, b1, l1), (s2, c2, i2, b2, l2) = run(), mirror()
+    if not torch.equal(c1, c2) or not torch.equal(l1.long(), l2):
+        raise AssertionError("lloyd_stats: labels or counts differ from lloyd_stats_tc_plain")
+    if bool(b1[-96:].ne(0).any()) or bool(l1[-96:].ne(-1).any()):
+        raise AssertionError("lloyd_stats: masked rows have best != 0 or a label")
+    sums_rel = float((s1 - s2).abs().max() / s2.abs().max())
+    if sums_rel > LLOYD_TC_SUMS_TOL:
+        raise AssertionError(f"lloyd_stats: sums {sums_rel:.3g} from lloyd_stats_tc_plain")
+    # best = |xc - cc|^2 to the chosen center, summed over D in another order
+    best_rel = float((b1 - b2).abs().max() / b2.abs().max())
+    inertia_rel = float((i1 - i2).abs() / i2.abs())
+    if best_rel > tol or inertia_rel > tol:
+        raise AssertionError(f"lloyd_stats: best {best_rel:.3g} or inertia {inertia_rel:.3g} "
+                             "from lloyd_stats_tc_plain")
+    res = {"vs_tc_plain": {"counts_equal": True, "labels_equal": True,
+                           "sums_max_rel_err": sums_rel, "sums_tol": LLOYD_TC_SUMS_TOL,
+                           "best_max_rel_err": best_rel, "inertia_rel_err": inertia_rel,
+                           "tol": tol}}
+
+    # the kernel against the JAX kernel's uncentered recipe, sentinel-padded
+    (s3, c3, i3, b3), (s4, c4, i4, b4) = (ck.lloyd_stats(x, mask, cpad),
+                                          ck.lloyd_stats_plain(x, mask, cpad))
+    if not torch.equal(c3, c4):
+        raise AssertionError("lloyd_stats: counts differ from the plain version")
+    res.update(compare(torch, "lloyd_stats", "float32", s3, s4))
+    if float((i3 - i4).abs() / i4.abs()) > tol:
+        raise AssertionError(f"lloyd_stats: inertia {float(i3)} vs {float(i4)}")
+    # the plain best, uncentered, is exact only to f32 precision of |x|^2 + |c|^2
     terms = float((x * x).sum(1).max() + (centers * centers).sum(1).max())
-    if float((b1 - b2).abs().max()) > tol * terms:
+    if float((b3 - b4).abs().max()) > tol * terms:
         raise AssertionError("lloyd_stats: best differs from the plain version")
     for n in (SMALL_SLIDE, 1007):  # ragged point counts: the kernel masks its edge
-        (rs, rc, _, _), (ps, pc, _, _) = (cuda_kmeans.lloyd_stats(x[:n], mask[:n], cpad),
-                                          cuda_kmeans.lloyd_stats_plain(x[:n], mask[:n], cpad))
+        (rs, rc, _, _), (ps, pc, _, _) = (ck.lloyd_stats(x[:n], mask[:n], cpad),
+                                          ck.lloyd_stats_plain(x[:n], mask[:n], cpad))
         if not torch.equal(rc, pc) or float((rs - ps).abs().max()) > tol * float(
                 ps.abs().max()):
             raise AssertionError(f"lloyd_stats: N={n} differs from the plain version")
 
     def lib():  # yardstick: distance GEMM + argmin + index_add_ + bincount
-        d2 = (x * x).sum(1, keepdim=True) + (cpad * cpad).sum(1) - 2.0 * (x @ cpad.T)
+        d2 = (x * x).sum(1, keepdim=True) + (centers * centers).sum(1) - 2.0 * (x @ centers.T)
         lbl = torch.argmin(d2, 1)
-        sums = torch.zeros_like(cpad).index_add_(0, lbl[mask], x[mask])
-        return sums, torch.bincount(lbl[mask], minlength=KPAD)
+        sums = torch.zeros_like(centers).index_add_(0, lbl[mask], x[mask])
+        return sums, torch.bincount(lbl[mask], minlength=K)
 
-    res.update(ms=time_ms(torch, run, 20), plain_ms=time_ms(torch, plain, 20),
-               library_ms=time_ms(torch, lib, 20))
+    before = _build.LAUNCHES["lloyd_stats"]
+    run()
+    res["launches_per_call"] = _build.LAUNCHES["lloyd_stats"] - before
+    before = _build.LAUNCHES["lloyd_stats"]
+    ck.LloydPlan(x, mask)
+    res["launches_per_fit"] = _build.LAUNCHES["lloyd_stats"] - before
+    res.update(ms=time_ms(torch, run, 50), plain_ms=time_ms(torch, mirror, 20),
+               plain_uncentered_ms=time_ms(torch, lambda: ck.lloyd_stats_plain(
+                   x, mask, centers), 20),
+               library_ms=time_ms(torch, lib, 20),
+               prepare_ms=time_ms(torch, lambda: ck.LloydPlan(x, mask), 20))
+    # each kernel of a call alone (traced): lloyd_centers, lloyd_assign, lloyd_sums
+    res["profile"] = launch_gaps(torch, run, "lloyd_")
+    res["sums_ms"] = res["profile"]["by_kernel"]["lloyd_sums"]["us_mean"] / 1e3
+    res["assign_ms"] = res["profile"]["by_kernel"]["lloyd_assign"]["us_mean"] / 1e3
+    # lloyd_assign alone by point count: 8 to 32 clusters of 4 CTAs (N = 4096
+    # is the main path's, 1024 about a slide served from the WSI)
+    res["assign_us_by_points"] = {}
+    for n in (1024, 2048, PATCHES):
+        sub = ck.LloydPlan(x[:n], mask[:n])
+        res["assign_us_by_points"][n] = launch_gaps(torch, lambda sub=sub: sub.stats(
+            centers), "lloyd_assign")["by_kernel"]["lloyd_assign"]["us_mean"]
     n_valid = int(mask.sum())
-    flops = 2 * PATCHES * D * KPAD + n_valid * D  # distances + member-row sums
-    res["bound_ms"], res["bound_by"] = bound_ms(
-        nbytes(x, mask, cpad, s1, c1, i1, b1), flops, "float32")
+    flops = 2 * PATCHES * D * K  # the distance product; the member-row sums add n_valid * D
+    moved = nbytes(x, mask, centers, s1, c1, i1, b1)
+    # the f32-accurate product as three TF32 products on the tensor cores, and
+    # as one f32 product on the CUDA cores
+    res["bound_ms"], res["bound_by"] = bound_ms(moved, 3 * flops + n_valid * D, "tfloat32")
+    res["bound_cuda_cores_ms"], res["bound_cuda_cores_by"] = bound_ms(
+        moved, flops + n_valid * D, "float32")
+    res.update(rates(res, moved, 3 * flops))
+    res["bound_cuda_cores_share"] = res["bound_cuda_cores_ms"] / res["ms"]
     return res
+
+
+def lloyd_backends(torch, km, x, mask, init, max_iter: int = 300) -> dict:
+    """``ops/kmeans._lloyd`` from one seeding with K5 (``use_pallas``), the
+    plain f32 backend and the plain backend on f64 operands: steps, the
+    steps the shift and an empty cluster kept the loop alive, seconds, and
+    the share of labels equal to the f64 fit's."""
+    out, labels = {}, {}
+    for name, dtype, kernel in (("plain_f64", torch.float64, False),
+                                ("lloyd_stats", torch.float32, True),
+                                ("plain", torch.float32, False)):
+        xd, trace = x.to(dtype), []
+        t0 = time.perf_counter()
+        _, labels[name], inertia, steps = km._lloyd(
+            xd, mask, init.to(dtype), max_iter, km._tol_abs(xd, mask, 1e-4), kernel, trace)
+        torch.cuda.synchronize()
+        out[name] = {"steps": steps, "alive_by_shift": sum(s for s, _ in trace),
+                     "alive_by_empty": sum(e for _, e in trace), "inertia": float(inertia),
+                     "seconds": time.perf_counter() - t0}
+    for name in out:
+        same = labels[name][mask] == labels["plain_f64"][mask]
+        out[name]["labels_equal_f64"] = float(same.float().mean())
+    return out
+
+
+def near_tie_features(torch, dev):
+    """Near-tie features at the main path's shape (4096 x 2048) from a seed,
+    all valid, and k = 100 kmeans++ centers drawn from them."""
+    from sequoia_tpu_torch.ops import kmeans as km
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    m = 0.5 * torch.randn((D,), generator=g, device=dev).abs()
+    x = m + NEAR_TIE_SIGMA * torch.randn((PATCHES, D), generator=g, device=dev)
+    mask = torch.ones((PATCHES,), dtype=torch.bool, device=dev)
+    return x, mask, km._plusplus_init(torch.Generator(device=dev).manual_seed(0), x, mask, K)
+
+
+def kmeans_near_tie(torch, km, x, mask, init) -> dict:
+    """Lloyd fits on the near-tie features from one seeding: K5's centered
+    3xTF32 distances should follow the f64 fit (same steps, every label),
+    where the plain f32 backend's uncentered ones need not."""
+    runs = lloyd_backends(torch, km, x, mask, init)
+    k5, f64 = runs["lloyd_stats"], runs["plain_f64"]
+    return {"points": PATCHES, "dim": D, "k": K, "sigma": NEAR_TIE_SIGMA,
+            "sq_norm_mean": float((x * x).sum(1).mean()),
+            "sq_spread_mean": float(((x - x.mean(0)) ** 2).sum(1).mean()), "backends": runs,
+            "k5_follows_f64": k5["steps"] == f64["steps"] and k5["labels_equal_f64"] == 1.0}
+
+
+def lloyd_step_profile(torch, km, x, mask, init, iters: int = 20) -> dict:
+    """One K5-mode Lloyd step (``ops/kmeans._lloyd_step`` and its host sync)
+    at the main path's shape: on the host clock the time to enqueue it and
+    the time waiting in the sync; from a ``torch.profiler`` trace K5's
+    device time and the rest of the step's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    stats = km._stats_fn(x, mask, True)
+    tol = km._tol_abs(x, mask, 1e-4)
+
+    def step():
+        return km._lloyd_step(x, init, stats, tol, 0)[1]
+
+    for _ in range(3):
+        step().tolist()
+    torch.cuda.synchronize()
+    enqueue = wait = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        alive = step()
+        t1 = time.perf_counter()
+        alive.tolist()
+        enqueue, wait = enqueue + t1 - t0, wait + time.perf_counter() - t1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step().tolist()
+    k5 = other = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if "lloyd_" in e.name:
+                k5 += e.time_range.elapsed_us()
+            else:
+                other += e.time_range.elapsed_us()
+    wall = (enqueue + wait) * 1e3 / iters
+    return {"wall_ms": wall, "host_enqueue_ms": enqueue * 1e3 / iters,
+            "host_sync_wait_ms": wait * 1e3 / iters, "k5_device_ms": k5 / 1e3 / iters,
+            "other_device_ms": other / 1e3 / iters,
+            "device_idle_share": 1 - (k5 + other) / 1e3 / iters / wall}
 
 
 def check_vis(torch, dev, dtype: str) -> dict:
@@ -603,23 +762,26 @@ def main_path(torch, dev, rparams, folds) -> dict:
             stages[key] = time.perf_counter() - t0
             return out
 
-        before = _build.LAUNCHES["lloyd_stats"]
         f = stage("features_s", p.extractor.features, u8)
         cf = stage("kmeans_s", p.cluster, f)
-        steps = (_build.LAUNCHES["lloyd_stats"] - before) // 2 or None
         # kmeans++ seeding + final assignment alone (no Lloyd step): the rest
         # of kmeans_s is the Lloyd loop, one host sync per step
         mask = torch.ones((f.shape[0],), dtype=torch.bool, device=dev)
         stage("kmeans_seeding_s", km.kmeans_fit, f, mask,
               torch.Generator(device=dev).manual_seed(0), K, 0)
         stage("vis_folds_s", p.predict_cluster_features, cf)
-        # the Lloyd steps of both backends (K5, plain) on this path's features
-        # from the same seeding: the count follows near-ties in the distances
-        by_backend = {name: km.kmeans_fit(f.float(), mask, torch.Generator(
-            device=dev).manual_seed(p.kmeans_seed), K, use_pallas=flag)[3]
-            for name, flag in (("lloyd_stats", True), ("plain", False))}
+        gen = lambda: torch.Generator(device=dev).manual_seed(p.kmeans_seed)  # noqa: E731
+        # the steps of the fit p.cluster ran (kmeans_fit draws the same seeding)
+        steps = km.kmeans_fit(f.float(), mask, gen(), K, use_pallas=p.use_pallas)[3]
+        # K5, plain f32 and plain f64 on this path's features from that
+        # seeding: the count follows near-ties in the distances
+        runs = lloyd_backends(torch, km, f.float(), mask,
+                              km._plusplus_init(gen(), f.float(), mask, K))
         emit({"phase": "stages", "path": label, "patches": PATCHES, **stages,
-              "lloyd_steps": steps, "lloyd_steps_by_backend": by_backend})
+              "lloyd_steps": steps,
+              "lloyd_steps_by_backend": {k: r["steps"] for k, r in runs.items()},
+              "labels_equal_f64_by_backend": {k: r["labels_equal_f64"]
+                                              for k, r in runs.items()}})
     return launches
 
 
@@ -813,9 +975,10 @@ def main() -> int:
               ("bottleneck_chain_cp", functools.partial(check_chain, kname="bottleneck_chain_cp")),
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
-    unknown = set(only) - {k for k, _ in checks}
+    known = [k for k, _ in checks] + ["lloyd_stats"]
+    unknown = set(only) - set(known)
     if unknown:
-        raise SystemExit(f"chip_smoke: --only takes {[k for k, _ in checks]}, got {unknown}")
+        raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
     for dtype in ("float32", "bfloat16"):
         for kname, fn in checks:
             if only and kname not in only:
@@ -823,12 +986,20 @@ def main() -> int:
             r = fn(torch, dev, dtype)
             emit({"phase": "kernel", "name": kname, "dtype": dtype, **r})
             results[kname] = r  # the bf16 row (the main path's type) is kept
+    if not only or "lloyd_stats" in only:
+        from sequoia_tpu_torch.ops import kmeans as km
+
+        r = check_lloyd(torch, dev)
+        emit({"phase": "kernel", "name": "lloyd_stats", "dtype": "float32", **r})
+        results["lloyd_stats"] = r
+        x, mask, init = near_tie_features(torch, dev)
+        emit({"phase": "kmeans_near_tie", **kmeans_near_tie(torch, km, x, mask, init)})
+        emit({"phase": "lloyd_step", "points": PATCHES, "dim": D, "k": K,
+              **lloyd_step_profile(torch, km, x, mask, init)})
+        del x, mask, init
     if only:
         print(smi, flush=True)
         return 0
-    r = check_lloyd(torch, dev)
-    emit({"phase": "kernel", "name": "lloyd_stats", "dtype": "float32", **r})
-    results["lloyd_stats"] = r
     emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
           **chain_totals(results)})
     emit({"phase": "chain_weight_fold", "dtype": "bfloat16", "per": "extractor batch",

@@ -45,7 +45,9 @@ _SIGNATURES = {
                    _L, _L, _L, _L, _P],
     "sq_pc_wgmma": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P],
-    "sq_lloyd_stats": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sq_lloyd_prepare": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "sq_lloyd_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P],
     "sq_vis_blocks": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P],
     "sq_vis_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,

@@ -6,7 +6,8 @@
 //   - the wgmma shared-memory matrix descriptor for the 128-byte swizzle;
 //   - wgmma.mma_async m64nNk16, bf16 operands from shared memory, f32
 //     accumulators in registers, with its fence, commit and wait; m64n104k16
-//     also with an MN-major (transposed) A;
+//     also with an MN-major (transposed) A; m64n128k8 with TF32 operands,
+//     and the TF32 rounding (cvt.rna.tf32.f32) that makes them;
 //   - programmatic dependent launch (griddepcontrol) and thread-block
 //     clusters: the cluster barrier, a CTA's rank, and loads from another
 //     CTA's shared memory (distributed shared memory).
@@ -192,6 +193,42 @@ template <int TRANS_A, int TRANS_B> struct Wgmma104 {
         : "l"(a), "l"(b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
   }
 };
+
+// d (64 x 128 f32) += A (64 x 8) . B (8 x 128), TF32, both K-major (the only
+// layout wgmma takes for 32-bit operands) from shared memory: a k8 step of
+// TF32 is 32 bytes deep, as a k16 step of bf16, so the 128-byte-swizzled
+// tiles and descriptors above serve unchanged, with 32 f32 per row.  The
+// tensor cores read the top 19 bits of each f32; the fragment of d is the
+// bf16 one above.
+struct WgmmaTf32 {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// v rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero; the 13 bits below are returned as zero
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
 
 // programmatic dependent launch: griddep_wait blocks until the grids this
 // one depends on (the previous launch on the stream, when this one was

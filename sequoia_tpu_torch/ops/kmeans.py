@@ -17,15 +17,17 @@ Differences of form from the JAX module:
   :func:`kmeans_fit` agrees with JAX in inertia, and :func:`kmeans_lloyd`
   from shared centers agrees exactly.
 
-``use_pallas=True`` (the JAX flag name) runs each Lloyd step through the K5
-kernel ``ops/cuda_kmeans.lloyd_stats``.
+``use_pallas=True`` (the JAX flag name) runs the fit through the K5 kernel:
+one ``ops/cuda_kmeans.LloydPlan`` per fit, whose stats give every step and
+the final assignment.  On the card its distances are taken from operands
+centered on the mean (``ops/cuda_kmeans.py`` says why), so on near-tie
+features its steps follow a float64 fit, where the JAX recipe's may not.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sequoia_tpu_torch.ops import cuda_kmeans
 from sequoia_tpu_torch.utils.device import resolve_device
@@ -63,18 +65,24 @@ def _assign(x, mask, centers):
     return labels, torch.where(mask, best, 0.0)
 
 
-def _stats(x, mask, centers, use_pallas: bool):
-    """(sums (k, D), counts (k,), best (N,)) of the current assignment."""
-    k = centers.shape[0]
+def _stats_fn(x, mask, use_pallas: bool):
+    """centers -> (sums (k, D), counts (k,), best (N,), labels (N,)) of the
+    assignment to ``centers``: through one K5 plan for the fit, or the plain
+    distance GEMM."""
     if use_pallas:
-        kpad = ((k + 127) // 128) * 128
-        cpad = F.pad(centers, (0, 0, 0, kpad - k), value=1e8)  # sentinels never win
-        sums, counts, _, best = cuda_kmeans.lloyd_stats(x, mask, cpad)
-        return sums[:k], counts[:k], best
-    labels, best = _assign(x, mask, centers)
-    onehot = (labels[:, None] == torch.arange(k, device=x.device)).to(x.dtype)
-    onehot = onehot * mask.to(x.dtype)[:, None]
-    return onehot.T @ x, onehot.sum(0), best
+        plan = cuda_kmeans.LloydPlan(x, mask)
+
+        def stats(centers):
+            sums, counts, _, best, labels = plan.stats(centers)
+            return sums, counts, best, labels.long()
+        return stats
+
+    def stats(centers):
+        labels, best = _assign(x, mask, centers)
+        onehot = (labels[:, None] == torch.arange(centers.shape[0], device=x.device)).to(x.dtype)
+        onehot = onehot * mask.to(x.dtype)[:, None]
+        return onehot.T @ x, onehot.sum(0), best, labels
+    return stats
 
 
 def _donor_repair(x, mask, labels, centers, best):
@@ -109,31 +117,44 @@ def _donor_repair(x, mask, labels, centers, best):
     return (torch.as_tensor(lab, device=dev), centers, torch.as_tensor(bst, device=dev))
 
 
-def _lloyd(x, mask, centers, max_iter: int, tol_abs, use_pallas: bool = False):
-    n, k = x.shape[0], centers.shape[0]
+def _lloyd_step(x, centers, stats, tol_abs, min_empty: int):
+    """One Lloyd step: the new centers, and a (2,) bool tensor saying whether
+    the shift and whether an unexpected empty cluster keep the loop alive."""
+    kk = min(centers.shape[0], x.shape[0])
+    sums, counts, best, _ = stats(centers)
+    new_centers = torch.where(counts[:, None] > 0,
+                              sums / torch.clamp(counts[:, None], min=1.0), centers)
+    # empty clusters move to the farthest valid points (masked rows have
+    # best = 0 and sort last; ties keep index order)
+    empty = counts == 0
+    far = torch.sort(best, descending=True, stable=True).indices[:kk]
+    pos = torch.cumsum(empty.to(torch.int64), 0) - 1
+    candidates = x[far[torch.clamp(pos, 0, kk - 1)]]
+    new_centers = torch.where(empty[:, None], candidates, new_centers)
+    shift = ((new_centers - centers) ** 2).sum()
+    return new_centers, torch.stack((shift > tol_abs, empty.sum() > min_empty))
+
+
+def _lloyd(x, mask, centers, max_iter: int, tol_abs, use_pallas: bool = False,
+           trace: list | None = None):
+    """Lloyd steps until the shift is within ``tol_abs`` and no unexpected
+    cluster is empty, then the final assignment and donor repair.  ``trace``
+    (a list) receives each step's (shift alive, empty alive) pair."""
     # with fewer valid points than clusters, k - n_valid clusters can never
     # fill: only unexpected empties keep the loop alive
-    min_empty = max(0, k - int(mask.sum()))
-    kk = min(k, n)
+    min_empty = max(0, centers.shape[0] - int(mask.sum()))
+    stats = _stats_fn(x, mask, use_pallas)
     n_iter = 0
     while n_iter < max_iter:
-        sums, counts, best = _stats(x, mask, centers, use_pallas)
-        new_centers = torch.where(counts[:, None] > 0,
-                                  sums / torch.clamp(counts[:, None], min=1.0), centers)
-        # empty clusters move to the farthest valid points (masked rows have
-        # best = 0 and sort last; ties keep index order)
-        empty = counts == 0
-        far = torch.sort(best, descending=True, stable=True).indices[:kk]
-        pos = torch.cumsum(empty.to(torch.int64), 0) - 1
-        candidates = x[far[torch.clamp(pos, 0, kk - 1)]]
-        new_centers = torch.where(empty[:, None], candidates, new_centers)
-        shift = ((new_centers - centers) ** 2).sum()
-        had_empty = empty.sum() > min_empty
-        centers = new_centers
+        centers, alive = _lloyd_step(x, centers, stats, tol_abs, min_empty)
         n_iter += 1
-        if not bool((shift > tol_abs) | had_empty):  # one host sync per step
+        by_shift, by_empty = alive.tolist()  # one host sync per step
+        if trace is not None:
+            trace.append((by_shift, by_empty))
+        if not (by_shift or by_empty):
             break
-    labels, best = _assign(x, mask, centers)
+    # the final assignment by the distances the loop converged on
+    _, _, best, labels = stats(centers)
     labels, centers, best = _donor_repair(x, mask, labels, centers, best)
     return centers, labels, best.sum(), n_iter
 
