@@ -23,7 +23,10 @@ Phases, each printing one JSON line:
    recipe (``lloyd_stats_tc_plain``) and the JAX kernel's uncentered f32
    recipe (``lloyd_stats_plain``, also at two ragged point counts); it
    reports its launches per call, each of its kernels' traced time, and its
-   share of two bounds (TF32 tensor cores, f32 CUDA cores).  Then a
+   share of two bounds (TF32 tensor cores, f32 CUDA cores); past one
+   128-center tile (``wide_k``: k = 129, 200, 256, each against the mirror
+   with its time; at k = 200 also ``kmeans_fit`` and
+   ``SlidePredictor.cluster`` with K5 on the card).  Then a
    ``kmeans_near_tie`` line (Lloyd fits with K5, plain f32 and plain f64
    from one seeding on near-equal features: steps, what kept each alive,
    labels equal to the f64 fit's) and a ``lloyd_step`` line (one K5-mode
@@ -33,7 +36,9 @@ Phases, each printing one JSON line:
    ``vis_blocks.cu`` and ``conv_gemm.cu``) also report their share of the
    bound, GB/s and TFLOP/s, and in bf16 are checked at off-path edge shapes
    (K1: 7 and 130 tokens at P = 512, depth 1; K2: one image, three images,
-   a ragged H2 != W2 map); K1 reports its launches per call and, from a
+   a ragged H2 != W2 map); K1 is also checked and timed with 8 heads of
+   width 128 at the main path's D = 2048, depth 6, 100 tokens
+   (``wide_heads``, both types); K1 reports its launches per call and, from a
    ``torch.profiler`` trace of one call, the device gaps between them.  K3
    and K4 (bf16: the tensor-core kernel of ``conv_wgmma.cu``; f32: the FMA
    kernels of ``conv_gemm.cu``) are timed at
@@ -62,10 +67,26 @@ Phases, each printing one JSON line:
    (K4) -> k-means (K5) -> 5-fold ViS (K1), against a plain predictor (same
    kept patches, features within 5%, Pearson r >= 0.99), then a run at
    ``max_patches=256`` that must stop decoding early, and the same trace of
-   one batch of candidates.
+   one batch of candidates;
+6. serving from files: the five folds written as a CV directory
+   (``model_best_{i}.pt``, ``test_results.pkl`` with 20,820 genes) and fold
+   0 as an HF directory (``serve_cli_checkpoints``: seconds to write and
+   load, loaded bit for bit equal to memory); a ``native_reader`` line
+   (whether g++ built the port's libtiff reader, and the compiler's message
+   if not); then the kernel set of ``cli.serve.build_predictor`` (K4, K5,
+   K1) over the two slides of phase 5 (``serve_cli``): written as files
+   (native writer, else Pillow) and served by ``cli.serve.main`` with the
+   full head, a 50-gene panel and ``--kernels off`` (CSV shapes, the panel's
+   columns, rows against ``predict_wsi`` on the in-memory slides, seconds
+   per slide and slides/hour, kernels against plain), then by the HTTP
+   server (GET /healthz and /genes, a POST of both slides, two POSTs queued
+   behind a held run that must merge into one run); with no way to write a
+   slide file, ``predict_slides`` on the in-memory slides and a POST of a
+   path that cannot be opened (502).
 
 The last lines are the kernels table (``launches`` sums the counts of the
-two paths' runs, each read from 0), the ``nvidia-smi`` line and
+three paths' kernel runs, each read from 0), the script's run time, the
+``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
 script exits non-zero and prints no result.
@@ -95,9 +116,16 @@ CHAIN_LAYER1, CHAIN_TAILS = (1, 0, 64), ((2, 1, 32), (3, 1, 16), (4, 1, 8))
 CHAIN_EDGES = ((3, 1, 0, 8, 16), (1, 4, 1, 8, 8), (2, 2, 0, 9, 15))
 # the WSI path: level-0 side, the early-stop run's cap
 WSI_SIDE, WSI_CAP = 8192, 256
+# the serve CLI's gene panel
+PANEL = 50
 # off-path bf16 edge shapes: K1 (tokens, P, heads) at depth 1; K2 (batch, H2,
 # W2): one image, three, and a map whose 4032 pixels end in a ragged tile
 VIS_EDGES = ((7, 512, 8), (130, 512, 8))
+# K1 with heads wider than one 64-feature tile: (heads, head width) at the
+# main path's D = 2048, depth 6, 100 tokens
+VIS_WIDE_HEADS = (8, 128)
+# K5 past one 128-center tile: k at the main path's (4096, 2048)
+LLOYD_WIDE_K = (129, 200, 256)
 STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
 
 # card peaks (H100 SXM data sheet, dense): the bound of a kernel is the
@@ -136,6 +164,9 @@ SOURCES = {
     "lloyd_stats": ("sequoia_tpu_torch/csrc/lloyd_wgmma.cu",
                     "sequoia_tpu/ops/pallas_kmeans.py:81"),
 }
+
+
+START = time.perf_counter()
 
 
 def emit(obj) -> None:
@@ -503,6 +534,58 @@ def check_lloyd(torch, dev) -> dict:
         moved, flops + n_valid * D, "float32")
     res.update(rates(res, moved, 3 * flops))
     res["bound_cuda_cores_share"] = res["bound_cuda_cores_ms"] / res["ms"]
+    res["wide_k"] = [check_lloyd_k(torch, dev, k) for k in LLOYD_WIDE_K]
+    return res
+
+
+def check_lloyd_k(torch, dev, k: int) -> dict:
+    """K5 past one 128-center tile: k clusters at the main path's (4096,
+    2048) against the mirror of its recipe (equal counts and labels, sums
+    within LLOYD_TC_SUMS_TOL of max |plain|, best and inertia within TOL),
+    and its time per call."""
+    from sequoia_tpu_torch.ops import cuda_kmeans as ck
+
+    g = torch.Generator(device=dev).manual_seed(30 + k)
+    true = torch.randn((k, D), generator=g, device=dev)
+    x = true[torch.randint(0, k, (PATCHES,), generator=g, device=dev)] + 0.1 * torch.randn(
+        (PATCHES, D), generator=g, device=dev)
+    centers = true + 0.01 * torch.randn((k, D), generator=g, device=dev)
+    mask = torch.ones((PATCHES,), dtype=torch.bool, device=dev)
+    mask[-32:] = False
+    plan = ck.LloydPlan(x, mask)
+    (s1, c1, i1, b1, l1), (s2, c2, i2, b2, l2) = (plan.stats(centers),
+                                                  ck.lloyd_stats_tc_plain(x, mask, centers))
+    if not torch.equal(c1, c2) or not torch.equal(l1.long(), l2):
+        raise AssertionError(f"lloyd_stats k={k}: labels or counts differ from "
+                             "lloyd_stats_tc_plain")
+    sums_rel = float((s1 - s2).abs().max() / s2.abs().max())
+    best_rel = float((b1 - b2).abs().max() / b2.abs().max())
+    inertia_rel = float((i1 - i2).abs() / i2.abs())
+    tol = TOL["lloyd_stats"]["float32"]
+    if sums_rel > LLOYD_TC_SUMS_TOL or best_rel > tol or inertia_rel > tol:
+        raise AssertionError(f"lloyd_stats k={k}: sums {sums_rel:.3g}, best {best_rel:.3g}, "
+                             f"inertia {inertia_rel:.3g} from lloyd_stats_tc_plain")
+    flops = 2 * PATCHES * D * k
+    moved = nbytes(x, mask, centers, s1, c1, i1, b1)
+    bnd, by = bound_ms(moved, 3 * flops + int(mask.sum()) * D, "tfloat32")
+    res = {"k": k, "counts_equal": True, "labels_equal": True, "sums_max_rel_err": sums_rel,
+           "best_max_rel_err": best_rel, "inertia_rel_err": inertia_rel,
+           "ms": time_ms(torch, lambda: plan.stats(centers), 50), "bound_ms": bnd,
+           "bound_by": by}
+    if k == 200:  # the entry points that refused k > 128 on the card before
+        from sequoia_tpu_torch.ops import kmeans as km
+        from sequoia_tpu_torch.serve import SlidePredictor
+
+        fits = {kern: km.kmeans_fit(x, mask, torch.Generator(device=dev).manual_seed(0), k,
+                                    use_pallas=kern) for kern in (True, False)}
+        same = float((fits[True][1] == fits[False][1])[mask].float().mean())
+        cf = SlidePredictor(None, [], n_clusters=k, use_pallas_kmeans=True,
+                            device=dev).cluster(x[mask])
+        if same < 0.999 or cf.shape != (k, D) or not bool(torch.isfinite(cf).all()):
+            raise AssertionError(f"kmeans k={k}: K5 fit labels {same:.4f} equal to the plain "
+                                 f"fit's, cluster means {tuple(cf.shape)}")
+        res["kmeans_fit"] = {"steps": fits[True][3], "plain_steps": fits[False][3],
+                             "labels_equal_plain": same, "slide_predictor_cluster": list(cf.shape)}
     return res
 
 
@@ -652,7 +735,38 @@ def check_vis(torch, dev, dtype: str) -> dict:
                 torch, "vis_blocks_fused", dtype,
                 cuda_vis.vis_blocks_fused(ex, epos, ech, esm, **ekw),
                 cuda_vis.vis_blocks_plain(ex, epos, ech, esm, **ekw))})
+    res["wide_heads"] = check_vis_wide_heads(torch, dev, g, dtype)
     return res
+
+
+def check_vis_wide_heads(torch, dev, g, dtype: str) -> dict:
+    """K1 with VIS_WIDE_HEADS (a head spans two 64-feature tiles: the
+    per-head LN runs as a launch of its own, the combine takes the head's
+    rows) at the main path's D, depth and tokens, at the 16 x 64 TOL: bf16
+    against the plain version of its decomposition
+    (``vis_blocks_split_plain``), f32 against ``vis_blocks_plain``."""
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.models import vis
+    from sequoia_tpu_torch.ops import cuda_vis
+
+    heads, hw = VIS_WIDE_HEADS
+    cfg = vis.ViSConfig(num_outputs=16, input_dim=D, depth=6, nheads=heads, dim_f=hw,
+                        dim_s=hw, dim_c=hw, num_clusters=K)
+    takes, why = cuda_vis.kernel_takes(cfg, dtype)
+    if not takes:
+        raise AssertionError(f"vis_blocks_fused {heads} x {hw}: kernel_takes refuses: {why}")
+    chunks, smalls, pos = cuda_vis.pack_vis_blocks(cfg, vis.init(cfg, g), getattr(torch, dtype))
+    x = torch.randn((K, D), generator=g, device=dev)
+    kw = dict(depth=cfg.depth, nheads=heads)
+    run = lambda: cuda_vis.vis_blocks_fused(x, pos, chunks, smalls, **kw)  # noqa: E731
+    before = _build.LAUNCHES["vis_blocks_fused"]
+    out = run()
+    launches = _build.LAUNCHES["vis_blocks_fused"] - before
+    plain = (cuda_vis.vis_blocks_split_plain if dtype == "bfloat16"
+             else cuda_vis.vis_blocks_plain)
+    res = compare(torch, "vis_blocks_fused", dtype, out, plain(x, pos, chunks, smalls, **kw))
+    return {"heads": heads, "head_width": hw, "P": D // 2, "depth": cfg.depth, "tokens": K,
+            **res, "launches_per_call": launches, "ms": time_ms(torch, run, 10)}
 
 
 # ---------------------------------------------------------------------------
@@ -938,6 +1052,321 @@ def wsi_path(torch, dev, rparams, folds) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving trained folds from files (checkpoints, the CLI, HTTP)
+# ---------------------------------------------------------------------------
+
+def write_slide_file(slide, path: str, writer: str) -> None:
+    """An ArrayReader slide as a file: a tiled TIFF through the native
+    reader's writer, or a TIFF of one uncompressed page per level through
+    Pillow (read back by ``data/wsi.PILReader``)."""
+    if writer == "native":
+        from sequoia_tpu_torch import native
+
+        native.write_tiled_tiff(path, slide.levels, tile=(256, 256),
+                                description="synthetic|AppMag = 20")
+    else:
+        from PIL import Image
+
+        Image.fromarray(slide.levels[0]).save(
+            path, save_all=True, append_images=[Image.fromarray(lv) for lv in slide.levels[1:]])
+
+
+def read_csv(path: str):
+    """The serve CLI's CSV -> (header, slide names, (slides, genes) values)."""
+    import csv
+
+    import numpy as np
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], [r[0] for r in rows[1:]], np.asarray(
+        [[float(v) for v in r[1:]] for r in rows[1:]])
+
+
+def http_checks(torch, np, pred, genes, paths, want) -> dict:
+    """``http_serve`` on a loopback port over ``pred``: GET /healthz and
+    /genes; with ``want`` (slide path -> its CLI row) a POST of every slide
+    held in the pipeline while two more POSTs queue, which must merge into
+    one run, each answer against the CLI's rows; then a POST of a path that
+    cannot be opened, which must give 502 with the error."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from sequoia_tpu_torch import http_serve
+
+    runs, release = [], threading.Event()
+    orig = pred.predict_slides
+
+    def spy(paths_, on_error=None):
+        runs.append(tuple(paths_))
+        if len(runs) == 1 and want:
+            release.wait(120)  # the first run holds until the next two POSTs queue
+        return orig(paths_, on_error=on_error)
+
+    pred.predict_slides = spy
+    svc = http_serve.PredictorService(pred, genes)
+    srv = http_serve.make_server(svc, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = "http://127.0.0.1:%d" % srv.server_address[1]
+
+    def post(obj, out=None):
+        req = urllib.request.Request(base + "/predict", data=json.dumps(obj).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                res = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            res = (e.code, json.loads(e.read()))
+        if out is not None:
+            out.append(res)
+        return res
+
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/genes", timeout=60) as r:
+            listed = json.loads(r.read())
+        if health["status"] != "ok" or health["folds"] != FOLDS or listed["n"] != len(genes):
+            raise AssertionError(f"http: /healthz {health}, /genes n={listed['n']}")
+        res = {"healthz": health["status"], "genes_n": listed["n"]}
+        if want:
+            res.update(merge_checks(np, svc, runs, release, post, genes, paths, want))
+        code, out = post({"wsi": "/nonexistent/slide.svs"})
+        if code != 502 or not out["failed"] or out["predictions"]:
+            raise AssertionError(f"http: unopenable slide gave {code} {out}")
+        res["unopenable_post"] = {"code": code, "error": list(out["failed"].values())[0]}
+        return res
+    finally:
+        release.set()
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+        del pred.predict_slides
+
+
+def merge_checks(np, svc, runs, release, post, genes, paths, want) -> dict:
+    """A POST of every slide held in the pipeline (``runs`` records each
+    run; the first waits on ``release``) while two more POSTs queue: they
+    must run as one merged run, and every answer must match ``want``."""
+    import threading
+
+    outs: list = []
+    first = threading.Thread(target=post, args=({"wsi": paths}, outs))
+    first.start()
+    deadline = time.monotonic() + 60
+    while not runs:
+        if time.monotonic() > deadline:
+            raise AssertionError("http: the first POST never reached the pipeline")
+        time.sleep(0.01)
+    queued = [threading.Thread(target=post, args=({"wsi": paths[i:] + paths[:i]}, outs))
+              for i in range(2)]
+    for t in queued:
+        t.start()
+    while svc.health()["pending_slides"] < 3 * len(paths):
+        if time.monotonic() > deadline:
+            raise AssertionError("http: the two POSTs never queued")
+        time.sleep(0.01)
+    release.set()
+    for t in (first, *queued):
+        t.join(600)
+    if len(runs) != 2 or sorted(runs[1]) != sorted(paths):
+        raise AssertionError(f"http: the two queued POSTs ran as {runs[1:]}, not one run")
+    r_min = 1.0
+    for code, out in outs:
+        if code != 200 or out["failed"] or sorted(out["predictions"]) != sorted(paths):
+            raise AssertionError(f"http: POST gave {code}, failed {out['failed']}")
+        for p in paths:
+            got = np.asarray([out["predictions"][p][g] for g in genes])
+            r_min = min(r_min, pearson(np, got, want[p]))
+    if r_min < 0.99999:
+        raise AssertionError(f"http: predictions r = {r_min} against the CLI's rows")
+    return {"posts": len(outs), "pipeline_runs": len(runs),
+            "merged_run_slides": len(runs[1]), "pearson_r_min_vs_cli": r_min}
+
+
+def serve_cli_path(torch, dev, folds) -> dict:
+    """Phase 6: the five folds written as the reference's files (``.pt`` CV
+    directory with ``test_results.pkl``, fold 0 again as an HF directory),
+    loaded back bit for bit, then served from slide files by
+    ``cli.serve.main`` (full head, a panel, and plain) and by the HTTP
+    server, with the kernel set of ``cli.serve.build_predictor``.  The files
+    are written through the native reader's writer where it built, else
+    through Pillow where it is installed; with neither, only the in-memory
+    slides are served (``predict_slides``) and HTTP gets GETs and a path that
+    cannot be opened.  Returns the launch counts of the kernel runs."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from sequoia_tpu_torch import _build, native
+    from sequoia_tpu_torch.cli import serve as cli
+    from sequoia_tpu_torch.models import convert
+    from sequoia_tpu_torch.train import checkpoint
+
+    genes = [f"GENE{i:05d}" for i in range(GENES)]
+    panel = genes[::GENES // PANEL][:PANEL]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        t0 = time.perf_counter()
+        exp, hf = os.path.join(tmp, "exp"), os.path.join(tmp, "hf")
+        for i, (cfg, params) in enumerate(folds):
+            checkpoint.save_torch_state_dict(convert.vis_to_torch(cfg, params),
+                                             os.path.join(exp, f"model_best_{i}.pt"))
+        with open(os.path.join(exp, "test_results.pkl"), "wb") as f:
+            pickle.dump({"genes": genes}, f)
+        checkpoint.save_hf_vis_layout(hf, *folds[0])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = cli.load_fold_models(exp)
+        load_s = time.perf_counter() - t0
+        loaded_hf = cli.load_fold_models(hf)
+
+        def leaves(params):
+            return {**{k: v for k, v in params.items() if k != "blocks"}, **params["blocks"]}
+
+        for (cfg, mem), (lcfg, got) in zip(folds + folds[:1], loaded + loaded_hf):
+            want, have = leaves(mem), leaves(got)
+            if lcfg != dataclasses.replace(cfg, compute_dtype=None) or set(have) != set(want) \
+                    or not all(torch.equal(have[k], want[k].cpu()) for k in want):
+                raise AssertionError("serve_cli: a fold loaded from file differs from memory")
+        emit({"phase": "serve_cli_checkpoints", "folds": len(loaded), "genes": GENES,
+              "bytes": sum(os.path.getsize(os.path.join(d, n)) for d in (exp, hf)
+                           for n in os.listdir(d)),
+              "write_seconds": write_s, "load_seconds": load_s,
+              "hf_files": sorted(os.listdir(hf)), "bit_equal": True})
+
+        # the CLI serves the folds in its --compute_dtype
+        models = [(dataclasses.replace(cfg, compute_dtype="bfloat16"), p) for cfg, p in loaded]
+        kw = dict(device=dev, batch_size=FEAT_BATCH, n_clusters=K, patch_size=PATCH)
+        fast, line = cli.build_predictor("resnet", "random", models, **kw)
+        plain, _ = cli.build_predictor("resnet", "random", models, kernels=(), **kw)
+        slides = [make_slide(torch, dev, s) for s in (1, 2)]
+        warm = torch.randint(0, 256, (SMALL_SLIDE, PATCH, PATCH, 3), device=dev, dtype=torch.uint8,
+                             generator=torch.Generator(device=dev).manual_seed(7))
+        for p in (fast, plain):
+            p.predict_patches(warm)
+        torch.cuda.synchronize()
+
+        built = native.available()
+        try:
+            import PIL  # noqa: F401
+
+            pillow = True
+        except ImportError:
+            pillow = False
+        writer = "native" if built else "pillow" if pillow else None
+        emit({"phase": "native_reader", "available": built, "error": native.build_error(),
+              "slide_files_by": writer or "none (in-memory slides)"})
+
+        def timed(p, items):
+            t0 = time.perf_counter()
+            out = dict(p.predict_slides(items))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        _build.reset_launches()
+        mem_rows, mem_s = timed(fast, slides)
+        launches = dict(_build.LAUNCHES)
+        plain_rows, plain_s = timed(plain, slides)
+        r_mem = min(pearson(np, mem_rows[s], plain_rows[s]) for s in slides)
+        res = {"phase": "serve_cli", "kernels_line": line, "slide_files_by": writer,
+               "in_memory": {"seconds_per_slide": mem_s / len(slides),
+                             "plain_seconds_per_slide": plain_s / len(slides),
+                             "pearson_r_min_vs_plain": r_min_check(r_mem, 0.99)}}
+        if writer is None:
+            res["http"] = http_checks(torch, np, fast, genes, [], None)
+            emit(res)
+            check_launched(launches, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
+                           "serve_cli path")
+            return launches
+
+        paths = [os.path.join(tmp, f"slide{i}.tiff") for i in range(len(slides))]
+        t0 = time.perf_counter()
+        for slide, path in zip(slides, paths):
+            write_slide_file(slide, path, writer)
+        res["slide_write_seconds"] = time.perf_counter() - t0
+        args = ["--wsi", *paths, "--checkpoints", exp, "--weights", "random",
+                "--batch_size", str(FEAT_BATCH), "--num_clusters", str(K),
+                "--patch_size", str(PATCH), "--compute_dtype", "bfloat16", "--device", dev.type]
+        # the CLI once to warm the host (the first read of each file, the
+        # first decoded page), then in turns (kernels, plain, plain, kernels:
+        # the host clock drifts within a call), then once with the panel
+        runs: dict = {}
+        order = (("warm_up", []), ("kernels", []), ("plain", ["--kernels", "off"]),
+                 ("plain", ["--kernels", "off"]), ("kernels", []),
+                 ("panel", ["--panel", ",".join(panel)]))
+        for i, (name, extra) in enumerate(order):
+            if name != "plain":
+                _build.reset_launches()
+            t0 = time.perf_counter()
+            out = cli.main([*args, *extra, "--out", os.path.join(tmp, f"{name}{i}.csv")])
+            torch.cuda.synchronize()
+            runs.setdefault(name, []).append({**out, "main_seconds": time.perf_counter() - t0,
+                                              "csv": read_csv(out["out"])})
+            if name != "plain":
+                launches = {k: launches[k] + v for k, v in _build.LAUNCHES.items()}
+        names = [os.path.basename(p) for p in paths]
+        for name, want_genes in (("warm_up", genes), ("kernels", genes), ("panel", panel),
+                                 ("plain", genes)):
+            for run in runs[name]:
+                header, rows, vals = run["csv"]
+                if header != ["wsi_file_name", *want_genes] or rows != names \
+                        or vals.shape != (len(paths), len(want_genes)) \
+                        or not np.isfinite(vals).all():
+                    raise AssertionError(f"serve_cli: {name} CSV {vals.shape}, rows {rows}")
+        full, part = runs["kernels"][0]["csv"][2], runs["panel"][0]["csv"][2]
+        cols = full[:, [genes.index(g) for g in panel]]
+        panel_rel = float(np.abs(part - cols).max() / np.abs(cols).max())
+        if panel_rel > 1e-5:
+            raise AssertionError(f"serve_cli: panel columns {panel_rel:.3g} from the full run's")
+        # the CLI's rows against the predictor's predict_wsi on the in-memory slides
+        direct = [fast.predict_wsi(s)[0] for s in slides]
+        r_direct = r_min_check(min(pearson(np, full[i], direct[i]) for i in range(len(slides))),
+                               0.99999)
+        r_plain = r_min_check(min(pearson(np, full[i], runs["plain"][0]["csv"][2][i])
+                                  for i in range(len(slides))), 0.99)
+        per_slide = {k: [r["serve_seconds"] / r["slides"] for r in v] for k, v in runs.items()}
+        mean = {k: sum(v) / len(v) for k, v in per_slide.items()}
+        # where a file slide's extra time goes: the slide mask and candidate
+        # grid, then decoding every candidate, from the file and from memory
+        decode = {}
+        for label, src in (("file", paths[0]), ("memory", slides[0])):
+            t0 = time.perf_counter()
+            cands = fast._candidates(src)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n = sum(len(c) for c in fast._decode_chunks(cands))
+            decode[label] = {"mask_and_grid_s": t1 - t0, "decode_s": time.perf_counter() - t1,
+                             "candidates": n}
+        res.update(
+            csv_shape=list(full.shape), panel_shape=list(part.shape),
+            panel_max_rel_diff=panel_rel, pearson_r_min_vs_predict_wsi=r_direct,
+            pearson_r_min_vs_plain=r_plain, seconds_per_slide=mean["kernels"],
+            plain_seconds_per_slide=mean["plain"], panel_seconds_per_slide=mean["panel"],
+            seconds_per_slide_by_run=per_slide, slides_per_hour=3600 / mean["kernels"],
+            plain_slides_per_hour=3600 / mean["plain"],
+            main_seconds={k: [r["main_seconds"] for r in v] for k, v in runs.items()},
+            slide_file_host_work=decode,
+            http=http_checks(torch, np, fast, genes, paths,
+                             {p: full[i] for i, p in enumerate(paths)}))
+        emit(res)
+        check_launched(launches, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
+                       "serve_cli path")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def r_min_check(r: float, floor: float) -> float:
+    if r < floor:
+        raise AssertionError(f"serve_cli: Pearson r {r} < {floor}")
+    return r
+
+
 def main() -> int:
     import argparse
 
@@ -1011,13 +1440,16 @@ def main() -> int:
     main = main_path(torch, dev, rparams, folds)
     torch.cuda.empty_cache()
     wsi = wsi_path(torch, dev, rparams, folds)
-    launches = {k: main[k] + wsi[k] for k in results}
+    torch.cuda.empty_cache()
+    served = serve_cli_path(torch, dev, folds)
+    launches = {k: main[k] + wsi[k] + served[k] for k in results}
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]} for k, r in results.items()]})
+    emit({"phase": "run_time", "seconds": time.perf_counter() - START})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,322 @@
+"""One-shot slide serving CLI: slide file(s) -> gene-panel CSV, or a resident
+HTTP server.
+
+Counterpart of ``sequoia_tpu/cli/serve.py``: tiling, feature extraction,
+k-means and the fold-ensembled ViS forward in one process, the decode thread
+overlapping the device (``SlidePredictor.predict_slides``).
+
+    python -m sequoia_tpu_torch.cli.serve \\
+        --wsi slide1.svs slide2.svs --checkpoints saved_exp/brca/exp_vis \\
+        --weights resnet50.pth --panel TP53,EGFR --out predictions.csv
+    python -m sequoia_tpu_torch.cli.serve --http 8000 --checkpoints DIR --weights random
+
+``--checkpoints`` takes a CV output directory (``model_best_{i}.pt`` and
+``test_results.pkl``, folds found by name), a single ``.pt``, or a local
+HF-layout directory (``config.json`` and ``model.safetensors`` or
+``pytorch_model.bin``).  It runs on CUDA unless ``--device cpu`` is given,
+and raises without CUDA.
+
+Where the port differs from the JAX CLI:
+
+* on CUDA it serves with the kernel set of :func:`build_predictor` (K4 in
+  every ResNet stage, K5 for k-means, K1 for the ViS folds where
+  ``cuda_vis.kernel_takes`` accepts their config) and prints one stderr line
+  naming it; ``--kernels off`` or ``--device cpu`` serves with the plain
+  PyTorch versions;
+* ``--compute_dtype`` also sets the folds' compute dtype (the JAX CLI
+  serves them in f32 whatever the flag; ``--compute_dtype float32`` gives
+  its numerics);
+* flags the port does not serve yet (``--data_parallel``, ``--multihost``,
+  ``--feat_type uni``, ``--model_type vit|he2rna``) stop at parse time,
+  naming their ROADMAP.md item; the JAX compile-cache flag is gone;
+* no pandas: the gene lists and the CSV go through the ``csv`` module.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import dataclasses
+import glob
+import os
+import pickle
+import sys
+import time
+
+import numpy as np
+
+from sequoia_tpu_torch.cli.compute_features import load_extractor
+from sequoia_tpu_torch.models import convert, vis
+from sequoia_tpu_torch.ops import cuda_vis
+from sequoia_tpu_torch.ops.nn import compute_dtype as to_dtype
+from sequoia_tpu_torch.serve import SlidePredictor
+from sequoia_tpu_torch.train import checkpoint
+from sequoia_tpu_torch.utils.device import resolve_device
+
+#: the kernels the serving entry points run on CUDA: K4 in every ResNet
+#: stage (``fused_stages=(1, 2, 3, 4)``), K5 for every Lloyd step, K1 for the
+#: ViS folds' blocks
+SERVING_KERNELS = ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused")
+
+# flag -> (values the port does not serve yet, or None for any use; ROADMAP item)
+_NOT_PORTED = {"--data_parallel": (None, "queue 1 item 8"),
+               "--multihost": (None, "queue 1 item 8"),
+               "--feat_type": ({"uni"}, "queue 1 item 3"),
+               "--model_type": ({"vit", "he2rna"}, "queue 1 item 5")}
+
+
+def load_fold_models(path: str, model_type: str = "vis") -> list[tuple[vis.ViSConfig, dict]]:
+    """CV directory / single ``.pt`` / HF-layout directory -> ``[(cfg,
+    params), ...]`` (f32, on the CPU).  Only ``model_type="vis"`` is ported."""
+    if model_type != "vis":
+        raise NotImplementedError(f"model_type {model_type!r} is not ported yet (ROADMAP.md "
+                                  "queue 1 item 5)")
+    if os.path.isdir(path):
+        if os.path.exists(os.path.join(path, "config.json")):  # HF layout
+            return [convert.vis_from_torch(checkpoint.load_hf_vis_state_dict(path))]
+        pts = (sorted(glob.glob(os.path.join(path, "model_best*.pt")))
+               or sorted(glob.glob(os.path.join(path, "model_*.pt"))))
+        if not pts:
+            raise SystemExit(f"no model_best*.pt / model_*.pt under {path}")
+        return [convert.vis_from_torch(checkpoint.load_torch_checkpoint(p)) for p in pts]
+    return [convert.vis_from_torch(checkpoint.load_torch_checkpoint(path))]
+
+
+def read_gene_list_file(path: str) -> list[str]:
+    """Gene-list file -> names: a ``.npy`` array, a ``.csv``'s last column
+    (with a header row, like ``examples/gene_list.csv``), or one name a line."""
+    if path.endswith(".npy"):
+        return [str(g) for g in np.load(path, allow_pickle=True)]
+    if path.endswith(".csv"):
+        with open(path, newline="") as f:
+            rows = [r for r in csv.reader(f) if r]
+        return [r[-1] for r in rows[1:]]
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+def _gene_list_arg(arg: str, flag: str) -> list[str]:
+    """A ``--gene_names``/``--panel`` value: an existing file, or a comma
+    list; a value that looks like a file and does not exist stops."""
+    if os.path.exists(arg):
+        return read_gene_list_file(arg)
+    if arg.endswith((".csv", ".npy", ".txt")) or os.sep in arg:
+        raise SystemExit(f"{flag} file not found: {arg}")
+    return arg.split(",")
+
+
+def load_gene_names(arg: str | None, ckpt_path: str, n: int) -> list[str]:
+    if arg:
+        return _gene_list_arg(arg, "--gene_names")
+    tr = os.path.join(ckpt_path, "test_results.pkl")
+    if os.path.isdir(ckpt_path) and os.path.exists(tr):
+        with open(tr, "rb") as f:
+            return [str(g) for g in pickle.load(f)["genes"]]
+    return [f"gene_{i}" for i in range(n)]
+
+
+def resolve_panel(arg: str, genes: list[str]) -> tuple[list[int], list[str]]:
+    """``--panel`` value -> (head column indices, panel gene names)."""
+    wanted = _gene_list_arg(arg, "--panel")
+    pos = {g: i for i, g in enumerate(genes)}
+    missing = [g for g in wanted if g not in pos]
+    if missing:
+        raise SystemExit(f"--panel genes not in the model's gene list: "
+                         f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
+    if not wanted:
+        raise SystemExit("--panel resolved to an empty gene list")
+    return [pos[g] for g in wanted], wanted
+
+
+def serving_kernels(device, models, kernels=SERVING_KERNELS) -> tuple[list[str], str]:
+    """The kernel set to serve ``models`` with: the named kernels (a subset
+    of :data:`SERVING_KERNELS`) on a CUDA device, K1 only where
+    ``cuda_vis.kernel_takes`` accepts every fold's config; none on another
+    device.  Returns ``(kernels, why K1 was left out or "")``."""
+    unknown = set(kernels) - set(SERVING_KERNELS)
+    if unknown:
+        raise ValueError(f"kernels: {sorted(unknown)} are not serving kernels "
+                         f"{SERVING_KERNELS}")
+    if resolve_device(device).type != "cuda":
+        return [], ""
+    on = [k for k in SERVING_KERNELS if k in kernels]
+    if "vis_blocks_fused" in on:
+        for cfg, _ in models:
+            takes, why = cuda_vis.kernel_takes(cfg, to_dtype(cfg.compute_dtype))
+            if not takes:
+                on.remove("vis_blocks_fused")
+                return on, why
+    return on, ""
+
+
+def build_predictor(feat_type: str, weights: str, models, *, device=None,
+                    kernels=SERVING_KERNELS, batch_size: int = 128,
+                    compute_dtype: str = "bfloat16", n_clusters: int = 100,
+                    max_patches: int = 4000, patch_size: int = 256):
+    """The serving predictor with the kernel set of :func:`serving_kernels`.
+    Returns ``(SlidePredictor, line)``, the line naming the kernels it serves
+    with and, where K1 is left out, why.  No kernel failure is caught."""
+    dev = resolve_device(device)
+    on, why = serving_kernels(dev, models, kernels)
+    extractor = load_extractor(feat_type, weights, batch_size, compute_dtype, device=dev,
+                               fused_stages=(1, 2, 3, 4) if "bottleneck_chain" in on else ())
+    pred = SlidePredictor(extractor, models, n_clusters=n_clusters, max_patches=max_patches,
+                          patch_size=patch_size, use_pallas_kmeans="lloyd_stats" in on,
+                          use_fused_vis="vis_blocks_fused" in on, device=dev)
+    line = (f"serve: {dev.type}, kernels: " + (", ".join(on) or "none (plain PyTorch)")
+            + (f"; vis_blocks_fused left out: {why}" if why else ""))
+    return pred, line
+
+
+class _NotPorted(argparse.Action):
+    """Stops at parse time on a flag (or flag value) the port does not serve
+    yet, naming its ROADMAP.md item."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        refused, item = _NOT_PORTED[option_string]
+        if refused is None or values in refused:
+            shown = option_string if refused is None else f"{option_string} {values}"
+            parser.error(f"{shown} is not ported yet (ROADMAP.md {item})")
+        setattr(namespace, self.dest, values)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="WSI -> gene panel serving (PyTorch/CUDA)")
+    p.add_argument("--wsi", type=str, nargs="+", default=None,
+                   help="slides for a one-shot run (omit with --http)")
+    p.add_argument("--http", type=str, default=None, metavar="[HOST:]PORT",
+                   help="stay resident and serve over HTTP: POST /predict "
+                        "{'wsi': path|[paths]}, GET /genes, GET /healthz")
+    p.add_argument("--http_max_pending", type=int, default=256,
+                   help="cap on admitted-but-unfinished slides under --http; past it "
+                        "POST /predict returns 429")
+    p.add_argument("--http_timeout", type=float, default=None,
+                   help="per-request wait bound in seconds under --http (504 on expiry)")
+    p.add_argument("--checkpoints", type=str, required=True,
+                   help="CV dir, .pt file, or HF-layout dir")
+    p.add_argument("--feat_type", default="resnet", choices=["resnet", "uni"],
+                   action=_NotPorted)
+    p.add_argument("--model_type", default="vis", choices=["vis", "vit", "he2rna"],
+                   action=_NotPorted, help="aggregator family of the checkpoints")
+    p.add_argument("--weights", type=str, required=True,
+                   help='backbone weights (.pt/.bin) or "random"')
+    p.add_argument("--gene_names", type=str, default=None,
+                   help="gene_list.csv / .npy / comma list; default: the checkpoint "
+                        "dir's test_results.pkl")
+    p.add_argument("--panel", type=str, default=None,
+                   help="restrict the output to a gene panel (comma list, or a .csv "
+                        "with a header row / .npy / .txt); slices the model head")
+    p.add_argument("--out", type=str, default="predictions.csv")
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--max_patches", type=int, default=4000)
+    p.add_argument("--patch_size", type=int, default=256)
+    p.add_argument("--num_clusters", type=int, default=100)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without CUDA) or cpu")
+    p.add_argument("--kernels", default="on", choices=["on", "off"],
+                   help="serve with the CUDA kernels (on) or the plain PyTorch versions")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the one-shot run into DIR")
+    p.add_argument("--data_parallel", nargs=0, action=_NotPorted)
+    p.add_argument("--multihost", nargs=0, action=_NotPorted)
+    return p
+
+
+def _write_csv(path: str, genes: list[str], rows: dict) -> None:
+    """One row per slide, one column per gene, ``wsi_file_name`` the index
+    name: the JAX CLI's ``DataFrame(rows, index=genes).T.to_csv`` layout."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["wsi_file_name", *genes])
+        for name, vals in rows.items():
+            w.writerow([name, *(repr(float(v)) for v in vals)])
+
+
+def main(argv=None) -> dict | None:
+    """Run the CLI; a one-shot run returns ``{"slides", "failed",
+    "serve_seconds", "out"}`` (``serve_seconds``: the ``predict_slides``
+    loop, host clock)."""
+    args = build_parser().parse_args(argv)
+    if not args.wsi and not args.http:
+        raise SystemExit("need --wsi (one-shot) or --http (resident server)")
+    if args.wsi and args.http:
+        raise SystemExit("--wsi and --http are mutually exclusive (the resident server "
+                         "takes slides via POST /predict)")
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    models = load_fold_models(args.checkpoints, args.model_type)
+    genes = load_gene_names(args.gene_names, args.checkpoints, models[0][0].num_outputs)
+    if len(genes) != models[0][0].num_outputs:
+        raise SystemExit(f"{len(genes)} gene names vs model head {models[0][0].num_outputs}")
+    if args.panel:
+        idx, genes = resolve_panel(args.panel, genes)
+        models = [vis.slice_head(cfg, params, idx) for cfg, params in models]
+    cfg0 = models[0][0]
+    if cfg0.num_clusters != args.num_clusters:
+        raise SystemExit(f"--num_clusters {args.num_clusters} != checkpoint num_clusters "
+                         f"{cfg0.num_clusters} (inferred from pos_emb)")
+    fold_dtype = None if args.compute_dtype == "float32" else args.compute_dtype
+    models = [(dataclasses.replace(cfg, compute_dtype=fold_dtype), p) for cfg, p in models]
+
+    pred, line = build_predictor(
+        args.feat_type, args.weights, models, device=device,
+        kernels=SERVING_KERNELS if args.kernels == "on" else (), batch_size=args.batch_size,
+        compute_dtype=args.compute_dtype, n_clusters=args.num_clusters,
+        max_patches=args.max_patches, patch_size=args.patch_size)
+    if cfg0.input_dim != pred.extractor.feature_dim:
+        raise SystemExit(f"--feat_type {args.feat_type} produces "
+                         f"{pred.extractor.feature_dim}-d features but the checkpoint "
+                         f"expects input_dim {cfg0.input_dim}")
+    print(line, file=sys.stderr)
+
+    if args.http:
+        from sequoia_tpu_torch import http_serve
+
+        if args.profile:
+            print("--profile applies to one-shot runs only; ignored under --http",
+                  file=sys.stderr)
+        host, _, port = args.http.rpartition(":")
+        try:
+            port_n = int(port)
+        except ValueError:
+            raise SystemExit(f"--http expects [HOST:]PORT, got {args.http!r}") from None
+        http_serve.run(http_serve.PredictorService(
+            pred, genes, max_pending_slides=args.http_max_pending,
+            request_timeout=args.http_timeout), host or "127.0.0.1", port_n)
+        return None
+
+    if len(set(args.wsi)) != len(args.wsi):
+        # a duplicated path would run the pipeline twice and collapse to one row
+        print("serve: dropping duplicate --wsi paths", file=sys.stderr)
+        args.wsi = list(dict.fromkeys(args.wsi))
+    names = [os.path.basename(p) for p in args.wsi]
+    if len(set(names)) != len(names):  # disambiguate duplicate basenames
+        names = list(args.wsi)
+    name_of = dict(zip(args.wsi, names))
+    rows = {}
+    failed = 0
+
+    def quarantine(path, e):  # skip the slide, as the reference does
+        nonlocal failed
+        failed += 1
+        print(f"{name_of[path]}: {e}", file=sys.stderr)
+
+    from sequoia_tpu_torch.utils.profiling import device_trace
+
+    t0 = time.perf_counter()
+    with device_trace(args.profile):
+        # cross-slide pipelining: slide i+1 decodes while slide i computes
+        for path, out in pred.predict_slides(args.wsi, on_error=quarantine):
+            rows[name_of[path]] = out[0]
+            print(f"{name_of[path]}: ok ({len(models)}-fold ensemble)")
+    seconds = time.perf_counter() - t0
+    if not rows:
+        raise SystemExit(f"all {failed} slides failed; nothing written")
+    _write_csv(args.out, genes, rows)
+    print(f"wrote {args.out} ({len(rows)} slides x {len(genes)} genes"
+          + (f"; {failed} failed)" if failed else ")"))
+    return {"slides": len(rows), "failed": failed, "serve_seconds": seconds, "out": args.out}
+
+
+if __name__ == "__main__":
+    main()

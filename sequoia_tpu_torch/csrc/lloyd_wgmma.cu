@@ -57,10 +57,14 @@
 //     one f32 accumulator;
 //   - the f32 partials go to shared memory; after a cluster barrier CTA r
 //     sums the four partials of its quarter of the points in rank order
-//     through distributed shared memory and runs the epilogue, a warp per
-//     point: the argmin, then best from the point's xc row (in L2, just
-//     streamed) and the center's row.  Fixed summation orders, no float
-//     atomics.
+//     through distributed shared memory and takes the tile's argmin, a warp
+//     per point;
+//   - any Kc: the centers go in tiles of 128, in increasing order, each
+//     streaming the CTA's xc range again (from L2); a warp keeps each of its
+//     points' running (d2, index) in registers and replaces it only on a
+//     strict <, so the result is the first-index argmin over all Kc centers;
+//   - after the last tile, best from the point's xc row and the center's
+//     row.  Fixed summation orders, no float atomics.
 // lloyd_sums: a block per (center, 256 columns) lists its center's members in
 // point order with warp ballots, then adds their rows in that order: the
 // sums and counts of a scan over all labels, bit for bit, for the same
@@ -185,17 +189,18 @@ lloyd_assign(const float* __restrict__ xc, const float* __restrict__ x2,
   const int m0 = (blockIdx.x / CLUSTER) * BM;
   const int nk_all = (D + BK - 1) / BK;
   const int s0 = rank * nk_all / CLUSTER, nk = (rank + 1) * nk_all / CLUSTER - s0;
+  int n0 = 0;  // the first center of the tile being multiplied
 
   // the centers' hi and lo of slab s of this CTA's K range into ring slot
-  // `slot` (rows r < Kc; rows past Kc and columns past D are zero-filled)
+  // `slot` (center n0 + r; rows past Kc and columns past D are zero-filled)
   auto load_c = [&](int s, int slot) {
     const uint32_t st = sbase + slot * STAGE + 2 * TILE;
     const int k0 = (s0 + s) * BK;
 #pragma unroll
     for (int u = 0; u < CHUNKS; ++u) {
       const int i = tid + u * NT, r = i >> 3, c = i & 7, k = k0 + c * 4;
-      const bool ok = r < Kc && k < D;
-      const size_t o = ok ? (size_t)r * D + k : 0;
+      const bool ok = n0 + r < Kc && k < D;
+      const size_t o = ok ? (size_t)(n0 + r) * D + k : 0;
       cp_async_16(st + sw128_offset(r, c), chi + o, ok);
       cp_async_16(st + TILE + sw128_offset(r, c), clo + o, ok);
     }
@@ -230,8 +235,6 @@ lloyd_assign(const float* __restrict__ xc, const float* __restrict__ x2,
   };
 
   float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
   // one slab: `nxt` holds slab kt + 1's xc (loaded a step ago), `after`
   // receives slab kt + 2's
@@ -266,78 +269,109 @@ lloyd_assign(const float* __restrict__ xc, const float* __restrict__ x2,
     if (kt + 1 < nk) store_x((kt + 1) % STAGES, nxt);
   };
 
-  // the centers run STAGES - 1 slabs ahead through cp.async groups, xc two
-  // slabs ahead through two register buffers that take turns
-  float4 xa[CHUNKS], xb[CHUNKS];
+  // CTA `rank` takes the argmin of a quarter of the tile's points, a warp a
+  // point: ROWS / 8 points a warp, each with the running (d2, index) of the
+  // tiles so far, the same in every lane
+  constexpr int ROWS = BM / CLUSTER, PER_WARP = ROWS / (NT / 32);
+  float run_v[PER_WARP];
+  int run_i[PER_WARP];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_c(s, s);
-    cp_async_commit();
+  for (int i = 0; i < PER_WARP; ++i) {
+    run_v[i] = INFINITY;
+    run_i[i] = 0;
   }
-  if (nk > 0) load_x(0, xa);
-  if (nk > 1) load_x(1, xb);
-  if (nk > 0) store_x(0, xa);
-  for (int kt = 0; kt < nk; kt += 2) {
-    step(kt, xb, xa);
-    if (kt + 1 < nk) step(kt + 1, xa, xb);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it takes the partial tile
-
-  // the f32 partial, point-major: part[r * LDP + n] (see Wgmma in hopper.cuh)
   float* part = reinterpret_cast<float*>(smem);
-  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int n = j * 8 + (lane & 3) * 2;
-    *reinterpret_cast<float2*>(part + r0 * LDP + n) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(part + (r0 + 8) * LDP + n) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-  cluster_sync();  // every CTA's partial is written
-
-  // CTA `rank` sums the cluster's partials for its quarter of the points, in
-  // rank order, and takes their argmin: a warp a point, lane l holding the
-  // centers 2l, 2l + 1, 64 + 2l, 65 + 2l
   const uint32_t pbase = smem_addr(part);
-  constexpr int ROWS = BM / CLUSTER;
-  for (int r = rank * ROWS + warp; r < (rank + 1) * ROWS; r += NT / 32) {
-    const int m = m0 + r;
+  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+
+  // the centers in tiles of 128, in increasing order; each tile streams this
+  // CTA's K range of xc again (from L2)
+  for (n0 = 0; n0 < Kc; n0 += BN) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    // the centers run STAGES - 1 slabs ahead through cp.async groups, xc two
+    // slabs ahead through two register buffers that take turns
+    float4 xa[CHUNKS], xb[CHUNKS];
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) load_c(s, s);
+      cp_async_commit();
+    }
+    if (nk > 0) load_x(0, xa);
+    if (nk > 1) load_x(1, xb);
+    if (nk > 0) store_x(0, xa);
+    for (int kt = 0; kt < nk; kt += 2) {
+      step(kt, xb, xa);
+      if (kt + 1 < nk) step(kt + 1, xa, xb);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: it takes the partial tile
+
+    // the f32 partial, point-major: part[r * LDP + n] (see Wgmma in hopper.cuh)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = j * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(part + r0 * LDP + n) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(part + (r0 + 8) * LDP + n) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    cluster_sync();  // every CTA's partial is written
+
+    // sum the cluster's partials in rank order, lane l holding the centers
+    // n0 + 2l, n0 + 2l + 1, n0 + 64 + 2l, n0 + 65 + 2l, and take the tile's
+    // first-index argmin; it replaces the running one only if strictly
+    // smaller, so the first index wins a tie across tiles too
+#pragma unroll
+    for (int i = 0; i < PER_WARP; ++i) {
+      const int r = rank * ROWS + warp + i * (NT / 32), m = m0 + r;
+      if (m >= N) break;
+      const uint32_t off = pbase + (uint32_t)(r * LDP + 2 * lane) * 4;
+      float dot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < CLUSTER; ++q) {
+        const float2 lo = ld_cluster_f2(map_rank(off, q));
+        const float2 hi = ld_cluster_f2(map_rank(off + 64 * 4, q));
+        dot[0] += lo.x;
+        dot[1] += lo.y;
+        dot[2] += hi.x;
+        dot[3] += hi.y;
+      }
+      const float xm = x2[m];
+      float bv = INFINITY;
+      int bi = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // increasing center index: the first wins a tie
+        const int n = n0 + (j >> 1) * 64 + 2 * lane + (j & 1);
+        const float v = n < Kc ? fmaxf(xm + c2[n] - 2.f * dot[j], 0.f) : INFINITY;
+        if (v < bv) {
+          bv = v;
+          bi = n;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ov < bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (bv < run_v[i]) {
+        run_v[i] = bv;
+        run_i[i] = bi;
+      }
+    }
+    cluster_sync();  // no CTA refills its ring while another reads its partial
+  }
+
+#pragma unroll
+  for (int i = 0; i < PER_WARP; ++i) {
+    const int m = m0 + rank * ROWS + warp + i * (NT / 32);
     if (m >= N) break;
-    const uint32_t off = pbase + (uint32_t)(r * LDP + 2 * lane) * 4;
-    float dot[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int q = 0; q < CLUSTER; ++q) {
-      const float2 lo = ld_cluster_f2(map_rank(off, q));
-      const float2 hi = ld_cluster_f2(map_rank(off + 64 * 4, q));
-      dot[0] += lo.x;
-      dot[1] += lo.y;
-      dot[2] += hi.x;
-      dot[3] += hi.y;
-    }
-    const float xm = x2[m];
-    float bv = INFINITY;
-    int bi = 0x7fffffff;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // increasing center index: the first wins a tie
-      const int n = (j >> 1) * 64 + 2 * lane + (j & 1);
-      const float v = n < Kc ? fmaxf(xm + c2[n] - 2.f * dot[j], 0.f) : INFINITY;
-      if (v < bv) {
-        bv = v;
-        bi = n;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (ov < bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
+    const int bi = run_i[i];
     // best = |xc - (c - mu)|^2 to center bi, in f32 (bv would carry the
     // product's truncation); 16-byte rows as D % 4 == 0
     const bool ok = mask[m] != 0;
@@ -363,7 +397,6 @@ lloyd_assign(const float* __restrict__ xc, const float* __restrict__ x2,
       best[m] = b;
     }
   }
-  cluster_sync();  // no CTA leaves while another reads its partial
 }
 
 // grid (Kc + 1, ceil(D / 256)): block (k, y) adds the rows of center k's
@@ -431,7 +464,7 @@ extern "C" int sq_lloyd_prepare(const float* x, const uint8_t* mask, int N, int 
   return (int)cudaGetLastError();
 }
 
-// Per Lloyd step, three launches.  1 <= Kc <= 128; c 16-byte aligned; x, xc,
+// Per Lloyd step, three launches.  Kc >= 1; c 16-byte aligned; x, xc,
 // x2, mask and mu from sq_lloyd_prepare; chi, clo (Kc, D) and c2 (Kc,) are scratch; labels,
 // best (N,), sums (Kc, D), counts (Kc,), inertia () the outputs.  lloyd_assign
 // runs in clusters of 4 CTAs with SMEM (193 KB) of dynamic shared memory.
@@ -440,7 +473,7 @@ extern "C" int sq_lloyd_wgmma(const float* x, const float* xc, const float* x2,
                               int D, int Kc, float* chi, float* clo, float* c2, int* labels,
                               float* best, float* sums, float* counts, float* inertia,
                               void* stream) {
-  if (N <= 0 || D <= 0 || D % 4 || Kc <= 0 || Kc > BN) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || D <= 0 || D % 4 || Kc <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   lloyd_centers<<<Kc, 256, 0, s>>>(c, mu, D, chi, clo, c2);
   cudaError_t e = cudaGetLastError();

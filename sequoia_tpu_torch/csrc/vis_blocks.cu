@@ -12,7 +12,7 @@
 // B = a weight slab read in place from the chunk):
 //   f     local = round(GELU(headLN(xs.Wf + bf)))      per-head LN in the epilogue
 //   s     s     = xs.Ws + bs                           (N, P) f32
-//   summ  sc    = round(GELU(headLN(mean_tok(s)))).Wc_sum   one block per 64 cols
+//   summ  sc    = round(GELU(headLN(mean_tok(s)))).Wc_sum   one block per head group
 //   c     c     = round(GELU(local.Wc_loc + sc + bc))  block-diagonal: K = the head's rows only
 //   proj  xf    = xs + c.Wproj + bproj                 f32
 //   ln    y     = round(LN(xf))
@@ -71,10 +71,11 @@ __global__ void __launch_bounds__(NTHREADS) vis_gemm(VisGemm g) {
     return to_f(W[(size_t)((lo ? g.base_lo : g.base_hi) + k) * P + (lo ? n : n - P)]);
   };
   float acc[TM][TN] = {};
-  // the combine slab is block diagonal with hw x hw blocks and BN % hw == 0:
-  // output cols [n0, n0+BN) only meet rows [n0, n0+BN)
-  const int k0 = EPI == E_COMBINE ? n0 : 0;
-  const int k1 = EPI == E_COMBINE ? min(n0 + BN, K) : K;
+  // the combine slab is block diagonal with hw x hw blocks: output cols
+  // [n0, n0+BN) only meet the rows of their head group (BN = 64)
+  const int grp = head_group(g.hw);
+  const int k0 = EPI == E_COMBINE ? n0 / grp * grp : 0;
+  const int k1 = EPI == E_COMBINE ? min(k0 + grp, K) : K;
   gemm_tile<BM, BN, BK, TM, TN, true, false>(acc, m0, n0, k0, k1, la, lb, As, Bs);
 
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
@@ -163,15 +164,23 @@ int run(const float* x, const float* pos, const T* chunks, const float* smalls, 
     const bool last = d == depth - 1;
     VisGemm g{};
     g.W = W; g.P = P; g.M = M; g.hw = hw;
-    // f: local branch
+    // f: local branch (past 64 a head spans tiles: f32 into sbuf, then
+    // vis_head_ln)
     g.A = xs; g.base_lo = 0; g.base_hi = 0; g.N = P; g.K = D;
     g.bias = seg(0, 0); g.ln_scale = seg(0, 1); g.ln_bias = seg(0, 2); g.out = local;
-    gemm<T, E_LOCAL>(g, st);
+    if (hw <= 64) {
+      gemm<T, E_LOCAL>(g, st);
+    } else {
+      g.out = sbuf;
+      gemm<T, E_STORE_F32>(g, st);
+      vis_head_ln<T><<<(M * (P / hw) + 7) / 8, 256, 0, st>>>(sbuf, M, P, hw, seg(0, 1),
+                                                             seg(0, 2), local);
+    }
     // s: summary projection (f32, mean taken next)
     g.base_lo = 2 * P; g.base_hi = 2 * P; g.bias = seg(1, 0); g.out = sbuf;
     gemm<T, E_STORE_F32>(g, st);
-    vis_summary<T><<<P / 64, 64, 0, st>>>(sbuf, M, P, hw, seg(1, 1), seg(1, 2),
-                                          W + (size_t)5 * P * P, sc);
+    vis_summary<T><<<P / head_group(hw), head_group(hw), 0, st>>>(
+        sbuf, M, P, hw, seg(1, 1), seg(1, 2), W + (size_t)5 * P * P, sc);
     // c: per-head combine of the local branch + the summary contribution
     g.A = local; g.base_lo = 4 * P; g.base_hi = 4 * P; g.K = P; g.N = P;
     g.vec = sc; g.bias = seg(2, 0); g.out = cbuf;
@@ -197,13 +206,13 @@ int run(const float* x, const float* pos, const T* chunks, const float* smalls, 
 
 }  // namespace
 
-// f32 only; launches: 1 + 8 * depth
+// f32 only; launches: 1 + 8 * depth (1 + 9 * depth where hw > 64)
 extern "C" int sq_vis_blocks(int dtype, const float* x, const float* pos,
                              const void* chunks, const float* smalls, int M, int P,
                              int depth, int hw, void* xs, void* local, float* s,
                              float* sc, void* c, float* xf, void* y, void* h,
                              float* out, void* stream) {
-  if (dtype != F32 || P % 64 != 0 || 64 % hw != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 || P % 64 != 0 || !head_width_ok(hw)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run<float>(x, pos, static_cast<const float*>(chunks), smalls, M, P, depth,
                     hw, static_cast<float*>(xs), static_cast<float*>(local), s, sc,

@@ -26,24 +26,36 @@ __global__ void vis_init(const float* __restrict__ x, const float* __restrict__ 
   if (i < n) xs[i] = from_f<T>(x[i] + pos[i]);
 }
 
-// One block per 64 summary columns (whole heads): token mean of s over all M
-// tokens, per-head LN + GELU, round, then the block-diagonal Wc_sum product
-// for these columns.
+// The head widths the K1 kernels take: divisors of 64 (a 64-feature tile
+// holds whole heads) and multiples of 64 up to 1024 (a head spans hw / 64
+// tiles)
+__host__ __device__ inline bool head_width_ok(int hw) {
+  return hw > 0 && (64 % hw == 0 || (hw % 64 == 0 && hw <= 1024));
+}
+
+// Columns of the summary product a block takes (whole heads), and rows of
+// the block-diagonal combine that features [n0, n0 + 64) meet: from
+// n0 / group * group
+__host__ __device__ inline int head_group(int hw) { return hw > 64 ? hw : 64; }
+
+// One block per head_group(hw) summary columns (whole heads), a thread a
+// column: token mean of s over all M tokens, per-head LN + GELU, round, then
+// the block-diagonal Wc_sum product for these columns.
 template <class T>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(1024)
 vis_summary(const float* __restrict__ s, int M, int P, int hw,
             const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
             const T* __restrict__ wcs, float* __restrict__ sc) {
-  __shared__ float v[64];
+  __shared__ float v[1024];
   __shared__ float stat[64][2];
   hopper::griddep_wait();
   hopper::griddep_launch();
-  const int c = threadIdx.x, n = blockIdx.x * 64 + c;
+  const int G = blockDim.x, c = threadIdx.x, n = blockIdx.x * G + c;
   float sum = 0.f;
   for (int m = 0; m < M; ++m) sum += s[(size_t)m * P + n];
   v[c] = sum / M;
   __syncthreads();
-  if (c < 64 / hw) {
+  if (c < G / hw) {
     const int c0 = c * hw;
     float mean = 0.f;
     for (int i = 0; i < hw; ++i) mean += v[c0 + i];
@@ -62,10 +74,40 @@ vis_summary(const float* __restrict__ s, int M, int P, int hw,
   __syncthreads();
   v[c] = round_to<T>(gelu_erf(u));
   __syncthreads();
-  const int k0 = blockIdx.x * 64;
+  const int k0 = blockIdx.x * G;
   float acc = 0.f;
-  for (int k = 0; k < 64; ++k) acc = fmaf(v[k], to_f(wcs[(size_t)(k0 + k) * P + n]), acc);
+  for (int k = 0; k < G; ++k) acc = fmaf(v[k], to_f(wcs[(size_t)(k0 + k) * P + n]), acc);
   sc[n] = acc;
+}
+
+// local = round(GELU(headLN(v))) for head widths past 64, where the f GEMM's
+// 64-feature tiles hold part of a head and store v = xs.Wf + bf in f32: a
+// warp per (token, head), two-pass variance
+template <class T>
+__global__ void __launch_bounds__(256)
+vis_head_ln(const float* __restrict__ v, int M, int P, int hw,
+            const float* __restrict__ scale, const float* __restrict__ bias,
+            T* __restrict__ out) {
+  hopper::griddep_wait();
+  hopper::griddep_launch();
+  const int lane = threadIdx.x & 31, heads = P / hw;
+  const int w = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (w >= M * heads) return;
+  const size_t row = (size_t)(w / heads) * P;
+  const int c0 = (w % heads) * hw;
+  float s = 0.f;
+  for (int i = lane; i < hw; i += 32) s += v[row + c0 + i];
+  const float mean = warp_sum(s) / hw;
+  float q = 0.f;
+  for (int i = lane; i < hw; i += 32) {
+    const float d = v[row + c0 + i] - mean;
+    q = fmaf(d, d, q);
+  }
+  const float rstd = 1.f / sqrtf(warp_sum(q) / hw + LN_EPS);
+  for (int i = lane; i < hw; i += 32) {
+    const int n = c0 + i;
+    out[row + n] = from_f<T>(gelu_erf((v[row + n] - mean) * rstd * scale[n] + bias[n]));
+  }
 }
 
 // y = round(LN(xf)) over the D = 2P columns of one token row (two-pass variance)

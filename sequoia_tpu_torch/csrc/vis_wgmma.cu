@@ -25,8 +25,8 @@
 //
 // What the design does about it:
 //   - Swapped GEMMs: out^T = W^T . act^T.  A CTA takes 64 output features
-//     (wgmma's M; one head at hw = 64, so the per-head LN of `f` stays in
-//     the CTA) and a tile of 104 tokens (wgmma's N; rows past N are zero
+//     (wgmma's M; whole heads where hw | 64, so the per-head LN of `f`
+//     stays in the CTA; past 64 a separate launch normalises each head) and a tile of 104 tokens (wgmma's N; rows past N are zero
 //     filled by cp.async's source size).  The weight slab is an MN-major A
 //     read in place from the packed chunk (the transpose bit), the tokens a
 //     K-major B; both go through a 5-stage ring of 128-byte-swizzled
@@ -38,7 +38,8 @@
 //     barrier CTA r sums every CTA's partial for its share of the tokens
 //     through distributed shared memory, in rank order, and runs the
 //     epilogue for them, a warp per token.  The combine GEMM is block
-//     diagonal (K = the tile's own 64 rows) and runs unsplit.
+//     diagonal (K = the tile's own 64 rows, or its head's hw rows where
+//     64 | hw) and runs unsplit.
 //   - Programmatic dependent launch: every launch may start while the one
 //     before it finishes.  A GEMM issues its first weight copies (which no
 //     launch writes) before griddepcontrol.wait, and its token copies after
@@ -142,10 +143,12 @@ __global__ void __launch_bounds__(NT, 2) vis_wgmma_gemm(const Gemm g) {
   const int P = g.P, M = g.M, K = g.K;
   const bool lo = n0 < P;
   const bf16* Wt = g.W + (size_t)(lo ? g.base_lo : g.base_hi) * P + (lo ? n0 : n0 - P);
-  // the combine slab is block diagonal with hw x hw blocks and hw | 64:
-  // features [n0, n0 + 64) only meet rows [n0, n0 + 64)
-  const int kbase = EPI == E_COMBINE ? n0 : 0;
-  const int nk_all = EPI == E_COMBINE ? 1 : K / BK;
+  // the combine slab is block diagonal with hw x hw blocks: features [n0,
+  // n0 + 64) only meet the rows of their head group, [n0, n0 + 64) where hw
+  // | 64, the head's hw rows where 64 | hw
+  const int grp = head_group(g.hw);
+  const int kbase = EPI == E_COMBINE ? n0 / grp * grp : 0;
+  const int nk_all = (EPI == E_COMBINE ? grp : K) / BK;
   const int s0 = rank * nk_all / cs, nk = (rank + 1) * nk_all / cs - s0;
 
   auto load_w = [&](int s, int slot) {  // row kr of the slab: 64 features of K row k0 + kr
@@ -273,15 +276,16 @@ int gemm(const Gemm& g, int cluster, cudaStream_t st) {
 
 }  // namespace
 
-// bf16 only.  P % 64 == 0, hw even and dividing 64; every pointer 16-byte
-// aligned.  Launches: 1 + 8 * depth, each with programmatic stream
-// serialization, the GEMMs in clusters of 8 (f, s), 1 (c) and 4 (proj, ff1,
-// ff2) CTAs with 108.5 KB of dynamic shared memory each.
+// bf16 only.  P % 64 == 0, hw even and head_width_ok; every pointer 16-byte
+// aligned.  Launches: 1 + 8 * depth (1 + 9 * depth where hw > 64: the f GEMM
+// stores f32 and vis_head_ln normalises whole heads), each with programmatic
+// stream serialization, the GEMMs in clusters of 8 (f, s), 1 (c) and 4
+// (proj, ff1, ff2) CTAs with 108.5 KB of dynamic shared memory each.
 extern "C" int sq_vis_wgmma(const float* x, const float* pos, const void* chunks,
                             const float* smalls, int M, int P, int depth, int hw,
                             void* xs, void* local, float* s, float* sc, void* c,
                             float* xf, void* y, void* h, float* out, void* stream) {
-  if (M <= 0 || P <= 0 || P % 64 || hw <= 0 || hw % 2 || 64 % hw || depth <= 0)
+  if (M <= 0 || P <= 0 || P % 64 || !head_width_ok(hw) || hw % 2 || depth <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int D = 2 * P;
@@ -297,16 +301,27 @@ extern "C" int sq_vis_wgmma(const float* x, const float* pos, const void* chunks
     const bool last = d == depth - 1;
     Gemm g{};
     g.W = W; g.P = P; g.M = M; g.hw = hw;
-    // f: local branch
+    // f: local branch; past 64 a head spans several feature tiles, so the
+    // GEMM stores f32 (into s, free until the s GEMM) and vis_head_ln
+    // normalises each head
     g.act = xs_; g.base_lo = 0; g.base_hi = 0; g.N = P; g.K = D;
     g.bias = seg(0, 0); g.ln_scale = seg(0, 1); g.ln_bias = seg(0, 2); g.out = local_;
-    rc = gemm<E_LOCAL>(g, SPLIT_F, st);
+    if (hw <= 64) {
+      rc = gemm<E_LOCAL>(g, SPLIT_F, st);
+    } else {
+      g.out = s;
+      rc = gemm<E_STORE_F32>(g, SPLIT_F, st);
+      if (rc == 0)
+        rc = launch(vis_head_ln<__nv_bfloat16>, dim3((M * (P / hw) + 7) / 8), 256, 0, 0, st,
+                    (const float*)s, M, P, hw, seg(0, 1), seg(0, 2), local_);
+    }
     // s: summary projection (f32, mean taken next)
     g.base_lo = 2 * P; g.base_hi = 2 * P; g.bias = seg(1, 0); g.out = s;
     if (rc == 0) rc = gemm<E_STORE_F32>(g, SPLIT_F, st);
     if (rc == 0)
-      rc = launch(vis_summary<__nv_bfloat16>, dim3(P / 64), 64, 0, 0, st, (const float*)s, M,
-                  P, hw, seg(1, 1), seg(1, 2), W + (size_t)5 * P * P, sc);
+      rc = launch(vis_summary<__nv_bfloat16>, dim3(P / head_group(hw)), head_group(hw), 0, 0,
+                  st, (const float*)s, M, P, hw, seg(1, 1), seg(1, 2), W + (size_t)5 * P * P,
+                  sc);
     // c: per-head combine of the local branch + the summary contribution
     g.act = local_; g.base_lo = 4 * P; g.base_hi = 4 * P; g.K = P; g.N = P;
     g.vec = sc; g.bias = seg(2, 0); g.out = c_;

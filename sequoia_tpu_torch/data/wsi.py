@@ -4,16 +4,15 @@ Counterpart of ``sequoia_tpu/data/wsi.py`` (a copy: the port imports nothing
 of the JAX package).  Readers are pluggable:
 
 * ``OpenSlideReader`` — when ``openslide`` is importable (``.svs``);
+* ``native.NativeTiffReader`` — the C++ libtiff reader of
+  ``sequoia_tpu_torch/native`` (threaded tile decode), where it builds;
 * ``PILReader`` — Pillow-backed: pyramidal TIFF pages or a flat image;
 * ``ArrayReader`` — an in-memory numpy pyramid (tests, synthetic slides).
 
-``openslide`` and ``PIL`` are imported only when a reader needs them (the
-GPU machine has neither).  The JAX package's native C++ libtiff reader is not
-copied into the port yet, so :func:`open_slide` has no native backend: a
-path opens through OpenSlide or Pillow.  The JAX package's raw-plane serving
-modes read the same pixels as its RGB mode (bit-exact,
-``sequoia_tpu/serve.py:415-421``), so a slide served by the port gives the
-same patches as there.
+``openslide``, ``PIL`` and the native library are loaded only when a reader
+needs them.  The JAX package's raw-plane serving modes read the same pixels
+as its RGB mode (bit-exact, ``sequoia_tpu/serve.py:415-421``), so a slide
+served by the port gives the same patches as there.
 
 Interface follows OpenSlide conventions: ``level_dimensions`` is a list of
 ``(width, height)``; ``read_region((x, y), level, (w, h))`` takes level-0
@@ -129,9 +128,8 @@ class PILReader:
 
 def open_slide(path_or_reader) -> SlideReader:
     """Open a WSI with the best available backend: OpenSlide (full SVS
-    support), else Pillow.  A reader passes through unchanged.  (The JAX
-    package's native libtiff reader sits between the two there; it is not
-    copied into the port yet.)"""
+    support) > the native C++ libtiff reader (threaded tile decode) >
+    Pillow.  A reader passes through unchanged."""
     if not isinstance(path_or_reader, (str, os.PathLike)):
         return path_or_reader
     path = str(path_or_reader)
@@ -144,15 +142,22 @@ def open_slide(path_or_reader) -> SlideReader:
                 return OpenSlideReader(path)
             except Exception:
                 # formats OpenSlide rejects (flat PNG/JPEG) fall through to
-                # Pillow
+                # the native and Pillow backends
                 pass
     except ImportError:
         pass
+    from sequoia_tpu_torch import native
+
+    if native.available():
+        try:
+            return native.NativeTiffReader(path)
+        except OSError:
+            pass  # not a TIFF libtiff opens: Pillow
     return PILReader(path)
 
 
-#: decode worker threads for batched region reads (a reader with a parallel
-#: ``read_regions`` gets this many)
+#: decode worker threads for batched region reads (the native reader keeps
+#: one TIFF handle per worker)
 DEFAULT_DECODE_THREADS = 8
 
 

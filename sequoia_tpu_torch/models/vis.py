@@ -142,3 +142,18 @@ def slice_head(cfg: ViSConfig, params: Params, indices) -> tuple[ViSConfig, Para
     new["head_w"], new["head_b"], n = slice_linear_outputs(
         params["head_w"], params["head_b"], indices, cfg.num_outputs)
     return dataclasses.replace(cfg, num_outputs=n), new
+
+
+def replace_head(cfg: ViSConfig, params: Params, num_outputs: int,
+                 gen: torch.Generator) -> tuple[ViSConfig, Params]:
+    """GTEx -> TCGA transfer: a fresh LayerNorm + Linear output head of
+    ``num_outputs``, drawn from ``gen`` with torch Linear defaults, in the
+    params' dtype and on the generator's device (``sequoia_tpu/models/vis.py``
+    ``replace_head``)."""
+    d = cfg.input_dim
+    dt = params["head_w"].dtype
+    new = dict(params)
+    new["head_w"], new["head_b"] = torch_init.linear_params(gen, d, num_outputs, dt)
+    new["head_ln_scale"] = torch.ones((d,), dtype=dt, device=gen.device)
+    new["head_ln_bias"] = torch.zeros((d,), dtype=dt, device=gen.device)
+    return dataclasses.replace(cfg, num_outputs=num_outputs), new

@@ -3,8 +3,8 @@
 Counterpart of ``sequoia_tpu/ops/pallas_kmeans.py``.  Same contract: x (N, D)
 f32, mask (N,) bool, centers (K, D) f32 -> (sums (K, D), counts (K,), inertia
 (), best (N,)), masked rows contributing nothing and getting ``best = 0``.
-Any N is accepted; the kernel takes K <= 128 (sentinel centers padded at 1e8,
-as the JAX caller pads, never win).
+Any N and any K are accepted (sentinel centers padded at 1e8, as the JAX
+caller pads, never win); the kernel takes the centers in tiles of 128.
 
 On CUDA tensors the kernel of ``csrc/lloyd_wgmma.cu`` runs (its source note
 says what bounds it on the H100 and what its design does about it).  It
@@ -34,9 +34,6 @@ from __future__ import annotations
 import torch
 
 from sequoia_tpu_torch import _build
-
-#: the most centers the kernel takes: one 128-wide tile of wgmma's N
-MAX_CENTERS = 128
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -146,8 +143,8 @@ class LloydPlan:
             raise ValueError("lloyd_stats: operands on different devices")
         if not x.is_cuda:
             return _reduce_d2(x, self.mask, _d2_plain(x, centers))
-        if not 0 < k <= MAX_CENTERS:
-            raise ValueError(f"lloyd_stats kernel takes 1 to {MAX_CENTERS} centers, got {k}")
+        if k < 1:
+            raise ValueError("lloyd_stats kernel needs at least one center")
         centers = centers.contiguous()
         if centers.data_ptr() % 16:
             raise ValueError("lloyd_stats kernel needs centers 16-byte aligned")

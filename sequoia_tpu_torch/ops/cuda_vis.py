@@ -25,7 +25,7 @@ import torch
 
 from sequoia_tpu_torch import _build
 from sequoia_tpu_torch.models import vis
-from sequoia_tpu_torch.ops.nn import LN_EPS, gelu
+from sequoia_tpu_torch.ops.nn import LN_EPS, compute_dtype, gelu
 
 CHUNK_ROWS = 16  # x P
 SMALL_ROWS = 8   # x 3P f32
@@ -46,6 +46,39 @@ def supported(cfg: vis.ViSConfig) -> bool:
     p = cfg.nheads * cfg.dim_f
     return (cfg.nheads * cfg.dim_s == p and cfg.nheads * cfg.dim_c == p
             and cfg.input_dim == 2 * p and p % 128 == 0)
+
+
+def _head_width_ok(hw: int) -> bool:
+    """The head widths the kernels take (``head_width_ok`` in
+    ``csrc/vis_common.cuh``): divisors of 64, whose heads fit whole in a
+    64-feature tile, and multiples of 64 up to 1024, each head spanning
+    hw / 64 tiles."""
+    return hw > 0 and (64 % hw == 0 or (hw % 64 == 0 and hw <= 1024))
+
+
+def kernel_takes(cfg: vis.ViSConfig, dtype) -> tuple[bool, str]:
+    """``(True, "")`` when the CUDA kernel of ``dtype`` (bf16: the
+    tensor-core kernel, f32: the FMA kernel) takes this config, else
+    ``(False, reason)``.  JAX's gate (``supported``) asks only for the packed
+    layout; the kernels also need a head width that divides 64 or is a
+    multiple of 64 (at most 1024), even in bf16."""
+    dtype = compute_dtype(dtype)
+    if not supported(cfg):
+        return False, ("ViS config does not fit the packed layout (nheads * dim_f = "
+                       "nheads * dim_s = nheads * dim_c = input_dim / 2, a multiple of 128)")
+    hw = cfg.dim_f
+    if not _head_width_ok(hw):
+        return False, (f"head width {hw} neither divides 64 nor is a multiple of 64 up to "
+                       f"1024 (ROADMAP queue 3)")
+    if dtype == torch.bfloat16 and hw % 2:
+        return False, f"the bf16 kernel needs an even head width, got {hw}"
+    return True, ""
+
+
+def launches_per_call(depth: int, hw: int) -> int:
+    """Kernel launches of one call: the pos-emb add, then eight per block,
+    nine where hw > 64 (the per-head LN runs as its own launch)."""
+    return 1 + (9 if hw > 64 else 8) * depth
 
 
 def pack_vis_blocks(cfg: vis.ViSConfig, params, dtype=torch.bfloat16):
@@ -158,13 +191,16 @@ def _split_gemm(act, w, split: int) -> torch.Tensor:
     return total.t()
 
 
-def _diag_gemm(act, w) -> torch.Tensor:
+def _diag_gemm(act, w, hw: int) -> torch.Tensor:
     """The block-diagonal combine as the kernel forms it: features [n0, n0 +
-    64) from K rows [n0, n0 + 64) only."""
+    64) from the K rows of their head group only, [n0, n0 + 64) where the
+    head width divides 64, the head's own hw rows where 64 divides it."""
+    grp = max(hw, FEAT_TILE)
     out = torch.empty((act.shape[0], w.shape[1]), device=act.device)
     for n0 in range(0, w.shape[1], FEAT_TILE):
-        sl = slice(n0, n0 + FEAT_TILE)
-        out[:, sl] = (w[sl, sl].float().t() @ act[:, sl].float().t()).t()
+        sl, k0 = slice(n0, n0 + FEAT_TILE), n0 // grp * grp
+        ks = slice(k0, k0 + grp)
+        out[:, sl] = (w[ks, sl].float().t() @ act[:, ks].float().t()).t()
     return out
 
 
@@ -173,10 +209,12 @@ def vis_blocks_split_plain(x, pos, chunks, smalls, *, depth: int,
     """Plain PyTorch version of the tensor-core kernel's decomposition:
     tokens zero-padded to whole tiles of :data:`TOKEN_TILE`, every GEMM
     swapped and split over K as :func:`_split_gemm` (the combine block
-    diagonal, unsplit), the summary mean over the N real tokens, and the
-    epilogues and rounding points of :func:`vis_blocks_plain`.  ``(N, D)``
-    f32 -> ``(N, D)`` f32."""
+    diagonal over each head group, unsplit; the per-head LN over whole heads
+    of the f32 sums, a launch of its own past 64), the summary mean over the
+    N real tokens, and the epilogues and rounding points of
+    :func:`vis_blocks_plain`.  ``(N, D)`` f32 -> ``(N, D)`` f32."""
     n, p = x.shape[0], x.shape[1] // 2
+    hw = p // nheads
     cd = chunks.dtype
     pad = -(-n // TOKEN_TILE) * TOKEN_TILE - n
     xs = torch.nn.functional.pad(x.float() + pos.float(), (0, 0, 0, pad)).to(cd)
@@ -192,8 +230,8 @@ def vis_blocks_split_plain(x, pos, chunks, smalls, *, depth: int,
                                row("ln_f_scale"), row("ln_f_bias"))).to(cd)
         sv = (_split_gemm(xs, w((2, 2)), SPLIT_F) + row("bs"))[:n].mean(0, keepdim=True)
         summ = gelu(_group_ln(sv, nheads, row("ln_s_scale"), row("ln_s_bias"))).to(cd)
-        sc = _diag_gemm(summ, w((5, 1)))
-        c = gelu(_diag_gemm(local, w((4, 1))) + sc + row("bc")).to(cd)
+        sc = _diag_gemm(summ, w((5, 1)), hw)
+        c = gelu(_diag_gemm(local, w((4, 1)), hw) + sc + row("bc")).to(cd)
         xf = xs.float() + _split_gemm(c, w((6, 1), (7, 1)), SPLIT_FF) + row("bp_lo", "bp_hi")
         mean = xf.mean(-1, keepdim=True)
         var = (xf - mean).square().mean(-1, keepdim=True)
@@ -214,7 +252,7 @@ def _wgmma_check(x, pos, chunks, smalls, *, nheads: int) -> None:
         raise TypeError(f"vis_blocks_fused: the tensor-core route takes bf16 chunks, "
                         f"got {chunks.dtype}")
     if (p // nheads) % 2:
-        raise ValueError(f"vis_blocks_fused: the tensor-core route needs an even head "
+        raise ValueError(f"vis_blocks_fused: the bf16 kernel needs an even head "
                          f"width, got {p // nheads}")
     for t in (x, pos, chunks, smalls):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -231,9 +269,10 @@ def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.T
     if (d != 2 * p or chunks.shape != (depth, CHUNK_ROWS * p, p)
             or smalls.shape != (depth, SMALL_ROWS, 3 * p) or pos.shape != x.shape):
         raise ValueError("vis_blocks_fused: operand shapes do not match the packed layout")
-    if p % 64 or 64 % hw:
+    if p % 64 or p % nheads or not _head_width_ok(hw):
         raise ValueError(f"vis_blocks_fused kernel needs P % 64 == 0 and a head width "
-                         f"dividing 64, got P={p}, head width {hw}")
+                         f"that divides 64 or is a multiple of 64 up to 1024, got P={p}, "
+                         f"head width {p / nheads:g}")
     for t in (chunks, smalls, pos):
         if t.device != x.device:
             raise ValueError("vis_blocks_fused: operands on different devices")
@@ -260,7 +299,7 @@ def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.T
     else:
         rc = lib.sq_vis_blocks(0, *args)
     _build.check(rc, "vis_blocks_fused")
-    _build.count_launch("vis_blocks_fused", 1 + 8 * depth)
+    _build.count_launch("vis_blocks_fused", launches_per_call(depth, hw))
     return out
 
 

@@ -30,7 +30,8 @@ The fold ensemble is the mean over folds of each fold's prediction (the
 reference's 5-fold averaging).  Each fold runs the plain ``vis.apply``, or
 with ``use_fused_vis`` its blocks run through the K1 kernel
 (``ops/cuda_vis.vis_apply_fused``, B = 1 per slide; off by default, as JAX
-serves through ``vis.apply``).  ``use_pallas_kmeans`` (the JAX
+serves through ``vis.apply``); on CUDA a fold config the kernel does not
+take (``cuda_vis.kernel_takes``) raises at construction.  ``use_pallas_kmeans`` (the JAX
 name) runs every Lloyd step through the K5 kernel; the extractor's
 ``cfg`` picks the ResNet kernels (``fused_stages`` for K4).  Slides with
 fewer patches than clusters get their empty clusters zero-filled.
@@ -67,6 +68,14 @@ class SlidePredictor:
             raise NotImplementedError(f"model_type {model_type!r} is not ported yet "
                                       "(ROADMAP.md)")
         self.device = resolve_device(device)
+        if use_fused_vis:  # before any tensor moves: a refusal costs nothing
+            for cfg, _ in vis_models:
+                if not cuda_vis.supported(cfg):
+                    raise ValueError(f"use_fused_vis: {cfg} does not fit the fused "
+                                     "kernel's packed layout")
+                takes, why = cuda_vis.kernel_takes(cfg, compute_dtype(cfg.compute_dtype))
+                if self.device.type == "cuda" and not takes:
+                    raise ValueError(f"use_fused_vis: the K1 kernel does not take {cfg}: {why}")
         if extractor is not None and extractor.device != self.device:
             raise ValueError(f"extractor runs on {extractor.device}, predictor on "
                              f"{self.device}")
@@ -81,10 +90,6 @@ class SlidePredictor:
         self.vis_models = [(cfg, tree_to(params, self.device)) for cfg, params in vis_models]
         self._packed = None
         if use_fused_vis:
-            for cfg, _ in self.vis_models:
-                if not cuda_vis.supported(cfg):
-                    raise ValueError(f"use_fused_vis: {cfg} does not fit the fused "
-                                     "kernel's packed layout")
             self._packed = [cuda_vis.pack_vis_blocks(cfg, params,
                                                      compute_dtype(cfg.compute_dtype))
                             for cfg, params in self.vis_models]

@@ -1,6 +1,8 @@
 """The PyTorch port imports nothing of JAX or of the JAX package, builds and
-imports no kernel toolchain at import time, and its entry points refuse to
-run on the CPU unless asked to."""
+imports no kernel toolchain at import time, imports none of the packages the
+GPU machine lacks (pandas, h5py, Pillow, safetensors, huggingface_hub,
+openslide) when a module is imported, and its entry points refuse to run on
+the CPU unless asked to."""
 
 import ast
 import pathlib
@@ -13,6 +15,13 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "sequoia_tpu"}
+# imported inside the function that needs them, never at module level
+LAZY = {"pandas", "h5py", "PIL", "safetensors", "huggingface_hub", "openslide", "triton"}
+# the serving slice: checkpoints, the CLI, the HTTP server, the native reader
+SLICE_MODULES = ("sequoia_tpu_torch/train/checkpoint.py", "sequoia_tpu_torch/cli/serve.py",
+                 "sequoia_tpu_torch/cli/compute_features.py", "sequoia_tpu_torch/http_serve.py",
+                 "sequoia_tpu_torch/native/__init__.py", "sequoia_tpu_torch/utils/profiling.py",
+                 "sequoia_tpu_torch/bench_serving.py")
 
 
 def _port_files():
@@ -49,7 +58,7 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/ops/cuda_resnet.py",
                  "sequoia_tpu_torch/ops/cuda_kmeans.py", "sequoia_tpu_torch/ops/masking.py",
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
-                 "chip_smoke.py"):
+                 "chip_smoke.py", *SLICE_MODULES):
         assert want in names
 
 
@@ -62,12 +71,14 @@ def test_no_jax_or_reference_package_import(path):
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
-def test_no_module_level_triton_import(path):
+def test_no_module_level_lazy_import(path):
+    """triton, and the packages the GPU machine lacks, only inside a def."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in _module_level_imports(tree):
         names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                  else [node.module or ""])
-        assert not any(n.split(".")[0] == "triton" for n in names), path.name
+        bad = [n for n in names if n.split(".")[0] in LAZY]
+        assert not bad, f"{path.name} imports {bad} at module level"
 
 
 def test_import_loads_no_jax_module():
@@ -77,7 +88,11 @@ def test_import_loads_no_jax_module():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sequoia_tpu', 'triton'))\n"
+        "('jax', 'jaxlib', 'sequoia_tpu', 'triton', 'pandas', 'h5py', 'PIL', "
+        "'safetensors', 'huggingface_hub', 'openslide'))\n"
+        "from sequoia_tpu_torch import native\n"
+        "if native._lib is not None or native._error is not None:\n"
+        "    bad.append('native library built at import')\n"
         "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120)

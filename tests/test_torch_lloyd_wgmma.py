@@ -171,3 +171,83 @@ def test_plan_cpu_route_is_the_plain_recipe():
         tpk.LloydPlan(xt.double(), mt)
     with pytest.raises(ValueError):
         tpk.LloydPlan(xt, mt[:-1])
+
+
+# ---------------------------------------------------------------------------
+# more centers than one 128-wide tile (the kernel loops over center tiles)
+# ---------------------------------------------------------------------------
+
+def _clustered_k(k=200, n=512, d=64, seed=5):
+    """n points around k centers (every center with members), init near them."""
+    rng = np.random.default_rng(seed)
+    true = rng.normal(size=(k, d)).astype(np.float32)
+    x = (true[np.arange(n) % k] + 0.05 * rng.normal(size=(n, d))).astype(np.float32)
+    return x, (true + 0.01 * rng.normal(size=(k, d))).astype(np.float32)
+
+
+def test_k200_plain_matches_jax_interpret_with_sentinels():
+    """At k = 200 the JAX caller pads to 256 centers with 1e8 sentinels; the
+    plain version of that call and the Pallas kernel in interpret mode give
+    the same counts and sums, and the sentinels take no point."""
+    x, centers = _clustered_k()
+    mask = np.ones(len(x), bool)
+    mask[-16:] = False
+    cpad = np.concatenate([centers, np.full((56, centers.shape[1]), 1e8, np.float32)])
+    ws, wc, wi, wb = jpk.lloyd_stats(jnp.asarray(x), jnp.asarray(mask), jnp.asarray(cpad),
+                                     tile_n=256, interpret=True)
+    s, c, i, b = tpk.lloyd_stats_plain(torch.as_tensor(x), torch.as_tensor(mask),
+                                       torch.as_tensor(cpad))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(wc))
+    assert float(c[200:].sum()) == 0 and float(c.sum()) == len(x) - 16
+    np.testing.assert_allclose(s.numpy(), np.asarray(ws), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(float(i), float(wi), rtol=1e-5)
+    np.testing.assert_allclose(b.numpy(), np.asarray(wb), rtol=1e-4, atol=1e-3)
+    # the kernel's recipe on the unpadded 200 centers: the same assignment
+    s2, c2, i2, b2, lab = tpk.lloyd_stats_tc_plain(torch.as_tensor(x), torch.as_tensor(mask),
+                                                   torch.as_tensor(centers))
+    np.testing.assert_array_equal(c2.numpy(), np.asarray(wc)[:200])
+    np.testing.assert_allclose(s2.numpy(), np.asarray(ws)[:200], rtol=1e-5, atol=1e-4)
+
+
+def test_k200_lloyd_matches_jax_pallas_interpret():
+    """A Lloyd fit with 200 centers from one init: JAX's ``_lloyd`` through
+    the Pallas kernel (interpret mode, sentinel-padded) and the port's K5
+    mode on the CPU agree on labels, centers and steps; the port's
+    ``kmeans_fit(n_clusters=200, use_pallas=True)`` runs and equals its plain
+    backend there."""
+    import jax
+
+    x, init = _clustered_k(seed=6)
+    mask = np.ones(len(x), bool)
+    xj, mj = jnp.asarray(x), jnp.asarray(mask)
+    xt, mt = torch.as_tensor(x), torch.as_tensor(mask)
+    ttol = tkm._tol_abs(xt, mt, 1e-4)  # the same tol * mean(var) as kmeans_lloyd's
+    jfit = jax.jit(lambda a, m, c: jkm._lloyd(a, m, c, 300, float(ttol), use_pallas=True,
+                                               pallas_interpret=True))
+    jc, jl, ji, jn = jfit(xj, mj, jnp.asarray(init))
+    tc, tl, ti, tn = tkm._lloyd(xt, mt, torch.as_tensor(init), 300, ttol, True)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(ti), float(ji), rtol=1e-5)
+    assert tn == int(jn)
+    g = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    k5 = tkm.kmeans_fit(xt, mt, g(), n_clusters=200, use_pallas=True)
+    plain = tkm.kmeans_fit(xt, mt, g(), n_clusters=200, use_pallas=False)
+    assert k5[0].shape == (200, 64) and bool(torch.isfinite(k5[0]).all())
+    np.testing.assert_array_equal(k5[1].numpy(), plain[1].numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k200_tc_recipe_labels_follow_float64(seed):
+    """The kernel's recipe keeps the float64 first-index argmin over 200
+    centers, across the 128-center tile boundary."""
+    x, centers = _clustered_k(seed=10 + seed)
+    x = x + 3.0  # far from the origin: the uncentered recipe's cancellation regime
+    centers = centers + 3.0
+    centers[150] = centers[20]  # an exact tie across the tile boundary: the first wins
+    mask = torch.ones(len(x), dtype=torch.bool)
+    xt, ct = torch.as_tensor(x), torch.as_tensor(centers)
+    lab = tpk.lloyd_stats_tc_plain(xt, mask, ct)[4]
+    d64 = ((xt.double()[:, None] - ct.double()[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(lab.numpy(), d64.argmin(1).numpy())
+    assert int((lab == 150).sum()) == 0 and int((lab == 20).sum()) > 0

@@ -153,3 +153,104 @@ def test_split_gemm_partition():
         act = torch.randint(-3, 4, (9, k), generator=g).float()
         w = torch.randint(-3, 4, (k, 64), generator=g).float()
         torch.testing.assert_close(tpv._split_gemm(act, w, split), act @ w, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# heads wider than one 64-feature tile (hw = 128), and widths K1 refuses
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_heads_plain_versions_match_jax_interpret(dtype):
+    """nheads = 2 of width 128 (P = 256), depth 2: the plain stack and the
+    plain version of the kernel's decomposition (the per-head LN over two
+    feature tiles, the combine over the head's 128 rows) against the Pallas
+    kernel in interpret mode, at the tolerances of the 64-wide test."""
+    base = dict(num_outputs=16, input_dim=512, depth=2, nheads=2, dim_f=128, dim_s=128,
+                dim_c=128, num_clusters=100)
+    jcfg, tcfg = jvis.ViSConfig(**base), tvis.ViSConfig(**base)
+    jp = jvis.init(jcfg, jax.random.PRNGKey(7))
+    x = np.random.default_rng(7).normal(size=(100, 512)).astype(np.float32)
+    jchunks, jsmalls, jpos = jpv.pack_vis_blocks(jcfg, jp, dtype=getattr(jnp, dtype))
+    want = np.asarray(jpv.vis_blocks_fused(jnp.asarray(x), jpos, jchunks, jsmalls, depth=2,
+                                           nheads=2, interpret=True))
+    chunks, smalls, pos = tpv.pack_vis_blocks(tcfg, _carry(jp), getattr(torch, dtype))
+    for fn in (tpv.vis_blocks_plain, tpv.vis_blocks_split_plain):
+        got = fn(torch.as_tensor(x), pos, chunks, smalls, depth=2, nheads=2).numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+        else:
+            assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
+def test_diag_gemm_takes_the_heads_rows():
+    """The combine as the kernel forms it: features of a 64-wide tile meet
+    their head group's rows only (a 64-row tile where hw | 64, the head's
+    hw rows where 64 | hw); on a block-diagonal slab that is the full
+    product (small integers, exact in any order)."""
+    g = torch.Generator().manual_seed(4)
+    for p, hw in ((256, 32), (256, 64), (256, 128), (512, 256)):
+        w = torch.zeros((p, p))
+        for h in range(p // hw):
+            sl = slice(h * hw, (h + 1) * hw)
+            w[sl, sl] = torch.randint(-3, 4, (hw, hw), generator=g).float()
+        act = torch.randint(-3, 4, (9, p), generator=g).float()
+        torch.testing.assert_close(tpv._diag_gemm(act, w, hw), act @ w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "sq_vis_wgmma"),
+                                         (torch.float32, "sq_vis_blocks")],
+                         ids=["bf16", "f32"])
+def test_cuda_route_takes_wide_heads(fake_lib, dtype, entry):
+    """hw = 128 goes to the kernel with one more launch a block (the per-head
+    LN on its own)."""
+    x, pos, chunks, smalls = _packed(dtype, depth=2, nheads=2)
+    tpv._vis_blocks_cuda(x, pos, chunks, smalls, 2, 2)
+    [(name, args)] = fake_lib.calls
+    shift = 0 if entry == "sq_vis_wgmma" else 1
+    assert name == entry and args[shift + 4:shift + 8] == (10, 256, 2, 128)
+    assert _build.LAUNCHES["vis_blocks_fused"] == 1 + 9 * 2 == tpv.launches_per_call(2, 128)
+
+
+@pytest.mark.parametrize("heads,hw,ok", [(16, 64, True), (8, 128, True), (4, 256, True),
+                                         (64, 16, True), (8, 96, False), (4, 192, True),
+                                         (2, 2048, False), (128, 1, None)])
+def test_kernel_takes(heads, hw, ok):
+    cfg = tvis.ViSConfig(num_outputs=4, input_dim=2 * heads * hw, nheads=heads, dim_f=hw,
+                         dim_s=hw, dim_c=hw)
+    f32, why = tpv.kernel_takes(cfg, torch.float32)
+    bf16, why16 = tpv.kernel_takes(cfg, "bfloat16")
+    if ok is None:  # hw = 1: f32 takes it, bf16 needs an even width
+        assert f32 and not bf16 and "even" in why16
+    else:
+        assert f32 == bf16 == ok
+        assert ok or ("head width" in why and why == why16)
+    odd = tvis.ViSConfig(num_outputs=4, input_dim=200, nheads=4, dim_f=25, dim_s=25, dim_c=25)
+    assert tpv.kernel_takes(odd, torch.float32)[0] is False  # P = 100: not the packed layout
+
+
+def test_cuda_route_refuses_a_width_it_does_not_take(fake_lib):
+    x, pos, chunks, smalls = _packed(torch.float32, depth=1, nheads=4, p=384)  # hw = 96
+    with pytest.raises(ValueError, match="head width"):
+        tpv._vis_blocks_cuda(x, pos, chunks, smalls, 1, 4)
+    assert fake_lib.calls == []
+
+
+def test_predictor_refuses_at_construction_on_cuda_and_serves_on_cpu():
+    """hw = 96 fits JAX's gate (P = 768) but not the kernel: a CUDA
+    predictor with use_fused_vis raises before anything moves to the card,
+    naming the width; a CPU predictor serves it through the plain version."""
+    from sequoia_tpu_torch.serve import SlidePredictor
+
+    cfg = tvis.ViSConfig(num_outputs=6, input_dim=1536, depth=1, nheads=8, dim_f=96, dim_s=96,
+                         dim_c=96, num_clusters=5)
+    params = tvis.init(cfg, torch.Generator().manual_seed(0))
+    assert tpv.supported(cfg)
+    with pytest.raises(ValueError, match="head width 96"):
+        SlidePredictor(None, [(cfg, params)], n_clusters=5, use_fused_vis=True, device="cuda")
+    cpu = SlidePredictor(None, [(cfg, params)], n_clusters=5, use_fused_vis=True, device="cpu")
+    plain = SlidePredictor(None, [(cfg, params)], n_clusters=5, device="cpu")
+    cf = np.random.default_rng(0).normal(size=(5, 1536)).astype(np.float32)
+    got = cpu.predict_cluster_features(cf)
+    assert got.shape == (1, 6) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, plain.predict_cluster_features(cf), rtol=1e-4, atol=1e-5)
