@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only stem16,vis_blocks_fused   # phases 1-3 for these
     python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
+    python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
 
 Phases, each printing one JSON line:
 
@@ -37,8 +38,9 @@ Phases, each printing one JSON line:
    bound, GB/s and TFLOP/s, and in bf16 are checked at off-path edge shapes
    (K1: 7 and 130 tokens at P = 512, depth 1; K2: one image, three images,
    a ragged H2 != W2 map); K1 is also checked and timed with 8 heads of
-   width 128 at the main path's D = 2048, depth 6, 100 tokens
-   (``wide_heads``, both types); K1 reports its launches per call and, from a
+   width 128 (D = 2048) and 8 heads of width 96 (D = 1536, heads that
+   straddle the 64-feature tiles), depth 6, 100 tokens (``wide_heads``, both
+   types); K1 reports its launches per call and, from a
    ``torch.profiler`` trace of one call, the device gaps between them.  K3
    and K4 (bf16: the tensor-core kernel of ``conv_wgmma.cu``; f32: the FMA
    kernels of ``conv_gemm.cu``) are timed at
@@ -82,10 +84,25 @@ Phases, each printing one JSON line:
    server (GET /healthz and /genes, a POST of both slides, two POSTs queued
    behind a held run that must merge into one run); with no way to write a
    slide file, ``predict_slides`` on the in-memory slides and a POST of a
-   path that cannot be opened (502).
+   path that cannot be opened (502);
+7. the UNI path (``uni_*`` lines): random UNI ViT-L/16 weights from a seed
+   (LayerScale gammas 0.1, so that the blocks move each patch's CLS token)
+   at full width in bf16, extractor batch 128, and five ViS folds of input
+   1024 (depth 6, 16 x 64, 20,820 genes; outside K1's packed layout, so K1
+   is off this path).  ``uni_resize``: the Pillow-exact resize of one batch
+   on the card, bit-equal to the port's CPU result and to Pillow where it
+   imports; ``uni_batch``: one batch's bf16 features against the f32
+   forward, ms per batch of 128 against its bound (FLOP / 989 TFLOP/s), the
+   ``UNI_SCAN_CHUNK`` sweep and a ``torch.profiler`` trace; ``uni_lloyd``: K5
+   at (4096, 1024), k = 100, against ``lloyd_stats_tc_plain``;
+   ``uni_slide``: ``predict_patches`` on a 4096- and a 60-patch slide and
+   ``predict_wsi`` on the two slides of phase 5, K5 against the plain
+   k-means (kept counts equal to the ResNet predictor's); ``uni_serve_cli``:
+   ``cli.serve.main --feat_type uni --weights random`` on the slides as
+   files, with the kernels and with ``--kernels off`` after a warm-up.
 
 The last lines are the kernels table (``launches`` sums the counts of the
-three paths' kernel runs, each read from 0), the script's run time, the
+kernel runs of phases 4-7, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -121,12 +138,17 @@ PANEL = 50
 # off-path bf16 edge shapes: K1 (tokens, P, heads) at depth 1; K2 (batch, H2,
 # W2): one image, three, and a map whose 4032 pixels end in a ragged tile
 VIS_EDGES = ((7, 512, 8), (130, 512, 8))
-# K1 with heads wider than one 64-feature tile: (heads, head width) at the
-# main path's D = 2048, depth 6, 100 tokens
-VIS_WIDE_HEADS = (8, 128)
+# K1 with heads that do not fit one 64-feature tile: (heads, head width) at
+# depth 6, 100 tokens, D = 2 * heads * width (2048: whole tiles a head;
+# 1536: heads straddle the tiles)
+VIS_WIDE_HEADS = ((8, 128), (8, 96))
 # K5 past one 128-center tile: k at the main path's (4096, 2048)
 LLOYD_WIDE_K = (129, 200, 256)
 STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
+# the UNI path: feature width, the UNI_SCAN_CHUNK sweep, the LayerScale
+# gammas of the random weights, and bf16 features against f32 on one batch:
+# max |bf16 - f32| / max |f32| (bf16 rounds the residual stream of 24 blocks)
+UNI_DIM, UNI_CHUNKS, UNI_LAYER_SCALE, UNI_BF16_TOL = 1024, (16, 32, 64, 128), 0.1, 5e-2
 
 # card peaks (H100 SXM data sheet, dense): the bound of a kernel is the
 # larger of bytes / HBM rate and operations / peak rate for their type
@@ -538,18 +560,19 @@ def check_lloyd(torch, dev) -> dict:
     return res
 
 
-def check_lloyd_k(torch, dev, k: int) -> dict:
-    """K5 past one 128-center tile: k clusters at the main path's (4096,
-    2048) against the mirror of its recipe (equal counts and labels, sums
-    within LLOYD_TC_SUMS_TOL of max |plain|, best and inertia within TOL),
-    and its time per call."""
+def check_lloyd_k(torch, dev, k: int, dim: int = D) -> dict:
+    """K5 with k clusters on (4096, dim) points (past one 128-center tile at
+    the main path's dim; the UNI width at k = 100) against the mirror of its
+    recipe (equal counts and labels, sums within LLOYD_TC_SUMS_TOL of max
+    |plain|, best and inertia within TOL), its time per call, the mirror's,
+    and the bound."""
     from sequoia_tpu_torch.ops import cuda_kmeans as ck
 
-    g = torch.Generator(device=dev).manual_seed(30 + k)
-    true = torch.randn((k, D), generator=g, device=dev)
+    g = torch.Generator(device=dev).manual_seed(30 + k + dim)
+    true = torch.randn((k, dim), generator=g, device=dev)
     x = true[torch.randint(0, k, (PATCHES,), generator=g, device=dev)] + 0.1 * torch.randn(
-        (PATCHES, D), generator=g, device=dev)
-    centers = true + 0.01 * torch.randn((k, D), generator=g, device=dev)
+        (PATCHES, dim), generator=g, device=dev)
+    centers = true + 0.01 * torch.randn((k, dim), generator=g, device=dev)
     mask = torch.ones((PATCHES,), dtype=torch.bool, device=dev)
     mask[-32:] = False
     plan = ck.LloydPlan(x, mask)
@@ -565,14 +588,17 @@ def check_lloyd_k(torch, dev, k: int) -> dict:
     if sums_rel > LLOYD_TC_SUMS_TOL or best_rel > tol or inertia_rel > tol:
         raise AssertionError(f"lloyd_stats k={k}: sums {sums_rel:.3g}, best {best_rel:.3g}, "
                              f"inertia {inertia_rel:.3g} from lloyd_stats_tc_plain")
-    flops = 2 * PATCHES * D * k
+    flops = 2 * PATCHES * dim * k
     moved = nbytes(x, mask, centers, s1, c1, i1, b1)
-    bnd, by = bound_ms(moved, 3 * flops + int(mask.sum()) * D, "tfloat32")
-    res = {"k": k, "counts_equal": True, "labels_equal": True, "sums_max_rel_err": sums_rel,
-           "best_max_rel_err": best_rel, "inertia_rel_err": inertia_rel,
-           "ms": time_ms(torch, lambda: plan.stats(centers), 50), "bound_ms": bnd,
-           "bound_by": by}
-    if k == 200:  # the entry points that refused k > 128 on the card before
+    bnd, by = bound_ms(moved, 3 * flops + int(mask.sum()) * dim, "tfloat32")
+    res = {"k": k, "points": PATCHES, "dim": dim, "counts_equal": True, "labels_equal": True,
+           "sums_max_rel_err": sums_rel, "best_max_rel_err": best_rel,
+           "inertia_rel_err": inertia_rel, "tol": tol,
+           "ms": time_ms(torch, lambda: plan.stats(centers), 50),
+           "plain_ms": time_ms(torch, lambda: ck.lloyd_stats_tc_plain(x, mask, centers), 10),
+           "bound_ms": bnd, "bound_by": by}
+    res["bound_share"] = bnd / res["ms"]
+    if k == 200 and dim == D:  # the entry points that refused k > 128 on the card before
         from sequoia_tpu_torch.ops import kmeans as km
         from sequoia_tpu_torch.serve import SlidePredictor
 
@@ -735,28 +761,29 @@ def check_vis(torch, dev, dtype: str) -> dict:
                 torch, "vis_blocks_fused", dtype,
                 cuda_vis.vis_blocks_fused(ex, epos, ech, esm, **ekw),
                 cuda_vis.vis_blocks_plain(ex, epos, ech, esm, **ekw))})
-    res["wide_heads"] = check_vis_wide_heads(torch, dev, g, dtype)
+    res["wide_heads"] = [check_vis_wide_heads(torch, dev, g, dtype, heads, hw)
+                         for heads, hw in VIS_WIDE_HEADS]
     return res
 
 
-def check_vis_wide_heads(torch, dev, g, dtype: str) -> dict:
-    """K1 with VIS_WIDE_HEADS (a head spans two 64-feature tiles: the
-    per-head LN runs as a launch of its own, the combine takes the head's
-    rows) at the main path's D, depth and tokens, at the 16 x 64 TOL: bf16
+def check_vis_wide_heads(torch, dev, g, dtype: str, heads: int, hw: int) -> dict:
+    """K1 with heads that do not fit one 64-feature tile (the per-head LN
+    runs as a launch of its own, the combine takes the rows of the tile's
+    heads) at the main path's depth and tokens, at the 16 x 64 TOL: bf16
     against the plain version of its decomposition
     (``vis_blocks_split_plain``), f32 against ``vis_blocks_plain``."""
     from sequoia_tpu_torch import _build
     from sequoia_tpu_torch.models import vis
     from sequoia_tpu_torch.ops import cuda_vis
 
-    heads, hw = VIS_WIDE_HEADS
-    cfg = vis.ViSConfig(num_outputs=16, input_dim=D, depth=6, nheads=heads, dim_f=hw,
+    d = 2 * heads * hw
+    cfg = vis.ViSConfig(num_outputs=16, input_dim=d, depth=6, nheads=heads, dim_f=hw,
                         dim_s=hw, dim_c=hw, num_clusters=K)
     takes, why = cuda_vis.kernel_takes(cfg, dtype)
     if not takes:
         raise AssertionError(f"vis_blocks_fused {heads} x {hw}: kernel_takes refuses: {why}")
     chunks, smalls, pos = cuda_vis.pack_vis_blocks(cfg, vis.init(cfg, g), getattr(torch, dtype))
-    x = torch.randn((K, D), generator=g, device=dev)
+    x = torch.randn((K, d), generator=g, device=dev)
     kw = dict(depth=cfg.depth, nheads=heads)
     run = lambda: cuda_vis.vis_blocks_fused(x, pos, chunks, smalls, **kw)  # noqa: E731
     before = _build.LAUNCHES["vis_blocks_fused"]
@@ -765,7 +792,7 @@ def check_vis_wide_heads(torch, dev, g, dtype: str) -> dict:
     plain = (cuda_vis.vis_blocks_split_plain if dtype == "bfloat16"
              else cuda_vis.vis_blocks_plain)
     res = compare(torch, "vis_blocks_fused", dtype, out, plain(x, pos, chunks, smalls, **kw))
-    return {"heads": heads, "head_width": hw, "P": D // 2, "depth": cfg.depth, "tokens": K,
+    return {"heads": heads, "head_width": hw, "P": d // 2, "depth": cfg.depth, "tokens": K,
             **res, "launches_per_call": launches, "ms": time_ms(torch, run, 10)}
 
 
@@ -924,8 +951,9 @@ def make_slide(torch, dev, seed: int):
     return ArrayReader(levels, properties={"aperio.AppMag": "20"})
 
 
-def wsi_path(torch, dev, rparams, folds) -> dict:
-    """Phase 5; returns the kernels' launch counts of the kernel path's run."""
+def wsi_path(torch, dev, rparams, folds) -> tuple[dict, list]:
+    """Phase 5; returns the kernels' launch counts of the kernel path's run
+    and each slide's kept patch count."""
     import numpy as np
     from sequoia_tpu_torch import _build
     from sequoia_tpu_torch.models import resnet
@@ -1049,7 +1077,7 @@ def wsi_path(torch, dev, rparams, folds) -> dict:
           "capped_run": {"max_patches": WSI_CAP, "kept": capped.io_stats["kept"],
                          "decoded": sum(decoded), "candidates": n_cands[0],
                          "finite": bool(np.isfinite(y).all())}})
-    return launches
+    return launches, got["kept"]
 
 
 # ---------------------------------------------------------------------------
@@ -1361,6 +1389,257 @@ def serve_cli_path(torch, dev, folds) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the UNI backbone
+# ---------------------------------------------------------------------------
+
+def uni_flops(cfg) -> int:
+    """Multiply-add operations x 2 of one image through the ViT: the patch
+    embed, then per block qkv, scores, probabilities . V, proj, fc1, fc2."""
+    n, d, m, pdim = cfg.tokens, cfg.dim, cfg.mlp_dim, cfg.patch_size ** 2 * 3
+    block = 2 * n * d * (3 * d + d + 2 * m) + 2 * 2 * n * n * d
+    return 2 * (n - 1) * pdim * d + cfg.depth * block
+
+
+def uni_models(torch, dev):
+    """Random UNI ViT-L/16 weights (LayerScale UNI_LAYER_SCALE) and five ViS
+    folds of input UNI_DIM at the reference's 16 x 64, from seeds."""
+    from sequoia_tpu_torch.models import uni_vit, vis
+
+    params = uni_vit.random_params(uni_vit.UniViTConfig(),
+                                   torch.Generator(device=dev).manual_seed(12),
+                                   layer_scale=UNI_LAYER_SCALE)
+    vcfg = vis.ViSConfig(num_outputs=GENES, input_dim=UNI_DIM, depth=6, nheads=16, dim_f=64,
+                         dim_s=64, dim_c=64, num_clusters=K, compute_dtype="bfloat16")
+    folds = [(vcfg, vis.init(vcfg, torch.Generator(device=dev).manual_seed(200 + i)))
+             for i in range(FOLDS)]
+    return params, folds
+
+
+def uni_resize(torch, dev, u8) -> dict:
+    """The Pillow-exact resize of one extractor batch on the card against
+    the port's CPU result and Pillow's, bit for bit."""
+    import numpy as np
+    from sequoia_tpu_torch.ops import pil_resize
+
+    got = pil_resize.resize_u8(u8, 224, 224)
+    if not torch.equal(got.cpu(), pil_resize.resize_u8(u8.cpu(), 224, 224)):
+        raise AssertionError("uni_resize: the card's resize differs from the CPU's")
+    res = {"batch": list(u8.shape), "out": list(got.shape), "bit_equal_cpu": True,
+           "ms": time_ms(torch, lambda: pil_resize.resize_u8(u8, 224, 224), 20)}
+    try:
+        from PIL import Image
+    except ImportError:
+        res["bit_equal_pillow"] = "not measured (no Pillow)"
+        return res
+    want = np.stack([np.asarray(Image.fromarray(im).resize((224, 224), Image.BILINEAR))
+                     for im in u8.cpu().numpy()])
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("uni_resize: the card's resize differs from Pillow's")
+    res["bit_equal_pillow"] = True
+    return res
+
+
+def uni_batch(torch, dev, params, u8) -> dict:
+    """One extractor batch of 128 through the bf16 ViT-L against the f32
+    forward; ms per batch against the bound, the UNI_SCAN_CHUNK sweep, the
+    f32 forward's time and a trace of one batch."""
+    from sequoia_tpu_torch.models import uni_vit
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+
+    ext = {dt: FeatureExtractor("uni", params, batch_size=FEAT_BATCH, device=dev,
+                                cfg=uni_vit.UniViTConfig(compute_dtype=dt))
+           for dt in (torch.bfloat16, torch.float32)}
+    fast, full = ext[torch.bfloat16], ext[torch.float32]
+    f16, f32 = fast.raw_fwd(fast.params, u8), full.raw_fwd(full.params, u8)
+    rel = float((f16 - f32).abs().max() / f32.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(f16, f32, dim=1).min())
+    spread = float((f32 - f32.mean(0)).abs().max() / f32.abs().max())
+    if (f16.shape != (FEAT_BATCH, UNI_DIM) or not bool(torch.isfinite(f16).all())
+            or rel > UNI_BF16_TOL):
+        raise AssertionError(f"uni_batch: bf16 features {tuple(f16.shape)}, {rel:.3g} of max "
+                             f"|f32| from the f32 forward (tol {UNI_BF16_TOL:g})")
+    flops = uni_flops(fast.cfg) * FEAT_BATCH
+    moved = nbytes(u8, f16) + sum(v.numel() * 2 for k, v in fast.params.items()
+                                  if k != "blocks") + sum(
+        v.numel() * 2 for v in fast.params["blocks"].values())
+    bnd, by = bound_ms(moved, flops, "bfloat16")
+    run = lambda: fast.raw_fwd(fast.params, u8)  # noqa: E731
+    sweep = {}
+    for ck in UNI_CHUNKS:
+        fast.UNI_SCAN_CHUNK = ck
+        sweep[ck] = time_ms(torch, run, 5)
+    del fast.UNI_SCAN_CHUNK  # back to the class default
+    ms = time_ms(torch, run, 5)
+    res = {"batch": FEAT_BATCH, "bf16_vs_f32_max_rel": rel, "tol": UNI_BF16_TOL,
+           "bf16_vs_f32_cosine_min": cos, "f32_spread_over_patches": spread,
+           "scan_chunk_default": type(fast).UNI_SCAN_CHUNK, "ms": ms,
+           "ms_by_scan_chunk": sweep, "f32_ms": time_ms(torch, lambda: full.raw_fwd(
+               full.params, u8), 2),
+           "tflop_per_batch": flops / 1e12, "bound_ms": bnd, "bound_by": by,
+           "bound_share": bnd / ms, "tflops": flops / ms / 1e9}
+    del ext, full, f32
+    torch.cuda.empty_cache()
+    res["profile"] = profile_batch(torch, run)
+    return res
+
+
+def uni_path(torch, dev, resnet_kept: list) -> dict:
+    """Phase 7; returns the kernels' launch counts of the kernel runs (K5:
+    from patches, from the WSI and through the CLI)."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.cli import serve as cli
+    from sequoia_tpu_torch.models import convert, uni_vit
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.serve import SlidePredictor
+    from sequoia_tpu_torch.train import checkpoint
+
+    params, folds = uni_models(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    u8 = torch.randint(0, 256, (FEAT_BATCH, PATCH, PATCH, 3), generator=g, device=dev,
+                       dtype=torch.uint8)
+    emit({"phase": "uni_resize", **uni_resize(torch, dev, u8)})
+    emit({"phase": "uni_batch", **uni_batch(torch, dev, params, u8)})
+    emit({"phase": "uni_lloyd", "name": "lloyd_stats", "dtype": "float32",
+          **check_lloyd_k(torch, dev, K, UNI_DIM)})
+
+    ext = FeatureExtractor("uni", params, batch_size=FEAT_BATCH, device=dev,
+                           cfg=uni_vit.UniViTConfig(compute_dtype=torch.bfloat16))
+    del params
+    torch.cuda.empty_cache()
+    fast, plain = (SlidePredictor(ext, folds, n_clusters=K, use_pallas_kmeans=kern,
+                                  patch_size=PATCH, device=dev) for kern in (True, False))
+    slides = {n: torch.randint(0, 256, (n, PATCH, PATCH, 3), generator=g, device=dev,
+                               dtype=torch.uint8) for n in (PATCHES, SMALL_SLIDE)}
+    for p in (fast, plain):
+        p.predict_patches(slides[SMALL_SLIDE])
+    torch.cuda.synchronize()
+
+    def timed(fn, *args):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {k: _build.LAUNCHES[k] - before[k] for k in before}
+
+    _build.reset_launches()
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for n, patches in slides.items():
+        y, secs, lc = timed(fast.predict_patches, patches)
+        add(lc)
+        ref, plain_s, _ = timed(plain.predict_patches, patches)
+        if y.shape != (1, GENES) or not np.isfinite(y).all() or lc["lloyd_stats"] == 0:
+            raise AssertionError(f"uni {n}-patch slide: {y.shape}, launches {lc}")
+        r = r_min_check(pearson(np, y, ref), 0.99)
+        res = {"phase": "uni_slide", "source": "patches", "patches": n,
+               "shape": list(y.shape), "finite": True, "seconds": secs,
+               "plain_seconds": plain_s, "launches": lc, "pearson_r_vs_plain": r}
+        if n == PATCHES:  # where the slide's time goes, stage by stage
+            f, res["features_s"], _ = timed(fast.extractor.features, patches)
+            cf, res["kmeans_s"], _ = timed(fast.cluster, f)
+            _, res["plain_kmeans_s"], _ = timed(plain.cluster, f)
+            _, res["vis_folds_s"], _ = timed(fast.predict_cluster_features, cf)
+            res["lloyd_steps"] = km_steps(torch, dev, f, fast)
+        emit(res)
+
+    wsi = [make_slide(torch, dev, s) for s in (1, 2)]
+    for i, slide in enumerate(wsi):
+        k0 = fast.io_stats["kept"]
+        y, secs, lc = timed(fast.predict_wsi, slide)
+        add(lc)
+        kept = fast.io_stats["kept"] - k0
+        k0 = plain.io_stats["kept"]
+        ref, plain_s, _ = timed(plain.predict_wsi, slide)
+        kept_plain = plain.io_stats["kept"] - k0
+        if y.shape != (1, GENES) or not np.isfinite(y).all() or lc["lloyd_stats"] == 0:
+            raise AssertionError(f"uni WSI slide {i}: {y.shape}, launches {lc}")
+        if kept != kept_plain or resnet_kept[i] not in (None, kept):
+            raise AssertionError(f"uni WSI slide {i}: kept {kept} / plain {kept_plain}, the "
+                                 f"ResNet predictor {resnet_kept[i]}")
+        emit({"phase": "uni_slide", "source": "wsi", "slide": i, "kept": kept,
+              "kept_resnet": resnet_kept[i], "shape": list(y.shape), "finite": True,
+              "seconds": secs, "plain_seconds": plain_s, "launches": lc,
+              "pearson_r_vs_plain": r_min_check(pearson(np, y, ref), 0.99)})
+    del fast, plain, ext
+    torch.cuda.empty_cache()
+
+    # the serve CLI: the five folds as a CV directory, the slides as files
+    genes = [f"GENE{i:05d}" for i in range(GENES)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_uni_")
+    try:
+        exp = os.path.join(tmp, "exp")
+        for i, (cfg, fp) in enumerate(folds):
+            checkpoint.save_torch_state_dict(convert.vis_to_torch(cfg, fp),
+                                             os.path.join(exp, f"model_best_{i}.pt"))
+        with open(os.path.join(exp, "test_results.pkl"), "wb") as f:
+            pickle.dump({"genes": genes}, f)
+        from sequoia_tpu_torch import native
+
+        try:
+            import PIL  # noqa: F401
+            writer = "native" if native.available() else "pillow"
+        except ImportError:
+            writer = "native" if native.available() else None
+        if writer is None:
+            raise AssertionError("uni_serve_cli: neither the native writer nor Pillow")
+        paths = [os.path.join(tmp, f"slide{i}.tiff") for i in range(len(wsi))]
+        for slide, path in zip(wsi, paths):
+            write_slide_file(slide, path, writer)
+        args = ["--wsi", *paths, "--checkpoints", exp, "--feat_type", "uni", "--weights",
+                "random", "--batch_size", str(FEAT_BATCH), "--num_clusters", str(K),
+                "--patch_size", str(PATCH), "--compute_dtype", "bfloat16", "--device", dev.type]
+        runs = {}
+        for i, (name, extra) in enumerate((("warm_up", []), ("kernels", []),
+                                           ("plain", ["--kernels", "off"]))):
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = cli.main([*args, *extra, "--out", os.path.join(tmp, f"{name}{i}.csv")])
+            torch.cuda.synchronize()
+            runs[name] = {**out, "main_seconds": time.perf_counter() - t0,
+                          "csv": read_csv(out["out"]),
+                          "launches": {k: _build.LAUNCHES[k] - before[k] for k in before}}
+        for name, run in runs.items():
+            header, rows, vals = run["csv"]
+            if header != ["wsi_file_name", *genes] or vals.shape != (len(paths), GENES) \
+                    or not np.isfinite(vals).all():
+                raise AssertionError(f"uni_serve_cli: {name} CSV {vals.shape}")
+        if runs["kernels"]["launches"]["lloyd_stats"] == 0:
+            raise AssertionError("uni_serve_cli: the kernel run launched no K5")
+        add(runs["kernels"]["launches"])
+        r = min(pearson(np, runs["kernels"]["csv"][2][i], runs["plain"]["csv"][2][i])
+                for i in range(len(paths)))
+        emit({"phase": "uni_serve_cli", "slide_files_by": writer, "slides": len(paths),
+              "csv_shape": list(runs["kernels"]["csv"][2].shape),
+              "seconds_per_slide": runs["kernels"]["serve_seconds"] / len(paths),
+              "plain_seconds_per_slide": runs["plain"]["serve_seconds"] / len(paths),
+              "warm_up_seconds_per_slide": runs["warm_up"]["serve_seconds"] / len(paths),
+              "main_seconds": {k: v["main_seconds"] for k, v in runs.items()},
+              "launches": runs["kernels"]["launches"],
+              "pearson_r_min_vs_plain": r_min_check(r, 0.99)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def km_steps(torch, dev, feats, pred) -> int:
+    """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
+    from sequoia_tpu_torch.ops import kmeans as km
+
+    mask = torch.ones((feats.shape[0],), dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(pred.kmeans_seed)
+    return km.kmeans_fit(feats.float(), mask, gen, K, use_pallas=pred.use_pallas)[3]
+
+
 def r_min_check(r: float, floor: float) -> float:
     if r < floor:
         raise AssertionError(f"serve_cli: Pearson r {r} < {floor}")
@@ -1373,8 +1652,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="", help="comma-separated kernel names: run phases "
-                    "1-3 for these alone and print no result line")
+    ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
+                    "for these alone) and/or uni_path (phase 7); prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -1404,7 +1683,7 @@ def main() -> int:
               ("bottleneck_chain_cp", functools.partial(check_chain, kname="bottleneck_chain_cp")),
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
-    known = [k for k, _ in checks] + ["lloyd_stats"]
+    known = [k for k, _ in checks] + ["lloyd_stats", "uni_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -1427,6 +1706,8 @@ def main() -> int:
               **lloyd_step_profile(torch, km, x, mask, init)})
         del x, mask, init
     if only:
+        if "uni_path" in only:
+            emit({"phase": "uni_launches", **uni_path(torch, dev, [None, None])})
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
@@ -1439,10 +1720,13 @@ def main() -> int:
     rparams, folds = models(torch, dev)
     main = main_path(torch, dev, rparams, folds)
     torch.cuda.empty_cache()
-    wsi = wsi_path(torch, dev, rparams, folds)
+    wsi, kept = wsi_path(torch, dev, rparams, folds)
     torch.cuda.empty_cache()
     served = serve_cli_path(torch, dev, folds)
-    launches = {k: main[k] + wsi[k] + served[k] for k in results}
+    del rparams, folds
+    torch.cuda.empty_cache()
+    uni = uni_path(torch, dev, kept)
+    launches = {k: main[k] + wsi[k] + served[k] + uni[k] for k in results}
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],

@@ -19,16 +19,17 @@ and raises without CUDA.
 Where the port differs from the JAX CLI:
 
 * on CUDA it serves with the kernel set of :func:`build_predictor` (K4 in
-  every ResNet stage, K5 for k-means, K1 for the ViS folds where
-  ``cuda_vis.kernel_takes`` accepts their config) and prints one stderr line
-  naming it; ``--kernels off`` or ``--device cpu`` serves with the plain
-  PyTorch versions;
+  every ResNet stage, with ``--feat_type resnet``; K5 for k-means; K1 for
+  the ViS folds where ``cuda_vis.kernel_takes`` accepts their config, which
+  UNI's 1024-d folds do not) and prints one stderr line naming it;
+  ``--kernels off`` or ``--device cpu`` serves with the plain PyTorch
+  versions;
 * ``--compute_dtype`` also sets the folds' compute dtype (the JAX CLI
   serves them in f32 whatever the flag; ``--compute_dtype float32`` gives
   its numerics);
 * flags the port does not serve yet (``--data_parallel``, ``--multihost``,
-  ``--feat_type uni``, ``--model_type vit|he2rna``) stop at parse time,
-  naming their ROADMAP.md item; the JAX compile-cache flag is gone;
+  ``--model_type vit|he2rna``) stop at parse time, naming their ROADMAP.md
+  item; the JAX compile-cache flag is gone;
 * no pandas: the gene lists and the CSV go through the ``csv`` module.
 """
 
@@ -54,14 +55,13 @@ from sequoia_tpu_torch.train import checkpoint
 from sequoia_tpu_torch.utils.device import resolve_device
 
 #: the kernels the serving entry points run on CUDA: K4 in every ResNet
-#: stage (``fused_stages=(1, 2, 3, 4)``), K5 for every Lloyd step, K1 for the
-#: ViS folds' blocks
+#: stage (``fused_stages=(1, 2, 3, 4)``; the ResNet backbone only), K5 for
+#: every Lloyd step, K1 for the ViS folds' blocks
 SERVING_KERNELS = ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused")
 
 # flag -> (values the port does not serve yet, or None for any use; ROADMAP item)
 _NOT_PORTED = {"--data_parallel": (None, "queue 1 item 8"),
                "--multihost": (None, "queue 1 item 8"),
-               "--feat_type": ({"uni"}, "queue 1 item 3"),
                "--model_type": ({"vit", "he2rna"}, "queue 1 item 5")}
 
 
@@ -153,11 +153,14 @@ def build_predictor(feat_type: str, weights: str, models, *, device=None,
                     kernels=SERVING_KERNELS, batch_size: int = 128,
                     compute_dtype: str = "bfloat16", n_clusters: int = 100,
                     max_patches: int = 4000, patch_size: int = 256):
-    """The serving predictor with the kernel set of :func:`serving_kernels`.
-    Returns ``(SlidePredictor, line)``, the line naming the kernels it serves
-    with and, where K1 is left out, why.  No kernel failure is caught."""
+    """The serving predictor with the kernel set of :func:`serving_kernels`,
+    less the ResNet kernel K4 for ``feat_type="uni"``.  Returns
+    ``(SlidePredictor, line)``, the line naming the kernels it serves with
+    and, where K1 is left out, why.  No kernel failure is caught."""
     dev = resolve_device(device)
     on, why = serving_kernels(dev, models, kernels)
+    if feat_type != "resnet" and "bottleneck_chain" in on:
+        on.remove("bottleneck_chain")
     extractor = load_extractor(feat_type, weights, batch_size, compute_dtype, device=dev,
                                fused_stages=(1, 2, 3, 4) if "bottleneck_chain" in on else ())
     pred = SlidePredictor(extractor, models, n_clusters=n_clusters, max_patches=max_patches,
@@ -195,7 +198,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoints", type=str, required=True,
                    help="CV dir, .pt file, or HF-layout dir")
     p.add_argument("--feat_type", default="resnet", choices=["resnet", "uni"],
-                   action=_NotPorted)
+                   help="backbone: ResNet-50 (2048-d) or UNI ViT-L/16 (1024-d)")
     p.add_argument("--model_type", default="vis", choices=["vis", "vit", "he2rna"],
                    action=_NotPorted, help="aggregator family of the checkpoints")
     p.add_argument("--weights", type=str, required=True,

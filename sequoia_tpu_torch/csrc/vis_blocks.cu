@@ -11,9 +11,10 @@
 // Per block, eight launches through the shared GEMM core (A = token rows,
 // B = a weight slab read in place from the chunk):
 //   f     local = round(GELU(headLN(xs.Wf + bf)))      per-head LN in the epilogue
+//                                                        where hw | 64, else vis_head_ln
 //   s     s     = xs.Ws + bs                           (N, P) f32
 //   summ  sc    = round(GELU(headLN(mean_tok(s)))).Wc_sum   one block per head group
-//   c     c     = round(GELU(local.Wc_loc + sc + bc))  block-diagonal: K = the head's rows only
+//   c     c     = round(GELU(local.Wc_loc + sc + bc))  block-diagonal: K = the tile's heads' rows
 //   proj  xf    = xs + c.Wproj + bproj                 f32
 //   ln    y     = round(LN(xf))
 //   ff1   h     = round(GELU(y.W1 + b1))
@@ -72,10 +73,9 @@ __global__ void __launch_bounds__(NTHREADS) vis_gemm(VisGemm g) {
   };
   float acc[TM][TN] = {};
   // the combine slab is block diagonal with hw x hw blocks: output cols
-  // [n0, n0+BN) only meet the rows of their head group (BN = 64)
-  const int grp = head_group(g.hw);
-  const int k0 = EPI == E_COMBINE ? n0 / grp * grp : 0;
-  const int k1 = EPI == E_COMBINE ? min(k0 + grp, K) : K;
+  // [n0, n0+BN) only meet the rows of their heads (BN = 64; diag_first)
+  const int k0 = EPI == E_COMBINE ? diag_first(n0, g.hw) : 0;
+  const int k1 = EPI == E_COMBINE ? diag_last(n0, g.hw) : K;
   gemm_tile<BM, BN, BK, TM, TN, true, false>(acc, m0, n0, k0, k1, la, lb, As, Bs);
 
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
@@ -156,6 +156,8 @@ int run(const float* x, const float* pos, const T* chunks, const float* smalls, 
         int P, int depth, int hw, T* xs, T* local, float* sbuf, float* sc, T* cbuf,
         float* xf, T* y, T* h, float* out, cudaStream_t st) {
   const int D = 2 * P;
+  const cudaError_t attr = summary_attr<T>(hw);
+  if (attr != cudaSuccess) return (int)attr;
   vis_init<T><<<(M * D + 255) / 256, 256, 0, st>>>(x, pos, xs, M * D);
   for (int d = 0; d < depth; ++d) {
     const T* W = chunks + (size_t)d * 16 * P * P;
@@ -164,11 +166,11 @@ int run(const float* x, const float* pos, const T* chunks, const float* smalls, 
     const bool last = d == depth - 1;
     VisGemm g{};
     g.W = W; g.P = P; g.M = M; g.hw = hw;
-    // f: local branch (past 64 a head spans tiles: f32 into sbuf, then
-    // vis_head_ln)
+    // f: local branch (where a tile does not hold whole heads: f32 into
+    // sbuf, then vis_head_ln)
     g.A = xs; g.base_lo = 0; g.base_hi = 0; g.N = P; g.K = D;
     g.bias = seg(0, 0); g.ln_scale = seg(0, 1); g.ln_bias = seg(0, 2); g.out = local;
-    if (hw <= 64) {
+    if (ln_in_epilogue(hw, false)) {
       gemm<T, E_LOCAL>(g, st);
     } else {
       g.out = sbuf;
@@ -179,7 +181,7 @@ int run(const float* x, const float* pos, const T* chunks, const float* smalls, 
     // s: summary projection (f32, mean taken next)
     g.base_lo = 2 * P; g.base_hi = 2 * P; g.bias = seg(1, 0); g.out = sbuf;
     gemm<T, E_STORE_F32>(g, st);
-    vis_summary<T><<<P / head_group(hw), head_group(hw), 0, st>>>(
+    vis_summary<T><<<P / head_group(hw), summary_threads(hw), summary_smem(hw), st>>>(
         sbuf, M, P, hw, seg(1, 1), seg(1, 2), W + (size_t)5 * P * P, sc);
     // c: per-head combine of the local branch + the summary contribution
     g.A = local; g.base_lo = 4 * P; g.base_hi = 4 * P; g.K = P; g.N = P;
@@ -206,13 +208,14 @@ int run(const float* x, const float* pos, const T* chunks, const float* smalls, 
 
 }  // namespace
 
-// f32 only; launches: 1 + 8 * depth (1 + 9 * depth where hw > 64)
+// f32 only; P % 64 == 0 and P % hw == 0.  Launches: 1 + 8 * depth (1 + 9 *
+// depth where hw does not divide 64)
 extern "C" int sq_vis_blocks(int dtype, const float* x, const float* pos,
                              const void* chunks, const float* smalls, int M, int P,
                              int depth, int hw, void* xs, void* local, float* s,
                              float* sc, void* c, float* xf, void* y, void* h,
                              float* out, void* stream) {
-  if (dtype != F32 || P % 64 != 0 || !head_width_ok(hw)) return (int)cudaErrorInvalidValue;
+  if (dtype != F32 || P % 64 != 0 || hw <= 0 || P % hw) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run<float>(x, pos, static_cast<const float*>(chunks), smalls, M, P, depth,
                     hw, static_cast<float*>(xs), static_cast<float*>(local), s, sc,

@@ -1,6 +1,6 @@
 // Pieces shared by the two K1 kernels, vis_blocks.cu (f32, CUDA cores) and
-// vis_wgmma.cu (bf16, tensor cores): the GEMM epilogue kinds and the three
-// small kernels between the GEMMs.  Each small kernel waits on the launch
+// vis_wgmma.cu (bf16, tensor cores): the GEMM epilogue kinds, the head-width
+// rules and the small kernels between the GEMMs.  Each small kernel waits on the launch
 // before it and lets the next one start (griddepcontrol, hopper.cuh); both
 // are no-ops unless the kernel is launched with programmatic stream
 // serialization, as vis_wgmma.cu launches it.
@@ -26,63 +26,97 @@ __global__ void vis_init(const float* __restrict__ x, const float* __restrict__ 
   if (i < n) xs[i] = from_f<T>(x[i] + pos[i]);
 }
 
-// The head widths the K1 kernels take: divisors of 64 (a 64-feature tile
-// holds whole heads) and multiples of 64 up to 1024 (a head spans hw / 64
-// tiles)
-__host__ __device__ inline bool head_width_ok(int hw) {
-  return hw > 0 && (64 % hw == 0 || (hw % 64 == 0 && hw <= 1024));
+// The K1 kernels take every head width hw that divides P (P % 64 == 0).  Where
+// hw divides 64 a 64-feature tile holds whole heads and the f GEMM runs the
+// per-head LN in its epilogue (the bf16 epilogue, two features a lane, also
+// needs an even hw); for every other width the f GEMM stores f32 and
+// vis_head_ln normalises whole heads, one launch more per block.
+__host__ __device__ inline bool ln_in_epilogue(int hw, bool bf16) {
+  return 64 % hw == 0 && (!bf16 || hw % 2 == 0);
 }
 
-// Columns of the summary product a block takes (whole heads), and rows of
-// the block-diagonal combine that features [n0, n0 + 64) meet: from
-// n0 / group * group
-__host__ __device__ inline int head_group(int hw) { return hw > 64 ? hw : 64; }
+// Rows [first, last) of the block-diagonal combine that features [n0, n0 +
+// 64) meet: from the first row of the head of feature n0 to the last row of
+// the head of feature n0 + 63, widened to whole 64-row slabs (rows outside
+// these heads are zero, so the product is exact).  n0's own 64 rows where hw
+// divides 64, the head's hw rows where 64 divides hw.
+__host__ __device__ inline int diag_first(int n0, int hw) { return n0 / hw * hw / 64 * 64; }
+__host__ __device__ inline int diag_last(int n0, int hw) {
+  return (((n0 + 63) / hw + 1) * hw + 63) / 64 * 64;
+}
 
-// One block per head_group(hw) summary columns (whole heads), a thread a
-// column: token mean of s over all M tokens, per-head LN + GELU, round, then
-// the block-diagonal Wc_sum product for these columns.
+// Summary columns a vis_summary block takes: whole heads, 64 where hw
+// divides 64, else one head; its threads and dynamic shared memory
+__host__ __device__ inline int head_group(int hw) { return 64 % hw == 0 ? 64 : hw; }
+__host__ __device__ inline int summary_threads(int hw) {
+  const int g = (head_group(hw) + 31) / 32 * 32;
+  return g < 256 ? g : 256;
+}
+__host__ __device__ inline int summary_smem(int hw) { return head_group(hw) * 4; }
+
+// One block per head_group(hw) summary columns (whole heads), threads
+// striding over the columns: token mean of s over all M tokens, per-head LN
+// (a warp per head) + GELU, round, then the block-diagonal Wc_sum product
+// for these columns.
 template <class T>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(256)
 vis_summary(const float* __restrict__ s, int M, int P, int hw,
             const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
             const T* __restrict__ wcs, float* __restrict__ sc) {
-  __shared__ float v[1024];
+  extern __shared__ float v[];  // head_group(hw) floats
   __shared__ float stat[64][2];
   hopper::griddep_wait();
   hopper::griddep_launch();
-  const int G = blockDim.x, c = threadIdx.x, n = blockIdx.x * G + c;
-  float sum = 0.f;
-  for (int m = 0; m < M; ++m) sum += s[(size_t)m * P + n];
-  v[c] = sum / M;
-  __syncthreads();
-  if (c < G / hw) {
-    const int c0 = c * hw;
-    float mean = 0.f;
-    for (int i = 0; i < hw; ++i) mean += v[c0 + i];
-    mean /= hw;
-    float var = 0.f;
-    for (int i = 0; i < hw; ++i) {
-      const float d = v[c0 + i] - mean;
-      var = fmaf(d, d, var);
-    }
-    stat[c][0] = mean;
-    stat[c][1] = 1.f / sqrtf(var / hw + LN_EPS);
+  const int G = head_group(hw), k0 = blockIdx.x * G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int c = threadIdx.x; c < G; c += blockDim.x) {
+    float sum = 0.f;
+    for (int m = 0; m < M; ++m) sum += s[(size_t)m * P + k0 + c];
+    v[c] = sum / M;
   }
   __syncthreads();
-  const int h = c / hw;
-  const float u = (v[c] - stat[h][0]) * stat[h][1] * ln_scale[n] + ln_bias[n];
+  for (int h = warp; h < G / hw; h += nwarps) {
+    const float* vh = v + h * hw;
+    float a = 0.f;
+    for (int i = lane; i < hw; i += 32) a += vh[i];
+    const float mean = warp_sum(a) / hw;
+    float q = 0.f;
+    for (int i = lane; i < hw; i += 32) {
+      const float d = vh[i] - mean;
+      q = fmaf(d, d, q);
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(q) / hw + LN_EPS);
+    if (lane == 0) {
+      stat[h][0] = mean;
+      stat[h][1] = rstd;
+    }
+  }
   __syncthreads();
-  v[c] = round_to<T>(gelu_erf(u));
+  for (int c = threadIdx.x; c < G; c += blockDim.x) {
+    const int h = c / hw, n = k0 + c;
+    v[c] = round_to<T>(gelu_erf((v[c] - stat[h][0]) * stat[h][1] * ln_scale[n] + ln_bias[n]));
+  }
   __syncthreads();
-  const int k0 = blockIdx.x * G;
-  float acc = 0.f;
-  for (int k = 0; k < G; ++k) acc = fmaf(v[k], to_f(wcs[(size_t)(k0 + k) * P + n]), acc);
-  sc[n] = acc;
+  for (int c = threadIdx.x; c < G; c += blockDim.x) {
+    float acc = 0.f;
+    for (int k = 0; k < G; ++k) acc = fmaf(v[k], to_f(wcs[(size_t)(k0 + k) * P + k0 + c]), acc);
+    sc[k0 + c] = acc;
+  }
 }
 
-// local = round(GELU(headLN(v))) for head widths past 64, where the f GEMM's
-// 64-feature tiles hold part of a head and store v = xs.Wf + bf in f32: a
-// warp per (token, head), two-pass variance
+// Sets vis_summary<T>'s dynamic shared memory limit where its head group
+// needs more than the default 48 KB (heads wider than 12,288 features)
+template <class T>
+inline cudaError_t summary_attr(int hw) {
+  const int bytes = summary_smem(hw);
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(vis_summary<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// local = round(GELU(headLN(v))) where the f GEMM's 64-feature tiles do not
+// hold whole heads (or, in bf16, odd widths) and the GEMM stores v = xs.Wf +
+// bf in f32: a warp per (token, head), two-pass variance
 template <class T>
 __global__ void __launch_bounds__(256)
 vis_head_ln(const float* __restrict__ v, int M, int P, int hw,

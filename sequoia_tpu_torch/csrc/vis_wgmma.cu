@@ -25,9 +25,10 @@
 //
 // What the design does about it:
 //   - Swapped GEMMs: out^T = W^T . act^T.  A CTA takes 64 output features
-//     (wgmma's M; whole heads where hw | 64, so the per-head LN of `f`
-//     stays in the CTA; past 64 a separate launch normalises each head) and a tile of 104 tokens (wgmma's N; rows past N are zero
-//     filled by cp.async's source size).  The weight slab is an MN-major A
+//     (wgmma's M; whole heads where hw | 64 and hw is even, so the per-head
+//     LN of `f` stays in the CTA; for every other width a separate launch
+//     normalises each head) and a tile of 104 tokens (wgmma's N; rows past N
+//     are zero filled by cp.async's source size).  The weight slab is an MN-major A
 //     read in place from the packed chunk (the transpose bit), the tokens a
 //     K-major B; both go through a 5-stage ring of 128-byte-swizzled
 //     16-byte cp.async copies, 4 slabs of 64 K ahead of the multiply.
@@ -38,8 +39,9 @@
 //     barrier CTA r sums every CTA's partial for its share of the tokens
 //     through distributed shared memory, in rank order, and runs the
 //     epilogue for them, a warp per token.  The combine GEMM is block
-//     diagonal (K = the tile's own 64 rows, or its head's hw rows where
-//     64 | hw) and runs unsplit.
+//     diagonal (K = the 64-row slabs that hold the heads of the tile's
+//     features: its own 64 rows where hw | 64, its head's rows where 64 |
+//     hw, the straddled heads' rows otherwise) and runs unsplit.
 //   - Programmatic dependent launch: every launch may start while the one
 //     before it finishes.  A GEMM issues its first weight copies (which no
 //     launch writes) before griddepcontrol.wait, and its token copies after
@@ -144,11 +146,9 @@ __global__ void __launch_bounds__(NT, 2) vis_wgmma_gemm(const Gemm g) {
   const bool lo = n0 < P;
   const bf16* Wt = g.W + (size_t)(lo ? g.base_lo : g.base_hi) * P + (lo ? n0 : n0 - P);
   // the combine slab is block diagonal with hw x hw blocks: features [n0,
-  // n0 + 64) only meet the rows of their head group, [n0, n0 + 64) where hw
-  // | 64, the head's hw rows where 64 | hw
-  const int grp = head_group(g.hw);
-  const int kbase = EPI == E_COMBINE ? n0 / grp * grp : 0;
-  const int nk_all = (EPI == E_COMBINE ? grp : K) / BK;
+  // n0 + 64) only meet the rows of their heads (vis_common.cuh, diag_first)
+  const int kbase = EPI == E_COMBINE ? diag_first(n0, g.hw) : 0;
+  const int nk_all = (EPI == E_COMBINE ? diag_last(n0, g.hw) - kbase : K) / BK;
   const int s0 = rank * nk_all / cs, nk = (rank + 1) * nk_all / cs - s0;
 
   auto load_w = [&](int s, int slot) {  // row kr of the slab: 64 features of K row k0 + kr
@@ -276,24 +276,26 @@ int gemm(const Gemm& g, int cluster, cudaStream_t st) {
 
 }  // namespace
 
-// bf16 only.  P % 64 == 0, hw even and head_width_ok; every pointer 16-byte
-// aligned.  Launches: 1 + 8 * depth (1 + 9 * depth where hw > 64: the f GEMM
-// stores f32 and vis_head_ln normalises whole heads), each with programmatic
-// stream serialization, the GEMMs in clusters of 8 (f, s), 1 (c) and 4
-// (proj, ff1, ff2) CTAs with 108.5 KB of dynamic shared memory each.
+// bf16 only.  P % 64 == 0 and P % hw == 0; every pointer 16-byte aligned.
+// Launches: 1 + 8 * depth (1 + 9 * depth where !ln_in_epilogue(hw): the f
+// GEMM stores f32 and vis_head_ln normalises whole heads), each with
+// programmatic stream serialization, the GEMMs in clusters of 8 (f, s), 1 (c)
+// and 4 (proj, ff1, ff2) CTAs with 108.5 KB of dynamic shared memory each.
 extern "C" int sq_vis_wgmma(const float* x, const float* pos, const void* chunks,
                             const float* smalls, int M, int P, int depth, int hw,
                             void* xs, void* local, float* s, float* sc, void* c,
                             float* xf, void* y, void* h, float* out, void* stream) {
-  if (M <= 0 || P <= 0 || P % 64 || !head_width_ok(hw) || hw % 2 || depth <= 0)
+  if (M <= 0 || P <= 0 || P % 64 || hw <= 0 || P % hw || depth <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int D = 2 * P;
   const bf16* chunk0 = static_cast<const bf16*>(chunks);
   bf16 *xs_ = static_cast<bf16*>(xs), *local_ = static_cast<bf16*>(local);
   bf16 *c_ = static_cast<bf16*>(c), *y_ = static_cast<bf16*>(y), *h_ = static_cast<bf16*>(h);
-  int rc = launch(vis_init<__nv_bfloat16>, dim3((M * D + 255) / 256), 256, 0, 0, st, x, pos,
-                  xs_, M * D);
+  int rc = (int)summary_attr<__nv_bfloat16>(hw);
+  if (rc == 0)
+    rc = launch(vis_init<__nv_bfloat16>, dim3((M * D + 255) / 256), 256, 0, 0, st, x, pos, xs_,
+                M * D);
   for (int d = 0; d < depth && rc == 0; ++d) {
     const bf16* W = chunk0 + (size_t)d * 16 * P * P;
     const float* sm = smalls + (size_t)d * 8 * 3 * P;
@@ -301,12 +303,12 @@ extern "C" int sq_vis_wgmma(const float* x, const float* pos, const void* chunks
     const bool last = d == depth - 1;
     Gemm g{};
     g.W = W; g.P = P; g.M = M; g.hw = hw;
-    // f: local branch; past 64 a head spans several feature tiles, so the
-    // GEMM stores f32 (into s, free until the s GEMM) and vis_head_ln
-    // normalises each head
+    // f: local branch; where a 64-feature tile does not hold whole heads
+    // (or hw is odd) the GEMM stores f32 (into s, free until the s GEMM) and
+    // vis_head_ln normalises each head
     g.act = xs_; g.base_lo = 0; g.base_hi = 0; g.N = P; g.K = D;
     g.bias = seg(0, 0); g.ln_scale = seg(0, 1); g.ln_bias = seg(0, 2); g.out = local_;
-    if (hw <= 64) {
+    if (ln_in_epilogue(hw, true)) {
       rc = gemm<E_LOCAL>(g, SPLIT_F, st);
     } else {
       g.out = s;
@@ -319,9 +321,9 @@ extern "C" int sq_vis_wgmma(const float* x, const float* pos, const void* chunks
     g.base_lo = 2 * P; g.base_hi = 2 * P; g.bias = seg(1, 0); g.out = s;
     if (rc == 0) rc = gemm<E_STORE_F32>(g, SPLIT_F, st);
     if (rc == 0)
-      rc = launch(vis_summary<__nv_bfloat16>, dim3(P / head_group(hw)), head_group(hw), 0, 0,
-                  st, (const float*)s, M, P, hw, seg(1, 1), seg(1, 2), W + (size_t)5 * P * P,
-                  sc);
+      rc = launch(vis_summary<__nv_bfloat16>, dim3(P / head_group(hw)), summary_threads(hw),
+                  summary_smem(hw), 0, st, (const float*)s, M, P, hw, seg(1, 1), seg(1, 2),
+                  W + (size_t)5 * P * P, sc);
     // c: per-head combine of the local branch + the summary contribution
     g.act = local_; g.base_lo = 4 * P; g.base_hi = 4 * P; g.K = P; g.N = P;
     g.vec = sc; g.bias = seg(2, 0); g.out = c_;

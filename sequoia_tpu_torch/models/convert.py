@@ -7,10 +7,10 @@ the JAX package's stacked ViS layout, so a released fold
 ``transformer.layers.{i}.0.mixers.{h}.{f,s,c,...}``) loads directly with
 :func:`vis_from_torch` and writes back with :func:`vis_to_torch`.
 
-:func:`vis_params_from_numpy` and :func:`resnet_params_from_numpy` turn the
-JAX package's parameter trees, given as numpy arrays (``jax.device_get`` or
-``np.asarray`` of each leaf), into the port's, so one set of weights can run
-through both implementations.
+:func:`vis_params_from_numpy`, :func:`resnet_params_from_numpy` and
+:func:`uni_params_from_numpy` turn the JAX package's parameter trees, given
+as numpy arrays (``jax.device_get`` or ``np.asarray`` of each leaf), into the
+port's, so one set of weights can run through both implementations.
 """
 
 from __future__ import annotations
@@ -148,6 +148,13 @@ def vis_params_from_numpy(params):
     layouts are the same, only the containers change."""
     return {k: ({kk: _t(vv) for kk, vv in v.items()} if isinstance(v, dict)
                 else _t(v)) for k, v in params.items()}
+
+
+def uni_params_from_numpy(params):
+    """A JAX UNI ViT parameter tree (numpy leaves) -> the port's params
+    (``models/uni_vit.py``): the same stacked ``(in, out)`` layout, only
+    the containers change."""
+    return vis_params_from_numpy(params)
 
 
 # ---------------------------------------------------------------------------

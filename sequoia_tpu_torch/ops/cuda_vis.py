@@ -48,37 +48,30 @@ def supported(cfg: vis.ViSConfig) -> bool:
             and cfg.input_dim == 2 * p and p % 128 == 0)
 
 
-def _head_width_ok(hw: int) -> bool:
-    """The head widths the kernels take (``head_width_ok`` in
-    ``csrc/vis_common.cuh``): divisors of 64, whose heads fit whole in a
-    64-feature tile, and multiples of 64 up to 1024, each head spanning
-    hw / 64 tiles."""
-    return hw > 0 and (64 % hw == 0 or (hw % 64 == 0 and hw <= 1024))
-
-
 def kernel_takes(cfg: vis.ViSConfig, dtype) -> tuple[bool, str]:
     """``(True, "")`` when the CUDA kernel of ``dtype`` (bf16: the
     tensor-core kernel, f32: the FMA kernel) takes this config, else
-    ``(False, reason)``.  JAX's gate (``supported``) asks only for the packed
-    layout; the kernels also need a head width that divides 64 or is a
-    multiple of 64 (at most 1024), even in bf16."""
-    dtype = compute_dtype(dtype)
+    ``(False, reason)``: both take every config of JAX's gate
+    (``supported``), any head width."""
+    compute_dtype(dtype)  # a dtype the kernels have
     if not supported(cfg):
         return False, ("ViS config does not fit the packed layout (nheads * dim_f = "
                        "nheads * dim_s = nheads * dim_c = input_dim / 2, a multiple of 128)")
-    hw = cfg.dim_f
-    if not _head_width_ok(hw):
-        return False, (f"head width {hw} neither divides 64 nor is a multiple of 64 up to "
-                       f"1024 (ROADMAP queue 3)")
-    if dtype == torch.bfloat16 and hw % 2:
-        return False, f"the bf16 kernel needs an even head width, got {hw}"
     return True, ""
 
 
-def launches_per_call(depth: int, hw: int) -> int:
+def ln_in_epilogue(hw: int, dtype) -> bool:
+    """Whether the f GEMM runs the per-head LN in its epilogue
+    (``ln_in_epilogue`` in ``csrc/vis_common.cuh``): a 64-feature tile holds
+    whole heads, and in bf16 (two features a lane) hw is even.  Otherwise
+    the GEMM stores f32 and ``vis_head_ln`` normalises whole heads."""
+    return 64 % hw == 0 and (compute_dtype(dtype) == torch.float32 or hw % 2 == 0)
+
+
+def launches_per_call(depth: int, hw: int, dtype=torch.bfloat16) -> int:
     """Kernel launches of one call: the pos-emb add, then eight per block,
-    nine where hw > 64 (the per-head LN runs as its own launch)."""
-    return 1 + (9 if hw > 64 else 8) * depth
+    nine where the per-head LN runs as its own launch."""
+    return 1 + (8 if ln_in_epilogue(hw, dtype) else 9) * depth
 
 
 def pack_vis_blocks(cfg: vis.ViSConfig, params, dtype=torch.bfloat16):
@@ -191,15 +184,21 @@ def _split_gemm(act, w, split: int) -> torch.Tensor:
     return total.t()
 
 
+def _diag_rows(n0: int, hw: int) -> slice:
+    """The K rows that features [n0, n0 + 64) meet in the block-diagonal
+    combine (``diag_first``/``diag_last`` in ``csrc/vis_common.cuh``): the
+    rows of their heads, widened to whole 64-row slabs."""
+    first = n0 // hw * hw // SLAB * SLAB
+    return slice(first, -(-((n0 + FEAT_TILE - 1) // hw + 1) * hw // SLAB) * SLAB)
+
+
 def _diag_gemm(act, w, hw: int) -> torch.Tensor:
     """The block-diagonal combine as the kernel forms it: features [n0, n0 +
-    64) from the K rows of their head group only, [n0, n0 + 64) where the
-    head width divides 64, the head's own hw rows where 64 divides it."""
-    grp = max(hw, FEAT_TILE)
+    64) from the rows of :func:`_diag_rows` only (exact: the rows outside
+    their heads are zero)."""
     out = torch.empty((act.shape[0], w.shape[1]), device=act.device)
     for n0 in range(0, w.shape[1], FEAT_TILE):
-        sl, k0 = slice(n0, n0 + FEAT_TILE), n0 // grp * grp
-        ks = slice(k0, k0 + grp)
+        sl, ks = slice(n0, n0 + FEAT_TILE), _diag_rows(n0, hw)
         out[:, sl] = (w[ks, sl].float().t() @ act[:, ks].float().t()).t()
     return out
 
@@ -209,8 +208,9 @@ def vis_blocks_split_plain(x, pos, chunks, smalls, *, depth: int,
     """Plain PyTorch version of the tensor-core kernel's decomposition:
     tokens zero-padded to whole tiles of :data:`TOKEN_TILE`, every GEMM
     swapped and split over K as :func:`_split_gemm` (the combine block
-    diagonal over each head group, unsplit; the per-head LN over whole heads
-    of the f32 sums, a launch of its own past 64), the summary mean over the
+    diagonal over each tile's heads, unsplit; the per-head LN over whole
+    heads of the f32 sums, a launch of its own where a tile does not hold
+    whole heads), the summary mean over the
     N real tokens, and the epilogues and rounding points of
     :func:`vis_blocks_plain`.  ``(N, D)`` f32 -> ``(N, D)`` f32."""
     n, p = x.shape[0], x.shape[1] // 2
@@ -243,17 +243,12 @@ def vis_blocks_split_plain(x, pos, chunks, smalls, *, depth: int,
     return out[:n]
 
 
-def _wgmma_check(x, pos, chunks, smalls, *, nheads: int) -> None:
-    """Raise on what the tensor-core kernel does not take: bf16 chunks, an
-    even head width (two features a lane in the per-head LN), contiguous
-    16-byte aligned operands."""
-    p = x.shape[1] // 2
+def _wgmma_check(x, pos, chunks, smalls) -> None:
+    """Raise on what the tensor-core kernel does not take: bf16 chunks,
+    contiguous 16-byte aligned operands."""
     if chunks.dtype != torch.bfloat16:
         raise TypeError(f"vis_blocks_fused: the tensor-core route takes bf16 chunks, "
                         f"got {chunks.dtype}")
-    if (p // nheads) % 2:
-        raise ValueError(f"vis_blocks_fused: the bf16 kernel needs an even head "
-                         f"width, got {p // nheads}")
     for t in (x, pos, chunks, smalls):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("vis_blocks_fused: the tensor-core route needs contiguous, "
@@ -269,10 +264,9 @@ def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.T
     if (d != 2 * p or chunks.shape != (depth, CHUNK_ROWS * p, p)
             or smalls.shape != (depth, SMALL_ROWS, 3 * p) or pos.shape != x.shape):
         raise ValueError("vis_blocks_fused: operand shapes do not match the packed layout")
-    if p % 64 or p % nheads or not _head_width_ok(hw):
-        raise ValueError(f"vis_blocks_fused kernel needs P % 64 == 0 and a head width "
-                         f"that divides 64 or is a multiple of 64 up to 1024, got P={p}, "
-                         f"head width {p / nheads:g}")
+    if p % 64 or p % nheads:
+        raise ValueError(f"vis_blocks_fused kernel needs P % 64 == 0 and a whole head "
+                         f"width, got P={p}, head width {p / nheads:g}")
     for t in (chunks, smalls, pos):
         if t.device != x.device:
             raise ValueError("vis_blocks_fused: operands on different devices")
@@ -294,12 +288,12 @@ def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.T
             _build.stream_ptr(x))
     lib = _build.library()
     if cd == torch.bfloat16:
-        _wgmma_check(x, pos, chunks, smalls, nheads=nheads)
+        _wgmma_check(x, pos, chunks, smalls)
         rc = lib.sq_vis_wgmma(*args)
     else:
         rc = lib.sq_vis_blocks(0, *args)
     _build.check(rc, "vis_blocks_fused")
-    _build.count_launch("vis_blocks_fused", launches_per_call(depth, hw))
+    _build.count_launch("vis_blocks_fused", launches_per_call(depth, hw, cd))
     return out
 
 

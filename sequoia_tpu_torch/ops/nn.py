@@ -40,9 +40,11 @@ def precision(name=None) -> torch.dtype:
     """Set the port's precision rules and return the compute dtype for
     ``name``: TF32 off for matmuls and cuDNN (f32 means IEEE f32 on the card,
     cuDNN's default is TF32), whatever the compute dtype, since the f32 parts
-    of the bf16 mode stay f32 too."""
+    of the bf16 mode stay f32 too; and bf16 matmuls accumulate in f32 all
+    the way (cuBLAS may otherwise reduce split-K partials in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return compute_dtype(name)
 
 

@@ -30,8 +30,8 @@ The fold ensemble is the mean over folds of each fold's prediction (the
 reference's 5-fold averaging).  Each fold runs the plain ``vis.apply``, or
 with ``use_fused_vis`` its blocks run through the K1 kernel
 (``ops/cuda_vis.vis_apply_fused``, B = 1 per slide; off by default, as JAX
-serves through ``vis.apply``); on CUDA a fold config the kernel does not
-take (``cuda_vis.kernel_takes``) raises at construction.  ``use_pallas_kmeans`` (the JAX
+serves through ``vis.apply``); a fold config outside the kernel's packed
+layout (``cuda_vis.kernel_takes``) raises at construction.  ``use_pallas_kmeans`` (the JAX
 name) runs every Lloyd step through the K5 kernel; the extractor's
 ``cfg`` picks the ResNet kernels (``fused_stages`` for K4).  Slides with
 fewer patches than clusters get their empty clusters zero-filled.
@@ -70,11 +70,8 @@ class SlidePredictor:
         self.device = resolve_device(device)
         if use_fused_vis:  # before any tensor moves: a refusal costs nothing
             for cfg, _ in vis_models:
-                if not cuda_vis.supported(cfg):
-                    raise ValueError(f"use_fused_vis: {cfg} does not fit the fused "
-                                     "kernel's packed layout")
                 takes, why = cuda_vis.kernel_takes(cfg, compute_dtype(cfg.compute_dtype))
-                if self.device.type == "cuda" and not takes:
+                if not takes:
                     raise ValueError(f"use_fused_vis: the K1 kernel does not take {cfg}: {why}")
         if extractor is not None and extractor.device != self.device:
             raise ValueError(f"extractor runs on {extractor.device}, predictor on "

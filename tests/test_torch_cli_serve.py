@@ -211,8 +211,8 @@ def test_cli_profile_writes_trace(files, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--data_parallel"], ["--multihost"],
-                                  ["--feat_type", "uni"], ["--model_type", "vit"],
-                                  ["--model_type", "he2rna"]])
+                                  ["--feat_type", "uni", "--model_type", "vit"],
+                                  ["--model_type", "vit"], ["--model_type", "he2rna"]])
 def test_unported_flags_stop_at_parse_time(flag, capsys):
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["--checkpoints", "x", "--weights", "random", *flag])
@@ -230,14 +230,19 @@ def test_cli_needs_cuda_unless_asked_for_cpu(files, monkeypatch):
 
 def test_serving_kernel_set():
     """On CUDA the serving set is K4, K5 and K1; K1 is left out, with the
-    reason, for a head width it does not take; other devices get none."""
+    reason, for a fold config outside its packed layout (UNI's reference
+    ViS: input_dim 1024 against 2P = 2048), and takes any head width (8 x
+    96); other devices get none."""
     cfg = vis.ViSConfig(num_outputs=5, input_dim=2048, nheads=16, dim_f=64, dim_s=64,
                         dim_c=64, compute_dtype="bfloat16")
-    odd = vis.ViSConfig(num_outputs=5, input_dim=1536, nheads=8, dim_f=96, dim_s=96,
-                        dim_c=96, compute_dtype="bfloat16")
+    odd = vis.ViSConfig(num_outputs=5, input_dim=1024, nheads=16, dim_f=64, dim_s=64,
+                        dim_c=64, compute_dtype="bfloat16")
+    wide = vis.ViSConfig(num_outputs=5, input_dim=1536, nheads=8, dim_f=96, dim_s=96,
+                         dim_c=96, compute_dtype="bfloat16")
     assert tcli.serving_kernels("cuda", [(cfg, None)]) == (list(tcli.SERVING_KERNELS), "")
+    assert tcli.serving_kernels("cuda", [(wide, None)]) == (list(tcli.SERVING_KERNELS), "")
     on, why = tcli.serving_kernels("cuda", [(cfg, None), (odd, None)])
-    assert on == ["bottleneck_chain", "lloyd_stats"] and "head width 96" in why
+    assert on == ["bottleneck_chain", "lloyd_stats"] and "packed layout" in why
     assert tcli.serving_kernels("cpu", [(cfg, None)]) == ([], "")
     assert tcli.serving_kernels("cuda", [(cfg, None)], ("lloyd_stats",)) == (
         ["lloyd_stats"], "")
@@ -266,8 +271,8 @@ def test_load_extractor(files):
     rnd = load_extractor("resnet", "random", 4, device="cpu")
     assert torch.equal(rnd.params["conv1"], resnet.random_params(
         torch.Generator().manual_seed(0))["conv1"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        load_extractor("uni", "random", 4, device="cpu")
+    with pytest.raises(ValueError, match="ResNet option"):
+        load_extractor("uni", "random", 4, device="cpu", fused_stages=(1,))
     with pytest.raises(NotImplementedError, match="item 8"):
         load_extractor("resnet", "random", 4, data_parallel=True, device="cpu")
 

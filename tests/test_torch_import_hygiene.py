@@ -58,6 +58,7 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/ops/cuda_resnet.py",
                  "sequoia_tpu_torch/ops/cuda_kmeans.py", "sequoia_tpu_torch/ops/masking.py",
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
+                 "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
                  "chip_smoke.py", *SLICE_MODULES):
         assert want in names
 
@@ -113,7 +114,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FeatureExtractor("resnet", params)
     with pytest.raises(RuntimeError, match="CUDA"):
+        FeatureExtractor("uni", {})
+    with pytest.raises(RuntimeError, match="CUDA"):
         make_slide_program(params, cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_slide_program({}, cfg, {}, backbone="uni")
     with pytest.raises(RuntimeError, match="CUDA"):
         SlidePredictor(None, [])
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -129,7 +134,7 @@ def test_unported_options_raise():
 
     params = resnet.random_params(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FeatureExtractor("uni", params, device="cpu")
+        FeatureExtractor("uni", params, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FeatureExtractor("resnet", params, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -137,8 +142,8 @@ def test_unported_options_raise():
                                        backend="sklearn", device="cpu")
     cfg = vis.ViSConfig(num_outputs=4, input_dim=256, depth=1, nheads=4, dim_f=32,
                         dim_s=32, dim_c=32, num_clusters=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_slide_program(params, cfg, {}, backbone="uni", device="cpu")
+    with pytest.raises(ValueError, match="backbone"):
+        make_slide_program(params, cfg, {}, backbone="vit", device="cpu")
     for model_type in ("vit", "he2rna"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             SlidePredictor(None, [], model_type=model_type, device="cpu")
