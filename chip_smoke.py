@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only stem16,vis_blocks_fused   # phases 1-3 for these
     python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
     python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
+    python3 chip_smoke.py --only train_path    # phases 1-2 and 8
 
 Phases, each printing one JSON line:
 
@@ -99,7 +100,24 @@ Phases, each printing one JSON line:
    ``predict_wsi`` on the two slides of phase 5, K5 against the plain
    k-means (kept counts equal to the ResNet predictor's); ``uni_serve_cli``:
    ``cli.serve.main --feat_type uni --weights random`` on the slides as
-   files, with the kernels and with ``--kernels off`` after a warm-up.
+   files, with the kernels and with ``--kernels off`` after a warm-up;
+8. the training plane (``train_*`` lines; none of K1-K5 is on it, as in the
+   JAX package, whose trainer reaches no Pallas kernel): ``train_parity``,
+   three AdamW steps of a depth-2, D = 256, G = 1,000 ViS on the card
+   against the same steps on the CPU (per leaf, tolerance 5e-4);
+   ``train_step``, ms per full-width step (ViS D = 2048, depth 6, 16 x 64,
+   100 tokens, G = 20,820, batch 16) in f32, with ``compute_dtype``
+   bfloat16, with bf16 AdamW moments too, and the ViT in f32 (dim and MLP
+   2048), each against its bound with its peak memory, the f32 and bf16 ViS
+   with a ``torch.profiler`` trace of one step (device ms by GEMMs,
+   optimizer and elementwise, idle share); ``train_cv``, ``cli.main`` 5-fold
+   CV for 2 epochs on 80 synthetic slides of 40 patients (features from a
+   seed, read from memory where h5py does not import: the substitution
+   lives here, not in the package), its outputs checked;
+   ``train_resume``, ``--resume --moment_dtype bfloat16`` run twice (the
+   second trains nothing, its moments bf16 and bit-equal to the saved);
+   ``train_gtex``, ``cli.pretrain_gtex --quick 1`` then a fine-tune with the
+   head swapped to 1,000 genes; ``train_launches`` (all 0).
 
 The last lines are the kernels table (``launches`` sums the counts of the
 kernel runs of phases 4-7, each read from 0), the script's run time, the
@@ -111,6 +129,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -149,6 +168,17 @@ STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
 # gammas of the random weights, and bf16 features against f32 on one batch:
 # max |bf16 - f32| / max |f32| (bf16 rounds the residual stream of 24 blocks)
 UNI_DIM, UNI_CHUNKS, UNI_LAYER_SCALE, UNI_BF16_TOL = 1024, (16, 32, 64, 128), 0.1, 5e-2
+
+# the training plane at full width: the reference's batch 16 and lr 1e-3 over
+# (100, 2048) cluster features, steps timed a variant; train_parity at depth 2,
+# D = 256, G = 1,000 (the CPU side stays quick), held to
+# tests/test_train_step_parity.py's 5e-4
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 16, 1e-3, 20
+PARITY_DEPTH, PARITY_DIM, PARITY_GENES, PARITY_TOL = 2, 256, 1000, 5e-4
+# the synthetic cohort (slides, patients) and the fine-tuning cohort's genes
+CV_SLIDES, CV_PATIENTS, FT_GENES = 80, 40, 1000
+# bytes a parameter that the AdamW step must move: p, m, v read and written, g read
+ADAMW_BYTES = {"float32": 28, "bfloat16": 20}
 
 # card peaks (H100 SXM data sheet, dense): the bound of a kernel is the
 # larger of bytes / HBM rate and operations / peak rate for their type
@@ -253,11 +283,12 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_batch(torch, fn, iters: int = 3) -> dict:
+def profile_batch(torch, fn, iters: int = 3, kind=None) -> dict:
     """Device time of fn (one extractor batch) by kernel name from a
     torch.profiler trace, and the device's idle share of the traced window
     (host clock, ending in a synchronize; the profiler's own host cost is in
-    the window, so the share is an upper estimate)."""
+    the window, so the share is an upper estimate); with ``kind`` (kernel
+    name -> class) also the device ms per call of each class."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -272,17 +303,29 @@ def profile_batch(torch, fn, iters: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
+    spans: dict = {}  # record_function ranges on the device timeline: not kernels
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            into = spans if getattr(e, "is_user_annotation", False) else by_name
+            ms, n = into.get(e.name, (0.0, 0))
+            into[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"wall_ms_per_batch": wall_ms / iters, "device_ms_per_batch": busy_ms / iters,
-            "idle_share": 1 - busy_ms / wall_ms,
-            "device_events_per_batch": sum(n for _, n in by_name.values()) / iters,
-            "top": [{"kernel": k[:90], "ms_per_batch": ms / iters, "calls_per_batch": n / iters}
-                    for k, (ms, n) in top]}
+    res = {"wall_ms_per_batch": wall_ms / iters, "device_ms_per_batch": busy_ms / iters,
+           "idle_share": 1 - busy_ms / wall_ms,
+           "device_events_per_batch": sum(n for _, n in by_name.values()) / iters,
+           "top": [{"kernel": k[:90], "ms_per_batch": ms / iters, "calls_per_batch": n / iters}
+                   for k, (ms, n) in top]}
+    if spans:
+        res["device_spans_ms_per_batch"] = {k[:60]: ms / iters for k, (ms, _) in spans.items()}
+    if kind is not None:
+        classes: dict = {}
+        for name, (ms, n) in by_name.items():
+            c = classes.setdefault(kind(name), {"ms_per_call": 0.0, "kernels_per_call": 0.0})
+            c["ms_per_call"] += ms / iters
+            c["kernels_per_call"] += n / iters
+        res["by_kind"] = classes
+    return res
 
 
 def nbytes(*ts) -> int:
@@ -1631,6 +1674,454 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the training plane (ViS and ViT; no TPU kernel is on this path)
+# ---------------------------------------------------------------------------
+
+def train_model(torch, dev, kind: str, compute_dtype=None, depth: int = 6, dim=None,
+                genes=None, seed: int = 300):
+    """(cfg, params, apply_fn) of ``cv.build_model`` (16 heads x 64, 100
+    tokens; D and GENES unless given) from a seed, on ``dev``."""
+    from sequoia_tpu_torch.train import cv
+
+    cfg, params, apply_fn, _, _ = cv.build_model(
+        kind, genes or GENES, dim or D, torch.Generator(device=dev).manual_seed(seed),
+        depth=depth,
+        num_clusters=K, compute_dtype=compute_dtype)
+    return cfg, params, apply_fn
+
+
+def train_step_flops(kind: str, cfg, batch: int) -> float:
+    """Multiply-adds x 2 of one train step: the forward (per token and block
+    the GEMMs, for the ViT also both attention products; then the gene
+    head), and twice the forward for the backward."""
+    n = cfg.num_clusters
+    if kind == "vis":
+        d, h = cfg.input_dim, cfg.nheads
+        per_token = (2 * d * h * (cfg.dim_f + cfg.dim_s) + 2 * h * (cfg.dim_f + cfg.dim_s)
+                     * cfg.dim_c + 2 * cfg.proj_in * d + 4 * d * d)
+    else:
+        d, inner = cfg.dim, cfg.inner_dim
+        per_token = 2 * d * 3 * inner + 4 * n * inner + 2 * inner * d + 4 * d * cfg.mlp_dim
+    return 3.0 * batch * (n * cfg.depth * per_token + 2 * d * cfg.num_outputs)
+
+
+def op_kind(name: str) -> str:
+    """A device kernel's class in a train-step trace."""
+    low = name.lower()
+    if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_", "cublas")):
+        return "gemm"
+    if any(s in low for s in ("multi_tensor", "foreach", "adam")):
+        return "optimizer"
+    return "elementwise"
+
+
+def batch_on(torch, dev, gen, dim: int, genes: int, pad: int = 0, dtype=None):
+    """One (features, targets, valid) batch of TRAIN_BATCH slides, the last
+    ``pad`` rows padding."""
+    x = torch.randn((TRAIN_BATCH, K, dim), generator=gen, device=gen.device)
+    y = torch.randn((TRAIN_BATCH, genes), generator=gen, device=gen.device)
+    valid = torch.arange(TRAIN_BATCH, device=gen.device) < TRAIN_BATCH - pad
+    return x.to(dev, dtype or torch.float32), y.to(dev), valid.to(dev)
+
+
+def train_parity(torch, dev) -> dict:
+    """Three AdamW steps of the ViS on the card against the same three steps
+    on the CPU: the same weights and batches, f32, depth 2, D = 256, G =
+    1,000; per leaf max |card - cpu| / max |cpu|, raising past PARITY_TOL."""
+    from sequoia_tpu_torch.train import loop
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    _, params, apply_fn = train_model(torch, cpu, "vis", depth=PARITY_DEPTH, dim=PARITY_DIM,
+                                      genes=PARITY_GENES, seed=320)
+    g = torch.Generator().manual_seed(321)
+    batches = [batch_on(torch, cpu, g, PARITY_DIM, PARITY_GENES, pad=5 * (i == 2))
+               for i in range(3)]
+    runs = {}
+    for name, where in (("host", cpu), ("card", dev)):
+        p = loop.tree_map(lambda t: t.to(where, copy=True).requires_grad_(True), params)
+        step, _ = loop.make_step_fns(apply_fn, loop.make_adamw(p, lr=TRAIN_LR))
+        metrics = [step(p, *(t.to(where) for t in b)) for b in batches]
+        runs[name] = (p, [{k: float(v) for k, v in m.items()} for m in metrics])
+    (card, card_m), (host, host_m) = runs["card"], runs["host"]
+    rel = {}
+    for path, (a, b) in zip(leaf_paths(params), zip(loop.tree_leaves(card),
+                                                     loop.tree_leaves(host))):
+        b = b.detach()
+        rel[path] = float((a.detach().cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    moved = float((host["head_w"].detach() - params["head_w"]).abs().max())
+    worst = max(rel, key=rel.get)
+    m_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(card_m, host_m) for k in b)
+    if rel[worst] > PARITY_TOL or m_rel > PARITY_TOL:
+        raise AssertionError(f"train_parity: {worst} {rel[worst]:.3g}, metrics {m_rel:.3g} "
+                             f"> {PARITY_TOL:g}")
+    return {"steps": len(batches), "depth": PARITY_DEPTH, "dim": PARITY_DIM,
+            "genes": PARITY_GENES, "optimizer": "torch.optim.AdamW foreach",
+            "max_rel_by_leaf": rel, "max_rel": rel[worst], "worst_leaf": worst,
+            "metrics_max_rel": m_rel, "head_w_moved": moved, "tol": PARITY_TOL,
+            "card_metrics": card_m, "seconds": time.perf_counter() - t0}
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def time_train_step(torch, dev, kind: str, compute_dtype=None, moment_dtype=None,
+                    trace: bool = False) -> dict:
+    """ms per full-width train step (CUDA events over TRAIN_STEPS steps after
+    warm-up) against its bound, the peak device memory, and optionally a
+    torch.profiler trace of one step by op class."""
+    from sequoia_tpu_torch.train import loop
+
+    t0 = time.perf_counter()
+    cfg, params, apply_fn = train_model(torch, dev, kind, compute_dtype)
+    params = loop.tree_map(lambda t: t.requires_grad_(True), params)
+    opt = loop.make_adamw(params, lr=TRAIN_LR, moment_dtype=moment_dtype)
+    step, _ = loop.make_step_fns(apply_fn, opt)
+    dim = cfg.input_dim if kind == "vis" else cfg.dim
+    x, y, valid = batch_on(torch, dev, torch.Generator(device=dev).manual_seed(310), dim,
+                           GENES, dtype=torch.bfloat16 if compute_dtype else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last = {}
+
+    def run():
+        last.update(step(params, x, y, valid))
+
+    for _ in range(2):
+        run()
+    ms = time_ms(torch, run, TRAIN_STEPS)
+    if not all(bool(torch.isfinite(v)) for v in last.values()):
+        raise AssertionError(f"train_step {kind}: metrics not finite {last}")
+    n_params = sum(t.numel() for t in loop.tree_leaves(params))
+    flops = train_step_flops(kind, cfg, TRAIN_BATCH)
+    moment = "bfloat16" if moment_dtype else "float32"
+    moved = n_params * ADAMW_BYTES[moment] + nbytes(x, y, valid)
+    bnd, by = bound_ms(moved, flops, "bfloat16" if compute_dtype else "float32")
+    res = {"model": kind, "compute_dtype": compute_dtype or "float32", "moment_dtype": moment,
+           "optimizer": type(opt).__name__, "batch": TRAIN_BATCH, "params": n_params,
+           "ms": ms, "steps_timed": TRAIN_STEPS, "tflop_per_step": flops / 1e12,
+           "bound_ms": bnd, "bound_by": by, "bound_share": bnd / ms,
+           "tflops": flops / ms / 1e9, "adamw_gb": n_params * ADAMW_BYTES[moment] / 1e9,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "last_loss": float(last["loss"])}
+    if trace:
+        res["profile"] = profile_batch(torch, run, iters=1, kind=op_kind)
+    res["seconds"] = time.perf_counter() - t0
+    del opt, params
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def feature_store(store):
+    """For the length of the block, ``FeatureDataset.load_features`` and
+    ``filter_no_features`` read ``store`` ({h5 path: (tokens, D) array})
+    instead of .h5 files; None leaves them as they are."""
+    from sequoia_tpu_torch.data import dataset as tds
+
+    if store is None:
+        yield
+        return
+    load, filt = tds.FeatureDataset.load_features, tds.filter_no_features
+
+    def from_memory(self, idx):
+        return store.get(self.h5_path(idx))
+
+    def filter_in_memory(df, feature_path, feature_name="cluster_features", verbose=True):
+        keep = [tds.slide_h5_path(feature_path, r.get("tcga_project", ""),
+                                  r["wsi_file_name"]) in store for _, r in df.iterrows()]
+        return df[keep].reset_index(drop=True)
+
+    tds.FeatureDataset.load_features, tds.filter_no_features = from_memory, filter_in_memory
+    try:
+        yield
+    finally:
+        tds.FeatureDataset.load_features, tds.filter_no_features = load, filt
+
+
+def write_cohort(np, root: str):
+    """CV_SLIDES slides of CV_PATIENTS patients: (100, 2048) cluster features
+    and GENES targets from a seed.  Writes ``ref.csv`` (all genes) and
+    ``ft.csv`` (the first FT_GENES) under ``root``; the features go to .h5
+    files where h5py imports, else into a dict for :func:`feature_store`.
+    Returns (features root, store or None, source)."""
+    import pandas as pd
+    from sequoia_tpu_torch.data import dataset as tds
+
+    rng = np.random.default_rng(330)
+    feats = rng.standard_normal((CV_SLIDES, K, D), dtype=np.float32)
+    rna = rng.standard_normal((CV_SLIDES, GENES), dtype=np.float32)
+    meta = pd.DataFrame({"wsi_file_name": [f"TCGA-SYN-{i:03d}.svs" for i in range(CV_SLIDES)],
+                         "patient_id": [f"P{i % CV_PATIENTS:02d}" for i in range(CV_SLIDES)],
+                         "tcga_project": "TCGA-SYN"})
+    genes = pd.DataFrame(rna, columns=[f"rna_GENE{i:05d}" for i in range(GENES)])
+    pd.concat([meta, genes], axis=1).to_csv(os.path.join(root, "ref.csv"), index=False,
+                                            float_format="%.5f")
+    pd.concat([meta, genes.iloc[:, :FT_GENES]], axis=1).to_csv(
+        os.path.join(root, "ft.csv"), index=False, float_format="%.5f")
+    feat_root = os.path.join(root, "features")
+    paths = [tds.slide_h5_path(feat_root, "TCGA-SYN", w) for w in meta["wsi_file_name"]]
+    try:
+        import h5py
+    except ImportError:
+        return feat_root, dict(zip(paths, feats)), "memory (h5py does not import)"
+    for path, f in zip(paths, feats):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with h5py.File(path, "w") as h:
+            h.create_dataset("cluster_features", data=f)
+    return feat_root, None, "h5 files (h5py imports)"
+
+
+def counting_step_fns(real_fns, rec: dict):
+    """``loop.make_step_fns`` wrapped so that each train step adds one to
+    ``rec["steps"]``."""
+    def make(apply_fn, opt):
+        step, ev = real_fns(apply_fn, opt)
+
+        def counted(*a):
+            rec["steps"] += 1
+            return step(*a)
+        return counted, ev
+    return make
+
+
+def timed_calls(torch, rec: dict, key: str, fn):
+    """``fn`` wrapped to add its seconds (ending in a synchronize) to
+    ``rec[key]``."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
+    return run
+
+
+def train_cv(torch, dev, root: str, feat_root: str) -> dict:
+    """``cli.main`` 5-fold CV of the ViS at full width, 2 epochs: seconds per
+    fold and epoch, train steps per second, and the outputs checked."""
+    import pickle
+    from unittest import mock
+
+    import numpy as np
+    from sequoia_tpu_torch.cli import main as cli_main
+    from sequoia_tpu_torch.train import checkpoint, loop
+
+    rec = {"train": [], "steps": 0, "saves": []}
+    real_train, real_fns, real_save = (loop.train, loop.make_step_fns,
+                                       checkpoint.save_torch_state_dict)
+
+    def timed_train(*a, **kw):
+        t0 = time.perf_counter()
+        res = real_train(*a, **kw)
+        torch.cuda.synchronize()
+        rec["train"].append((t0, time.perf_counter() - t0, len(res.history)))
+        return res
+
+    def timed_save(sd, path):
+        t0 = time.perf_counter()
+        real_save(sd, path)
+        rec["saves"].append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    args = ["--ref_file", os.path.join(root, "ref.csv"), "--feature_path", feat_root,
+            "--model_type", "vis", "--train", "--k", "5", "--num_epochs", "2",
+            "--filter_no_features", "0", "--save_dir", os.path.join(root, "exp"),
+            "--exp_name", "cv", "--batch_size", str(TRAIN_BATCH), "--lr", str(TRAIN_LR)]
+    with mock.patch.object(loop, "train", timed_train), \
+            mock.patch.object(loop, "make_step_fns", counting_step_fns(real_fns, rec)), \
+            mock.patch.object(checkpoint, "save_torch_state_dict", timed_save), \
+            mock.patch.object(loop, "evaluate", timed_calls(torch, rec, "evaluate_s",
+                                                            loop.evaluate)):
+        t0 = time.perf_counter()
+        out = cli_main.main(args)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    exp = os.path.join(root, "exp", "TCGA", "cv")
+    with open(os.path.join(exp, "test_results.pkl"), "rb") as f:
+        on_disk = pickle.load(f)
+    want = {f"split_{i}" for i in range(5)} | {"genes"}
+    if set(on_disk) != want or len(on_disk["genes"]) != GENES:
+        raise AssertionError(f"train_cv: test_results.pkl keys {sorted(on_disk)[:8]}")
+    n_test = 0
+    for i in range(5):
+        s = on_disk[f"split_{i}"]
+        n = len(s["wsi_file_name"])
+        n_test += n
+        for key in ("real", "preds", "random"):
+            if s[key].shape != (n, GENES) or not np.isfinite(s[key]).all():
+                raise AssertionError(f"train_cv: split_{i} {key} {s[key].shape}")
+        np.testing.assert_array_equal(s["preds"], out[f"split_{i}"]["preds"])
+        sd = checkpoint.load_torch_checkpoint(os.path.join(exp, f"model_best_{i}.pt"))
+        if sd["linear_head.1.weight"].shape != (GENES, D) or not all(
+                np.isfinite(v).all() for v in sd.values()):
+            raise AssertionError(f"train_cv: model_best_{i}.pt does not load back whole")
+    if n_test != CV_SLIDES:
+        raise AssertionError(f"train_cv: {n_test} test rows over the folds, not {CV_SLIDES}")
+    starts = [t for t, _, _ in rec["train"]] + [end]
+    epochs = sum(e for _, _, e in rec["train"])
+    train_s = sum(s for _, s, _ in rec["train"])
+    return {"folds": len(rec["train"]), "epochs": epochs, "seconds": end - t0,
+            "seconds_per_fold": [b - a for a, b in zip(starts, starts[1:])],
+            "train_seconds_per_fold": [s for _, s, _ in rec["train"]],
+            "seconds_per_epoch": train_s / epochs, "train_steps": rec["steps"],
+            "train_steps_per_s": rec["steps"] / train_s,
+            "checkpoint_writes": len(rec["saves"]),
+            "checkpoint_write_s": sum(s for s, _ in rec["saves"]),
+            "checkpoint_gb": sum(b for _, b in rec["saves"]) / 1e9,
+            "evaluate_s": rec["evaluate_s"],
+            "rest_s": end - t0 - train_s - rec["evaluate_s"],
+            "test_rows": n_test, "preds_finite": True, "folds_load_back": True}
+
+
+def train_resume(torch, dev, root: str, feat_root: str) -> dict:
+    """``cli.main --resume --moment_dtype bfloat16`` twice (k = 2, one
+    epoch): the second run trains no step, and its optimizers come back with
+    bf16 moments bit-equal to the saved ones."""
+    from unittest import mock
+
+    from sequoia_tpu_torch.cli import main as cli_main
+    from sequoia_tpu_torch.train import checkpoint, loop
+
+    args = ["--ref_file", os.path.join(root, "ref.csv"), "--feature_path", feat_root,
+            "--model_type", "vis", "--train", "--k", "2", "--num_epochs", "1", "--resume",
+            "--moment_dtype", "bfloat16", "--filter_no_features", "0",
+            "--save_dir", os.path.join(root, "exp"), "--exp_name", "resume",
+            "--batch_size", str(TRAIN_BATCH)]
+    real_make, real_fns = loop.make_adamw, loop.make_step_fns
+    runs = []
+    for _ in range(2):
+        rec = {"opts": [], "steps": 0}
+
+        def capture(*a, _rec=rec, **kw):
+            opt = real_make(*a, **kw)
+            _rec["opts"].append(opt)
+            return opt
+
+        with mock.patch.object(loop, "make_adamw", capture), \
+                mock.patch.object(loop, "make_step_fns", counting_step_fns(real_fns, rec)), \
+                mock.patch.object(checkpoint, "save_train_state", timed_calls(
+                    torch, rec, "state_save_s", checkpoint.save_train_state)), \
+                mock.patch.object(checkpoint, "load_train_state", timed_calls(
+                    torch, rec, "state_load_s", checkpoint.load_train_state)):
+            t0 = time.perf_counter()
+            cli_main.main(args)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+        runs.append(rec)
+    exp = os.path.join(root, "exp", "TCGA", "resume")
+    if runs[0]["steps"] == 0 or runs[1]["steps"] != 0:
+        raise AssertionError(f"train_resume: steps {runs[0]['steps']} then {runs[1]['steps']}")
+    compared = 0
+    for i, opt in enumerate(runs[1]["opts"]):
+        _, saved, meta = checkpoint.load_train_state(os.path.join(exp, f"train_state_{i}.npz"))
+        if meta["epoch"] != 0:
+            raise AssertionError(f"train_resume: fold {i} state at epoch {meta['epoch']}")
+        live = opt.state_dict()["state"]
+        for j, st in saved["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                got = live[j][k]
+                if got.dtype != torch.bfloat16 or st[k].dtype != torch.bfloat16 or \
+                        not torch.equal(got.cpu(), st[k]):
+                    raise AssertionError(f"train_resume: fold {i} state {j} {k} "
+                                         f"{got.dtype} not bit-equal to the saved bf16")
+                compared += 1
+    state_gb = os.path.getsize(os.path.join(exp, "train_state_0.npz")) / 1e9
+    del runs[0]["opts"], runs[1]["opts"]
+    torch.cuda.empty_cache()
+    return {"first_run_s": runs[0]["seconds"], "first_run_steps": runs[0]["steps"],
+            "first_run_state_save_s": runs[0].get("state_save_s", 0.0),
+            "second_run_s": runs[1]["seconds"], "second_run_steps": 0,
+            "second_run_state_load_s": runs[1].get("state_load_s", 0.0),
+            "moments_compared": compared, "moments_bf16_bit_equal": True,
+            "train_state_gb": state_gb}
+
+
+def train_gtex(torch, dev, root: str, feat_root: str) -> dict:
+    """``cli.pretrain_gtex --quick 1`` at GENES, then ``cli.main --checkpoint
+    <its model_best.pt> --change_num_genes GENES`` on the FT_GENES cohort:
+    the head swapped on the card, the blocks carried over, finite preds."""
+    import numpy as np
+    from sequoia_tpu_torch.cli import main as cli_main
+    from sequoia_tpu_torch.cli import pretrain_gtex
+    from sequoia_tpu_torch.train import checkpoint
+
+    t0 = time.perf_counter()
+    pre = pretrain_gtex.main(["--path_csv", os.path.join(root, "ref.csv"), "--feature_path",
+                              feat_root, "--model", "vis", "--quick", "1", "--save_dir",
+                              os.path.join(root, "pre"), "--exp_name", "gtex",
+                              "--batch_size", str(TRAIN_BATCH)])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    sd_pre = checkpoint.load_torch_checkpoint(pre)
+    if sd_pre["linear_head.1.weight"].shape != (GENES, D):
+        raise AssertionError(f"train_gtex: {pre} head {sd_pre['linear_head.1.weight'].shape}")
+    t0 = time.perf_counter()
+    out = cli_main.main(["--ref_file", os.path.join(root, "ft.csv"), "--feature_path",
+                         feat_root, "--model_type", "vis", "--train", "--k", "2",
+                         "--num_epochs", "1", "--filter_no_features", "0", "--checkpoint",
+                         pre, "--change_num_genes", str(GENES), "--save_dir",
+                         os.path.join(root, "exp"), "--exp_name", "ft",
+                         "--batch_size", str(TRAIN_BATCH)])
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    exp = os.path.join(root, "exp", "TCGA", "ft")
+    sd = checkpoint.load_torch_checkpoint(os.path.join(exp, "model_best_0.pt"))
+    preds = [out[f"split_{i}"]["preds"] for i in range(2)]
+    if sd["linear_head.1.weight"].shape != (FT_GENES, D) or any(
+            p.shape[1] != FT_GENES or not np.isfinite(p).all() for p in preds):
+        raise AssertionError(f"train_gtex: fine-tuned head {sd['linear_head.1.weight'].shape}")
+    drift = float(np.abs(sd["pos_emb1D"] - sd_pre["pos_emb1D"]).max())
+    if drift > 0.05:  # one epoch of AdamW at lr 1e-3; a fresh draw is N(0, 1)
+        raise AssertionError(f"train_gtex: the blocks did not carry over ({drift})")
+    return {"pretrain_s": pre_s, "pretrain_head": list(sd_pre["linear_head.1.weight"].shape),
+            "finetune_s": ft_s, "finetune_head": list(sd["linear_head.1.weight"].shape),
+            "finetune_preds": [list(p.shape) for p in preds], "preds_finite": True,
+            "pos_emb_drift_max": drift}
+
+
+def train_path(torch, dev) -> dict:
+    """Phase 8; returns the kernels' launch counts over it (none of K1-K5 is
+    on the training path)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from sequoia_tpu_torch import _build
+
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    emit({"phase": "train_parity", **train_parity(torch, dev)})
+    torch.cuda.empty_cache()
+    for kind, cdt, mdt in (("vis", None, None), ("vis", "bfloat16", None),
+                           ("vis", "bfloat16", "bfloat16"), ("vit", None, None)):
+        emit({"phase": "train_step", **time_train_step(torch, dev, kind, cdt, mdt,
+                                                        trace=kind == "vis" and mdt is None)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        feat_root, store, source = write_cohort(np, tmp)
+        cohort = {"slides": CV_SLIDES, "patients": CV_PATIENTS, "tokens": K, "dim": D,
+                  "genes": GENES, "features_from": source,
+                  "write_s": time.perf_counter() - t0}
+        with feature_store(store):
+            emit({"phase": "train_cv", "cohort": cohort, **train_cv(torch, dev, tmp, feat_root)})
+            shutil.rmtree(os.path.join(tmp, "exp"))
+            emit({"phase": "train_resume", **train_resume(torch, dev, tmp, feat_root)})
+            shutil.rmtree(os.path.join(tmp, "exp"))
+            emit({"phase": "train_gtex", **train_gtex(torch, dev, tmp, feat_root)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    emit({"phase": "train_launches", **launches, "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -1653,7 +2144,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
-                    "for these alone) and/or uni_path (phase 7); prints no result line")
+                    "for these alone) and/or uni_path (phase 7), train_path (phase 8); "
+                    "prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -1683,7 +2175,7 @@ def main() -> int:
               ("bottleneck_chain_cp", functools.partial(check_chain, kname="bottleneck_chain_cp")),
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
-    known = [k for k, _ in checks] + ["lloyd_stats", "uni_path"]
+    known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -1708,6 +2200,8 @@ def main() -> int:
     if only:
         if "uni_path" in only:
             emit({"phase": "uni_launches", **uni_path(torch, dev, [None, None])})
+        if "train_path" in only:
+            train_path(torch, dev)
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
@@ -1726,6 +2220,10 @@ def main() -> int:
     del rparams, folds
     torch.cuda.empty_cache()
     uni = uni_path(torch, dev, kept)
+    torch.cuda.empty_cache()
+    trained = train_path(torch, dev)
+    if any(trained.values()):
+        raise AssertionError(f"the training path launched a TPU kernel's port: {trained}")
     launches = {k: main[k] + wsi[k] + served[k] + uni[k] for k in results}
 
     emit({"kernels": [

@@ -46,6 +46,7 @@ import time
 
 import numpy as np
 
+from sequoia_tpu_torch.cli import NotPorted
 from sequoia_tpu_torch.cli.compute_features import load_extractor
 from sequoia_tpu_torch.models import convert, vis
 from sequoia_tpu_torch.ops import cuda_vis
@@ -58,12 +59,6 @@ from sequoia_tpu_torch.utils.device import resolve_device
 #: stage (``fused_stages=(1, 2, 3, 4)``; the ResNet backbone only), K5 for
 #: every Lloyd step, K1 for the ViS folds' blocks
 SERVING_KERNELS = ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused")
-
-# flag -> (values the port does not serve yet, or None for any use; ROADMAP item)
-_NOT_PORTED = {"--data_parallel": (None, "queue 1 item 8"),
-               "--multihost": (None, "queue 1 item 8"),
-               "--model_type": ({"vit", "he2rna"}, "queue 1 item 5")}
-
 
 def load_fold_models(path: str, model_type: str = "vis") -> list[tuple[vis.ViSConfig, dict]]:
     """CV directory / single ``.pt`` / HF-layout directory -> ``[(cfg,
@@ -171,18 +166,6 @@ def build_predictor(feat_type: str, weights: str, models, *, device=None,
     return pred, line
 
 
-class _NotPorted(argparse.Action):
-    """Stops at parse time on a flag (or flag value) the port does not serve
-    yet, naming its ROADMAP.md item."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        refused, item = _NOT_PORTED[option_string]
-        if refused is None or values in refused:
-            shown = option_string if refused is None else f"{option_string} {values}"
-            parser.error(f"{shown} is not ported yet (ROADMAP.md {item})")
-        setattr(namespace, self.dest, values)
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="WSI -> gene panel serving (PyTorch/CUDA)")
     p.add_argument("--wsi", type=str, nargs="+", default=None,
@@ -200,7 +183,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feat_type", default="resnet", choices=["resnet", "uni"],
                    help="backbone: ResNet-50 (2048-d) or UNI ViT-L/16 (1024-d)")
     p.add_argument("--model_type", default="vis", choices=["vis", "vit", "he2rna"],
-                   action=_NotPorted, help="aggregator family of the checkpoints")
+                   action=NotPorted, refused={"vit", "he2rna"}, item="queue 1 item 5",
+                   help="aggregator family of the checkpoints")
     p.add_argument("--weights", type=str, required=True,
                    help='backbone weights (.pt/.bin) or "random"')
     p.add_argument("--gene_names", type=str, default=None,
@@ -221,8 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve with the CUDA kernels (on) or the plain PyTorch versions")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler trace of the one-shot run into DIR")
-    p.add_argument("--data_parallel", nargs=0, action=_NotPorted)
-    p.add_argument("--multihost", nargs=0, action=_NotPorted)
+    p.add_argument("--data_parallel", nargs=0, action=NotPorted, item="queue 1 item 8")
+    p.add_argument("--multihost", nargs=0, action=NotPorted, item="queue 1 item 8")
     return p
 
 

@@ -1,16 +1,19 @@
 """Weight conversion: reference torch state dicts <-> the port's parameter
 dicts, and carry-over of the JAX package's parameter trees.
 
-Counterpart of ``sequoia_tpu/models/convert.py`` (ViS part).  The port keeps
-the JAX package's stacked ViS layout, so a released fold
+Counterpart of ``sequoia_tpu/models/convert.py`` (the ViS and ViT parts).
+The port keeps the JAX package's stacked layouts, so a released fold
 (``gevaertlab/sequoia-{cancer}-{fold}``, torch names
 ``transformer.layers.{i}.0.mixers.{h}.{f,s,c,...}``) loads directly with
-:func:`vis_from_torch` and writes back with :func:`vis_to_torch`.
+:func:`vis_from_torch` and writes back with :func:`vis_to_torch`; a reference
+ViT (``transformer.layers.{i}.0.{norm,to_qkv,to_out}``) goes through
+:func:`vit_from_torch` and :func:`vit_to_torch`.
 
-:func:`vis_params_from_numpy`, :func:`resnet_params_from_numpy` and
-:func:`uni_params_from_numpy` turn the JAX package's parameter trees, given
-as numpy arrays (``jax.device_get`` or ``np.asarray`` of each leaf), into the
-port's, so one set of weights can run through both implementations.
+:func:`vis_params_from_numpy`, :func:`vit_params_from_numpy`,
+:func:`resnet_params_from_numpy` and :func:`uni_params_from_numpy` turn the
+JAX package's parameter trees, given as numpy arrays (``jax.device_get`` or
+``np.asarray`` of each leaf), into the port's, so one set of weights can run
+through both implementations.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from sequoia_tpu_torch.models.vis import ViSConfig
+from sequoia_tpu_torch.models.vit import ViTConfig
 
 
 def _np(x) -> np.ndarray:
@@ -154,6 +158,76 @@ def uni_params_from_numpy(params):
     """A JAX UNI ViT parameter tree (numpy leaves) -> the port's params
     (``models/uni_vit.py``): the same stacked ``(in, out)`` layout, only
     the containers change."""
+    return vis_params_from_numpy(params)
+
+
+# ---------------------------------------------------------------------------
+# ViT
+# ---------------------------------------------------------------------------
+
+def vit_config_from_state_dict(sd) -> ViTConfig:
+    """Infer the architecture from a torch ViT state dict's shapes
+    (``dim_head`` is 64 at every reference call site; the heads follow)."""
+    num_clusters, dim = _np(sd["pos_emb1D"]).shape
+    depth = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("transformer.layers."))
+    inner = tuple(sd["transformer.layers.0.0.to_qkv.weight"].shape)[0] // 3
+    mlp_dim = tuple(sd["transformer.layers.0.1.net.1.weight"].shape)[0]
+    num_outputs = tuple(sd["linear_head.1.weight"].shape)[0]
+    dim_head = 64 if inner % 64 == 0 else inner
+    return ViTConfig(num_outputs=num_outputs, dim=dim, depth=depth, heads=inner // dim_head,
+                     dim_head=dim_head, mlp_dim=mlp_dim, num_clusters=num_clusters)
+
+
+_VIT_BLOCK = (  # (stacked key, torch name within layer i, transposed)
+    ("ln_attn_scale", "0.norm.weight", False), ("ln_attn_bias", "0.norm.bias", False),
+    ("w_qkv", "0.to_qkv.weight", True), ("w_out", "0.to_out.weight", True),
+    ("ln_ff_scale", "1.net.0.weight", False), ("ln_ff_bias", "1.net.0.bias", False),
+    ("w1", "1.net.1.weight", True), ("b1", "1.net.1.bias", False),
+    ("w2", "1.net.3.weight", True), ("b2", "1.net.3.bias", False))
+
+
+def vit_from_torch(sd, cfg: ViTConfig | None = None):
+    """Torch ViT state dict -> (cfg, params) in the stacked layout (f32, on
+    the CPU)."""
+    if cfg is None:
+        cfg = vit_config_from_state_dict(sd)
+
+    def layer(i, name, transposed):
+        w = _np(sd[f"transformer.layers.{i}.{name}"])
+        return w.T if transposed else w
+
+    params = {
+        "pos_emb": _t(sd["pos_emb1D"]),
+        "blocks": {key: _t(np.stack([layer(i, name, tr) for i in range(cfg.depth)]))
+                   for key, name, tr in _VIT_BLOCK},
+        "head_ln_scale": _t(sd["linear_head.0.weight"]),
+        "head_ln_bias": _t(sd["linear_head.0.bias"]),
+        "head_w": _t(_np(sd["linear_head.1.weight"]).T),
+        "head_b": _t(sd["linear_head.1.bias"]),
+    }
+    return cfg, params
+
+
+def vit_to_torch(cfg: ViTConfig, params) -> "OrderedDict[str, np.ndarray]":
+    """The port's ViT params -> torch-named state dict (numpy values), in
+    the reference module's order."""
+    b = {k: _np(v) for k, v in params["blocks"].items()}
+    sd: OrderedDict[str, np.ndarray] = OrderedDict()
+    sd["pos_emb1D"] = _np(params["pos_emb"])
+    for i in range(cfg.depth):
+        for key, name, transposed in _VIT_BLOCK:
+            sd[f"transformer.layers.{i}.{name}"] = b[key][i].T if transposed else b[key][i]
+    sd["linear_head.0.weight"] = _np(params["head_ln_scale"])
+    sd["linear_head.0.bias"] = _np(params["head_ln_bias"])
+    sd["linear_head.1.weight"] = _np(params["head_w"]).T
+    sd["linear_head.1.bias"] = _np(params["head_b"])
+    return sd
+
+
+def vit_params_from_numpy(params):
+    """A JAX ViT parameter tree (numpy leaves) -> the port's params
+    (``models/vit.py``): the same stacked layout, only the containers
+    change."""
     return vis_params_from_numpy(params)
 
 

@@ -1,8 +1,10 @@
 """Checkpoint interchange with the reference's torch formats.
 
-Counterpart of ``sequoia_tpu/train/checkpoint.py:26-178`` (the checkpoint
-readers and writers; train-state resume and Orbax are not ported yet,
-ROADMAP.md).  The contracts:
+Counterpart of ``sequoia_tpu/train/checkpoint.py``: the checkpoint readers
+and writers (``:26-163``) and the train-state resume (``:187-224``).  Not
+ported: the HE2RNA hub layout (ROADMAP.md queue 1 item 5) and Orbax, whose
+torch counterpart is ``torch.distributed.checkpoint`` for sharded states
+(queue 1 item 8).  The contracts:
 
 * ViS/ViT: ``torch.save(model.state_dict(), 'model_best_{split}.pt')``,
   plain name -> tensor dicts.
@@ -139,6 +141,78 @@ def _write_hf_dir(out_dir: str, config: dict, sd) -> None:
         return
     save_file({k: np.ascontiguousarray(v) for k, v in sd.items()},
               os.path.join(out_dir, "model.safetensors"))
+
+
+class _Leaf:
+    """A tensor's place in a train-state skeleton: the index of its npz
+    entry."""
+
+    def __init__(self, i: int):
+        self.i = i
+
+
+def _split_leaves(obj, leaves: list, path: str = ""):
+    """(skeleton, leaves): ``obj`` (nested dicts, lists and tuples) with
+    every tensor or array replaced by a :class:`_Leaf` and appended to
+    ``leaves`` as ``(key path, tensor)``; other values (ints, floats,
+    strings, the optimizer's ``param_groups``) stay in the skeleton."""
+    if isinstance(obj, dict):
+        return {k: _split_leaves(v, leaves, f"{path}/{k}") for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_split_leaves(v, leaves, f"{path}/{i}") for i, v in enumerate(obj))
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        leaves.append((path, torch.as_tensor(obj)))
+        return _Leaf(len(leaves) - 1)
+    return obj
+
+
+def _join_leaves(obj, leaves: list):
+    if isinstance(obj, _Leaf):
+        return leaves[obj.i]
+    if isinstance(obj, dict):
+        return {k: _join_leaves(v, leaves) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_join_leaves(v, leaves) for v in obj)
+    return obj
+
+
+def save_train_state(path: str, params, opt_state, meta: dict) -> None:
+    """Atomic save of a full training state: ``params`` (nested dicts of
+    tensors), ``opt_state`` (an optimizer's ``state_dict()``) and ``meta``
+    (the loop's counters).  Tensors go to npz leaves; the skeletons, each
+    leaf's key path and dtype, and ``meta`` to a pickled blob.  A bf16 leaf
+    (which numpy cannot hold) is stored as its ``uint16`` bits and viewed
+    back on load, so bf16 AdamW moments come back bf16 and bit-equal."""
+    leaves: list = []
+    skel_p = _split_leaves(params, leaves, "params")
+    skel_o = _split_leaves(opt_state, leaves, "opt")
+    payload = {}
+    for i, (_, t) in enumerate(leaves):
+        t = t.detach().cpu()
+        payload[f"l{i}"] = (t.view(torch.int16).numpy().view(np.uint16)
+                            if t.dtype == torch.bfloat16 else t.numpy())
+    blob = {"params": skel_p, "opt": skel_o, "meta": meta,
+            "leaves": [(p, str(t.dtype).removeprefix("torch.")) for p, t in leaves]}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"  # one per writer: concurrent savers on a
+    # shared filesystem must not interleave into one file
+    with open(tmp, "wb") as f:
+        np.savez(f, __blob__=np.frombuffer(pickle.dumps(blob), np.uint8), **payload)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str):
+    """(params, opt_state, meta) saved by :func:`save_train_state`, every
+    tensor on the CPU in its saved dtype."""
+    with np.load(path, allow_pickle=False) as z:
+        blob = pickle.loads(z["__blob__"].tobytes())
+        leaves = []
+        for i, (_, dtype) in enumerate(blob["leaves"]):
+            a = z[f"l{i}"]
+            leaves.append(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                          if dtype == "bfloat16" else torch.from_numpy(a))
+    return (_join_leaves(blob["params"], leaves), _join_leaves(blob["opt"], leaves),
+            blob["meta"])
 
 
 def save_hf_vis_layout(out_dir: str, cfg, params) -> None:

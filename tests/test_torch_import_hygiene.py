@@ -1,8 +1,8 @@
 """The PyTorch port imports nothing of JAX or of the JAX package, builds and
 imports no kernel toolchain at import time, imports none of the packages the
 GPU machine lacks (pandas, h5py, Pillow, safetensors, huggingface_hub,
-openslide) when a module is imported, and its entry points refuse to run on
-the CPU unless asked to."""
+openslide, sklearn) or wandb when a module is imported, and its entry points
+refuse to run on the CPU unless asked to."""
 
 import ast
 import pathlib
@@ -16,12 +16,19 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "sequoia_tpu"}
 # imported inside the function that needs them, never at module level
-LAZY = {"pandas", "h5py", "PIL", "safetensors", "huggingface_hub", "openslide", "triton"}
+LAZY = {"pandas", "h5py", "PIL", "safetensors", "huggingface_hub", "openslide", "triton",
+        "wandb", "sklearn"}
 # the serving slice: checkpoints, the CLI, the HTTP server, the native reader
 SLICE_MODULES = ("sequoia_tpu_torch/train/checkpoint.py", "sequoia_tpu_torch/cli/serve.py",
                  "sequoia_tpu_torch/cli/compute_features.py", "sequoia_tpu_torch/http_serve.py",
                  "sequoia_tpu_torch/native/__init__.py", "sequoia_tpu_torch/utils/profiling.py",
                  "sequoia_tpu_torch/bench_serving.py")
+# the training slice
+TRAIN_MODULES = ("sequoia_tpu_torch/ops/stats.py", "sequoia_tpu_torch/data/splits.py",
+                 "sequoia_tpu_torch/data/dataset.py", "sequoia_tpu_torch/utils/logging.py",
+                 "sequoia_tpu_torch/models/vit.py", "sequoia_tpu_torch/train/loop.py",
+                 "sequoia_tpu_torch/train/cv.py", "sequoia_tpu_torch/cli/main.py",
+                 "sequoia_tpu_torch/cli/pretrain_gtex.py")
 
 
 def _port_files():
@@ -59,7 +66,7 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/ops/cuda_kmeans.py", "sequoia_tpu_torch/ops/masking.py",
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
                  "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
-                 "chip_smoke.py", *SLICE_MODULES):
+                 "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES):
         assert want in names
 
 
@@ -90,7 +97,7 @@ def test_import_loads_no_jax_module():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sequoia_tpu', 'triton', 'pandas', 'h5py', 'PIL', "
-        "'safetensors', 'huggingface_hub', 'openslide'))\n"
+        "'safetensors', 'huggingface_hub', 'openslide', 'wandb', 'sklearn'))\n"
         "from sequoia_tpu_torch import native\n"
         "if native._lib is not None or native._error is not None:\n"
         "    bad.append('native library built at import')\n"
@@ -124,6 +131,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         kmeans.kmeans_cluster_features(np.zeros((8, 4), np.float32), n_clusters=2)
 
+    from sequoia_tpu_torch.train import cv, loop
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.train(lambda p, x: x, {"w": torch.zeros(2)}, loop.make_adamw, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.evaluate(lambda p, x: x, {"w": torch.zeros(2)}, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.predict(lambda p, x: x, {"w": torch.zeros(2)}, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cv.run_cross_validation(None, "features", "out")
+
 
 def test_unported_options_raise():
     from sequoia_tpu_torch.models import resnet, vis
@@ -147,6 +165,17 @@ def test_unported_options_raise():
     for model_type in ("vit", "he2rna"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             SlidePredictor(None, [], model_type=model_type, device="cpu")
+
+    from sequoia_tpu_torch.cli import pretrain_gtex
+    from sequoia_tpu_torch.train import cv, loop
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+        loop.train(lambda p, x: x, {"w": torch.zeros(2)}, loop.make_adamw, {}, mesh=object(),
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+        cv.run_cross_validation(None, "features", "out", mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
+        pretrain_gtex.main(["--path_csv", "x.csv", "--model", "he2rna", "--device", "cpu"])
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
