@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
     python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
     python3 chip_smoke.py --only train_path    # phases 1-2 and 8
+    python3 chip_smoke.py --only aggregators_path   # phases 1-2 and 9
 
 Phases, each printing one JSON line:
 
@@ -117,10 +118,29 @@ Phases, each printing one JSON line:
    ``train_resume``, ``--resume --moment_dtype bfloat16`` run twice (the
    second trains nothing, its moments bf16 and bit-equal to the saved);
    ``train_gtex``, ``cli.pretrain_gtex --quick 1`` then a fine-tune with the
-   head swapped to 1,000 genes; ``train_launches`` (all 0).
+   head swapped to 1,000 genes; ``train_launches`` (all 0);
+9. HE2RNA trained and served, the ViT served, spatial maps and
+   independent-cohort prediction: ``he2rna_parity``, three Adam steps of a
+   small HE2RNA (dropout 0, one k) on the card against the CPU (per leaf,
+   5e-4); ``he2rna_step``, ms per full-width f32 train step (D = 2048, 256 ->
+   256 -> 20,820, 100 tokens, batch 16, Dropout(0.5), k drawn per step)
+   against its bound with its peak memory, a trace by op class (GEMMs, top-k,
+   scatter, Adam, elementwise) and the eval k sweep's ms; ``he2rna_cv``,
+   ``cli.he2rna`` 5-fold CV for 2 epochs with ``--hf_export`` on phase 8's
+   cohort, then ``cli.pretrain_gtex --model he2rna --quick 1`` and a
+   1,000-gene fine-tune; ``serve_models``, five ViT folds (dim and MLP 2048,
+   depth 2) and five HE2RNA folds written as CV directories and served from
+   phase 5's slides as files by ``cli.serve.main --model_type vit|he2rna``
+   (K4, K5; ``--kernels off``; a 50-gene panel) and one HTTP POST each;
+   ``spatial``, phase 5's slide 0 in a TCGA layout through
+   ``cli.visualize`` (stride 1, the 50-gene panel, ViS, HE2RNA and ViT
+   folds; K4 tile features), then every gene's window stage on the device
+   timed and held against the host's float64 means; ``independent``,
+   ``cli.predict_independent`` with the five ViS folds over phase 8's cohort;
+   ``aggregators_launches`` (K4 and K5 must rise).
 
 The last lines are the kernels table (``launches`` sums the counts of the
-kernel runs of phases 4-7, each read from 0), the script's run time, the
+kernel runs of phases 4-7 and 9, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -2122,6 +2142,581 @@ def train_path(torch, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: HE2RNA trained and served, the ViT served, spatial maps, and
+# independent-cohort prediction
+# ---------------------------------------------------------------------------
+
+# HE2RNA at the reference's width: D -> 256 -> 256 -> GENES per tile over K
+# tokens, batch 16, Dropout(0.5); he2rna_parity small (the CPU side stays
+# quick) with dropout 0 and one k, held to train_parity's 5e-4
+HE_LAYERS, HE_PARITY_DIM, HE_PARITY_GENES, HE_PARITY_K = (256, 256), 256, 1000, 10
+# bytes a parameter that the Adam step must move: p, m, v read and written, g read
+ADAM_BYTES = 28
+# the ViT folds served: dim and MLP 2048 (full width), depth cut from 6 to 2
+# (every CLI run loads the five folds from disk)
+SERVE_VIT_DEPTH = 2
+# the spatial phase: the CLI's stride, and the stride of the host float64
+# against device f32 check at every gene (the host's row adds cost seconds)
+SPATIAL_STRIDE, SPATIAL_HOST_STRIDE = 1, 3
+SPATIAL_PROJECT, SPATIAL_WSI, STUDY = "TCGA-SYN", "TCGA-SYN-0001.svs", "syn"
+
+
+def he2rna_op_kind(name: str) -> str:
+    """A device kernel's class in an HE2RNA train-step trace."""
+    low = name.lower()
+    if any(s in low for s in ("topk", "sort", "radix", "bitonic")):
+        return "topk"
+    if "scatter" in low:
+        return "scatter"
+    return op_kind(name)
+
+
+def he2rna_batch(torch, gen, dim: int, genes: int):
+    """One batch of TRAIN_BATCH slides: non-negative tile features (ResNet
+    features are post-ReLU) with 0, 10, 20 or 30 zero-padded tail tiles,
+    targets, and every row valid."""
+    dev = gen.device
+    x = torch.randn((TRAIN_BATCH, K, dim), generator=gen, device=dev).abs()
+    keep = K - (torch.arange(TRAIN_BATCH, device=dev) % 4) * 10
+    x = x * (torch.arange(K, device=dev)[None, :] < keep[:, None])[..., None]
+    y = torch.randn((TRAIN_BATCH, genes), generator=gen, device=dev)
+    return x, y, torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+
+
+def he2rna_parity(torch, dev) -> dict:
+    """Three Adam steps of a small HE2RNA (dropout 0, one k) on the card
+    against the same steps on the CPU: per leaf max |card - cpu| / max |cpu|,
+    raising past PARITY_TOL."""
+    from sequoia_tpu_torch.models import he2rna
+    from sequoia_tpu_torch.train import he2rna_fit, loop
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cfg = he2rna.HE2RNAConfig(input_dim=HE_PARITY_DIM, output_dim=HE_PARITY_GENES,
+                              layers=HE_LAYERS, ks=(HE_PARITY_K,), dropout=0.0)
+    params = he2rna.init(cfg, torch.Generator().manual_seed(340))
+    g = torch.Generator().manual_seed(341)
+    batches = [he2rna_batch(torch, g, HE_PARITY_DIM, HE_PARITY_GENES) for _ in range(3)]
+    runs = {}
+    for name, where in (("host", cpu), ("card", dev)):
+        p = loop.tree_map(lambda t: t.to(where, copy=True).requires_grad_(True), params)
+        step, _ = he2rna_fit.make_he2rna_step_fns(cfg, loop.make_adam(p, TRAIN_LR),
+                                                  k_gen=torch.Generator().manual_seed(0))
+        runs[name] = (p, [float(step(p, *(t.to(where) for t in b))) for b in batches])
+    (card, card_l), (host, host_l) = runs["card"], runs["host"]
+    rel = {}
+    for key in ("w", "b"):
+        for i, (a, b) in enumerate(zip(card[key], host[key])):
+            b = b.detach()
+            rel[f"{key}{i}"] = float((a.detach().cpu() - b).abs().max()
+                                     / b.abs().max().clamp(min=1e-30))
+    worst = max(rel, key=rel.get)
+    l_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(card_l, host_l))
+    if rel[worst] > PARITY_TOL or l_rel > PARITY_TOL:
+        raise AssertionError(f"he2rna_parity: {worst} {rel[worst]:.3g}, loss {l_rel:.3g} "
+                             f"> {PARITY_TOL:g}")
+    moved = float((host["w"][-1].detach() - params["w"][-1]).abs().max())
+    return {"steps": len(batches), "dim": HE_PARITY_DIM, "layers": list(HE_LAYERS),
+            "genes": HE_PARITY_GENES, "tokens": K, "k": HE_PARITY_K, "dropout": 0.0,
+            "optimizer": "torch.optim.Adam foreach", "max_rel_by_leaf": rel,
+            "max_rel": rel[worst], "worst_leaf": worst, "loss_max_rel": l_rel,
+            "head_w_moved": moved, "tol": PARITY_TOL, "card_losses": card_l,
+            "seconds": time.perf_counter() - t0}
+
+
+def he2rna_step(torch, dev) -> dict:
+    """ms per full-width HE2RNA train step (f32, batch 16, 100 tokens,
+    Dropout(0.5), k drawn per step) against its bound, the peak device
+    memory, a torch.profiler trace of three steps by op class, and the eval
+    forward's k sweep."""
+    from sequoia_tpu_torch.models import he2rna
+    from sequoia_tpu_torch.train import he2rna_fit, loop
+
+    t0 = time.perf_counter()
+    cfg = he2rna.HE2RNAConfig(input_dim=D, output_dim=GENES, layers=HE_LAYERS,
+                              ks=he2rna.ks_for_tokens(K))
+    params = he2rna.init(cfg, torch.Generator(device=dev).manual_seed(342))
+    params = loop.tree_map(lambda t: t.requires_grad_(True), params)
+    opt = loop.make_adam(params, TRAIN_LR)
+    step, _ = he2rna_fit.make_he2rna_step_fns(
+        cfg, opt, gen=torch.Generator(device=dev).manual_seed(343),
+        k_gen=torch.Generator().manual_seed(344))
+    x, y, valid = he2rna_batch(torch, torch.Generator(device=dev).manual_seed(345), D, GENES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last = {}
+
+    def run():
+        last["loss"] = step(params, x, y, valid)
+
+    for _ in range(2):
+        run()
+    ms = time_ms(torch, run, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.isfinite(last["loss"])):
+        raise AssertionError(f"he2rna_step: loss {last['loss']}")
+    if peak > 13.0:
+        raise AssertionError(f"he2rna_step: peak memory {peak:.2f} GB (a (B, G, k, T) "
+                             "one-hot would take 13.3 GB)")
+    n_params = sum(t.numel() for t in loop.tree_leaves(params))
+    rows = TRAIN_BATCH * K
+    fwd = 2.0 * rows * (D * HE_LAYERS[0] + HE_LAYERS[0] * HE_LAYERS[1] + HE_LAYERS[1] * GENES)
+    flops = 3 * fwd - 2.0 * rows * D * HE_LAYERS[0]  # no gradient of the input tiles
+    bnd, by = bound_ms(n_params * ADAM_BYTES + nbytes(x, y, valid), flops, "float32")
+    res = {"model": "he2rna", "dtype": "float32", "batch": TRAIN_BATCH, "tokens": K,
+           "dim": D, "layers": list(HE_LAYERS), "genes": GENES, "ks": list(cfg.ks),
+           "dropout": cfg.dropout, "optimizer": type(opt).__name__, "params": n_params,
+           "ms": ms, "steps_timed": TRAIN_STEPS, "gflop_per_step": flops / 1e9,
+           "bound_ms": bnd, "bound_by": by, "bound_share": bnd / ms,
+           "tflops": flops / ms / 1e9, "scores_gb": rows * GENES * 4 / 1e9,
+           "max_memory_allocated_gb": peak, "last_loss": float(last["loss"]),
+           "profile": profile_batch(torch, run, iters=3, kind=he2rna_op_kind)}
+
+    def eval_fwd():
+        with torch.no_grad():
+            last["pred"] = he2rna.apply(cfg, params, x)
+
+    res["eval_forward_ms"] = time_ms(torch, eval_fwd, TRAIN_STEPS)
+    res["eval_forward_bound_ms"] = bound_ms(
+        n_params * 4 + nbytes(x) + TRAIN_BATCH * GENES * 4, fwd, "float32")[0]
+    if not bool(torch.isfinite(last["pred"]).all()):
+        raise AssertionError("he2rna_step: eval forward not finite")
+    res["seconds"] = time.perf_counter() - t0
+    del opt, params, last
+    torch.cuda.empty_cache()
+    return res
+
+
+def he2rna_cv(torch, dev, root: str, feat_root: str) -> dict:
+    """``cli.he2rna`` 5-fold CV for 2 epochs with ``--hf_export`` on the
+    phase 8 cohort, its outputs checked; then ``cli.pretrain_gtex --model
+    he2rna --quick 1`` and a fine-tune through ``cli.he2rna --checkpoint
+    --change_num_genes`` on FT_GENES genes."""
+    import pickle
+    from unittest import mock
+
+    import numpy as np
+    from sequoia_tpu_torch.cli import he2rna as cli_he
+    from sequoia_tpu_torch.cli import pretrain_gtex
+    from sequoia_tpu_torch.train import checkpoint, cv, he2rna_fit
+
+    fits = []
+    real_fit = he2rna_fit.fit
+
+    def timed_fit(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_fit(*a, **kw)
+        torch.cuda.synchronize()
+        fits.append(time.perf_counter() - t0)
+        return out
+
+    common = ["--feature_path", feat_root, "--batch_size", str(TRAIN_BATCH), "--device",
+              dev.type, "--destfolder", os.path.join(root, "he")]
+    real_cv = cv.run_he2rna_cross_validation
+
+    def epochs(n):  # the CLI's fits run n of the reference's 200 epochs
+        return mock.patch.object(cv, "run_he2rna_cross_validation",
+                                 functools.partial(real_cv, max_epochs=n))
+
+    with mock.patch.object(he2rna_fit, "fit", timed_fit), epochs(2):
+        t0 = time.perf_counter()
+        cli_he.main(["--path_csv", os.path.join(root, "ref.csv"), "--k", "5", "--hf_export",
+                     "--exp_name", "cv", *common])
+        torch.cuda.synchronize()
+        cv_s = time.perf_counter() - t0
+    exp = os.path.join(root, "he", "cv")
+    with open(os.path.join(exp, "test_results.pkl"), "rb") as f:
+        res = pickle.load(f)
+    if set(res) != {f"split_{i}" for i in range(5)} | {"genes"} or len(res["genes"]) != GENES:
+        raise AssertionError(f"he2rna_cv: test_results.pkl keys {sorted(res)[:8]}")
+    names = []
+    for i in range(5):
+        s = res[f"split_{i}"]
+        n = len(s["wsi_file_name"])
+        names += list(s["wsi_file_name"])
+        for key in ("real", "preds", "random"):
+            if s[key].shape != (n, GENES) or not np.isfinite(s[key]).all():
+                raise AssertionError(f"he2rna_cv: split_{i} {key} {s[key].shape}")
+        if (s["preds"] < 0).any():
+            raise AssertionError(f"he2rna_cv: split_{i} preds below 0 (no predict-time ReLU)")
+        best = checkpoint.load_torch_checkpoint(os.path.join(exp, f"model_{i}.pt"))
+        hf = checkpoint.load_hf_vis_state_dict(os.path.join(exp, f"hf_fold_{i}"))
+        if best["conv2.weight"].shape != (GENES, HE_LAYERS[1], 1) or sorted(hf) != sorted(
+                best) or not all(np.array_equal(hf[k], best[k]) for k in best):
+            raise AssertionError(f"he2rna_cv: model_{i}.pt and hf_fold_{i} differ")
+    if len(set(names)) != len(names) or len(names) != CV_SLIDES:
+        raise AssertionError(f"he2rna_cv: {len(names)} test rows, {len(set(names))} slides")
+
+    t0 = time.perf_counter()
+    pre = pretrain_gtex.main(["--path_csv", os.path.join(root, "ref.csv"), "--feature_path",
+                              feat_root, "--model", "he2rna", "--quick", "1", "--save_dir",
+                              os.path.join(root, "pre"), "--exp_name", "he", "--batch_size",
+                              str(TRAIN_BATCH), "--device", dev.type])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    sd_pre = checkpoint.load_torch_checkpoint(pre)
+    t0 = time.perf_counter()
+    with epochs(1):
+        out = cli_he.main(["--path_csv", os.path.join(root, "ft.csv"), "--k", "2",
+                           "--checkpoint", pre, "--change_num_genes", "--exp_name", "ft",
+                           *common])
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    sd = checkpoint.load_torch_checkpoint(os.path.join(root, "he", "ft", "model_0.pt"))
+    preds = [out[f"split_{i}"]["preds"] for i in range(2)]
+    if sd_pre["conv2.weight"].shape != (GENES, HE_LAYERS[1], 1) or \
+            sd["conv2.weight"].shape != (FT_GENES, HE_LAYERS[1], 1) or any(
+                p.shape[1] != FT_GENES or not np.isfinite(p).all() for p in preds):
+        raise AssertionError(f"he2rna_cv: fine-tuned head {sd['conv2.weight'].shape}")
+    drift = float(np.abs(sd["conv0.weight"] - sd_pre["conv0.weight"]).max())
+    if drift > 0.05:  # a few Adam steps at lr 1e-3; a fresh draw spans +-1/sqrt(2048)
+        raise AssertionError(f"he2rna_cv: the hidden layers did not carry over ({drift})")
+    return {"folds": 5, "epochs": 2, "seconds": cv_s, "fit_seconds_per_fold": fits[:5],
+            "test_rows": len(names), "hf_folds_equal_model_pt": True, "preds_relu": True,
+            "pretrain_s": pre_s, "pretrain_head": list(sd_pre["conv2.weight"].shape),
+            "finetune_s": ft_s, "finetune_head": list(sd["conv2.weight"].shape),
+            "finetune_preds": [list(p.shape) for p in preds], "conv0_drift_max": drift}
+
+
+def write_fold_dirs(torch, dev, root: str, vis_folds, genes):
+    """The reference's checkpoint layout under ``root`` for cli.visualize
+    (``{model_type}_resnet/{STUDY}/``), also served by cli.serve: the five
+    ViS folds of phase 4 (``model_best_{i}.pt``), five random ViT folds (dim
+    and MLP 2048, depth SERVE_VIT_DEPTH) and five random HE2RNA folds
+    (``model_{i}.pt``), each directory with ``test_results.pkl``.  Returns
+    ({model_type: directory}, seconds)."""
+    import pickle
+
+    from sequoia_tpu_torch.models import convert, he2rna
+    from sequoia_tpu_torch.train import checkpoint, cv
+
+    t0 = time.perf_counter()
+    dirs = {t: os.path.join(root, f"{t}_resnet", STUDY) for t in ("vis", "vit", "he2rna")}
+    hcfg = he2rna.HE2RNAConfig(input_dim=D, output_dim=GENES, layers=HE_LAYERS,
+                               ks=he2rna.ks_for_tokens(K))
+    for i in range(FOLDS):
+        checkpoint.save_torch_state_dict(convert.vis_to_torch(*vis_folds[i]),
+                                         os.path.join(dirs["vis"], f"model_best_{i}.pt"))
+        cfg, params, _, to_torch, _ = cv.build_model(
+            "vit", GENES, D, torch.Generator(device=dev).manual_seed(350 + i),
+            depth=SERVE_VIT_DEPTH, num_clusters=K)
+        checkpoint.save_torch_state_dict(to_torch(cfg, params),
+                                         os.path.join(dirs["vit"], f"model_best_{i}.pt"))
+        hp = he2rna.init(hcfg, torch.Generator(device=dev).manual_seed(360 + i))
+        checkpoint.save_torch_state_dict(convert.he2rna_to_torch(hcfg, hp),
+                                         os.path.join(dirs["he2rna"], f"model_{i}.pt"))
+        del params, hp
+    for d in dirs.values():
+        with open(os.path.join(d, "test_results.pkl"), "wb") as f:
+            pickle.dump({"genes": genes}, f)
+    return dirs, time.perf_counter() - t0
+
+
+def post_once(np, pred, genes, paths, want) -> dict:
+    """One POST of every slide to ``http_serve`` over ``pred`` on a loopback
+    port, the answer held against the CLI's rows (``want``: path -> row)."""
+    import threading
+    import urllib.request
+
+    from sequoia_tpu_torch import http_serve
+
+    svc = http_serve.PredictorService(pred, genes)
+    srv = http_serve.make_server(svc, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/predict" % srv.server_address[1],
+            data=json.dumps({"wsi": paths}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, out = r.status, json.loads(r.read())
+        post_s = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+    if code != 200 or out["failed"] or sorted(out["predictions"]) != sorted(paths):
+        raise AssertionError(f"http: POST gave {code}, failed {out['failed']}")
+    r = min(pearson(np, [out["predictions"][p][g] for g in genes], want[p]) for p in paths)
+    return {"code": code, "slides": len(paths), "seconds": post_s,
+            "pearson_r_min_vs_cli": r_min_check(r, 0.99999)}
+
+
+def serve_models(torch, dev, root: str, dirs: dict, paths: list, genes, launches) -> dict:
+    """``cli.serve.main --model_type vit`` and ``he2rna`` on the slide files
+    with ``build_predictor``'s kernel set (K4, K5; K1 is a ViS kernel), with
+    ``--kernels off`` and with a 50-gene panel, then one HTTP POST per type.
+    Adds the kernel runs' launches to ``launches``."""
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.cli import serve as cli
+
+    panel = genes[::GENES // PANEL][:PANEL]
+    names = [os.path.basename(p) for p in paths]
+    out = {}
+    for t in ("vit", "he2rna"):
+        args = ["--wsi", *paths, "--checkpoints", dirs[t], "--model_type", t, "--weights",
+                "random", "--batch_size", str(FEAT_BATCH), "--num_clusters", str(K),
+                "--patch_size", str(PATCH), "--compute_dtype", "bfloat16", "--device", dev.type]
+        runs = {}
+        for name, extra in (("kernels", []), ("plain", ["--kernels", "off"]),
+                            ("panel", ["--panel", ",".join(panel)])):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = cli.main([*args, *extra, "--out", os.path.join(root, f"{t}_{name}.csv")])
+            torch.cuda.synchronize()
+            if name != "plain":
+                for k, v in _build.LAUNCHES.items():
+                    launches[k] += v
+            header, rows, vals = read_csv(res["out"])
+            want = panel if name == "panel" else genes
+            if header != ["wsi_file_name", *want] or rows != names or \
+                    vals.shape != (len(paths), len(want)) or not np.isfinite(vals).all() or \
+                    (t == "he2rna" and (vals < 0).any()):
+                raise AssertionError(f"serve_models {t}: {name} CSV {vals.shape}, rows {rows}")
+            runs[name] = {"vals": vals, "seconds_per_slide": res["serve_seconds"] / len(paths),
+                          "main_seconds": time.perf_counter() - t0,
+                          "launches": {k: v for k, v in _build.LAUNCHES.items() if v}}
+        full, part = runs["kernels"]["vals"], runs["panel"]["vals"]
+        cols = full[:, [genes.index(g) for g in panel]]
+        panel_rel = float(np.abs(part - cols).max() / np.abs(cols).max())
+        if panel_rel > 1e-5:
+            raise AssertionError(f"serve_models {t}: panel {panel_rel:.3g} from the full head")
+        r_plain = r_min_check(min(pearson(np, full[i], runs["plain"]["vals"][i])
+                                  for i in range(len(paths))), 0.99)
+        models = cli.load_fold_models(dirs[t], t)
+        if t == "vit":
+            models = [(dataclasses.replace(c, compute_dtype="bfloat16"), p) for c, p in models]
+        pred, line = cli.build_predictor("resnet", "random", models, device=dev,
+                                         batch_size=FEAT_BATCH, n_clusters=K, patch_size=PATCH,
+                                         model_type=t)
+        _build.reset_launches()
+        http = post_once(np, pred, genes, paths, {p: full[i] for i, p in enumerate(paths)})
+        torch.cuda.synchronize()
+        for k, v in _build.LAUNCHES.items():
+            launches[k] += v
+        out[t] = {"kernels_line": line, "csv_shape": list(full.shape),
+                  "panel_shape": list(part.shape), "panel_max_rel_diff": panel_rel,
+                  "pearson_r_min_vs_plain": r_plain,
+                  **{f"{k}_seconds_per_slide": v["seconds_per_slide"] for k, v in runs.items()},
+                  "main_seconds": {k: v["main_seconds"] for k, v in runs.items()},
+                  "launches_per_run": {k: v["launches"] for k, v in runs.items()},
+                  "http_post": http}
+        del pred, models
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_maps(torch, dev, root: str, dirs: dict, slide, path: str, genes, launches) -> dict:
+    """Phase 5's slide 0 in the TCGA layout (the slide file, ``mask.npy`` from
+    ``patch_gen.compute_slide_mask``): ``cli.visualize`` at stride 1 on a
+    50-gene panel with the five ViS folds, then the HE2RNA and ViT folds (K4
+    in the bf16 tile features); then the arrays at every gene: tile features
+    with K4 against plain ones, the device window stage timed, and its means
+    against the host's float64 means.  Adds the CLI runs' launches to
+    ``launches``."""
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.cli import serve as cli_serve
+    from sequoia_tpu_torch.cli import visualize as viz
+    from sequoia_tpu_torch.data.wsi import open_slide
+    from sequoia_tpu_torch.pipeline import patch_gen, spatial
+
+    panel = genes[::GENES // PANEL][:PANEL]
+    mask, _ = patch_gen.compute_slide_mask(slide, device=dev)
+    mdir = os.path.join(root, "TCGA", f"{SPATIAL_PROJECT}_Masks", SPATIAL_WSI[:-4])
+    os.makedirs(mdir)
+    np.save(os.path.join(mdir, "mask.npy"), mask)
+    wsi_path = os.path.join(root, "TCGA", SPATIAL_PROJECT, SPATIAL_WSI)
+    os.makedirs(os.path.dirname(wsi_path))
+    os.link(path, wsi_path)  # the slide file of serve_models, under the layout's name
+    res = {"cli": {}}
+    args = ["--study", STUDY, "--project", SPATIAL_PROJECT, "--wsi_file_name", SPATIAL_WSI,
+            "--feat_type", "resnet", "--folds", ",".join(str(i) for i in range(FOLDS)),
+            "--stride", str(SPATIAL_STRIDE), "--patch_size", str(PATCH), "--weights", "random",
+            "--batch_size", str(FEAT_BATCH), "--compute_dtype", "bfloat16",
+            "--gene_names", ",".join(panel), "--device", dev.type]
+    cols = [c for g in panel for c in [f"{g}_{i}" for i in range(FOLDS)] + [g]]
+    with contextlib.chdir(root):
+        for t in ("vis", "he2rna", "vit"):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            frame = viz.main([*args, "--model_type", t, "--save_folder", f"maps_{t}"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for k, v in _build.LAUNCHES.items():
+                launches[k] += v
+            csv_path = os.path.join("visualizations", SPATIAL_PROJECT, f"maps_{t}", SPATIAL_WSI,
+                                    f"stride-{SPATIAL_STRIDE}.csv")
+            missing = [c for c in ["xcoord", "ycoord", "xcoord_tf", "ycoord_tf", *cols]
+                       if c not in frame.columns]
+            if missing:
+                raise AssertionError(f"spatial {t}: CSV columns missing {missing[:4]}")
+            vals = frame[cols].to_numpy(float)
+            covered = ~np.isnan(vals[:, -1])
+            if not os.path.exists(csv_path) or covered.sum() == 0 or \
+                    not np.isfinite(vals[covered]).all():
+                raise AssertionError(f"spatial {t}: {int(covered.sum())} tiles covered")
+            for g in panel[:3]:
+                folds_mean = frame[[f"{g}_{i}" for i in range(FOLDS)]].mean(axis=1).to_numpy()
+                if np.nanmax(np.abs(folds_mean - frame[g].to_numpy())) > 1e-6:
+                    raise AssertionError(f"spatial {t}: column {g} is not the fold mean")
+            res["cli"][t] = {"seconds": secs, "tiles": len(frame),
+                             "tiles_covered": int(covered.sum()), "columns": len(frame.columns),
+                             "launches": {k: v for k, v in _build.LAUNCHES.items() if v}}
+
+    slide_file = open_slide(wsi_path)
+    df = spatial.build_valid_tiles(mask, slide_file.dimensions, PATCH)
+    kw = dict(device=dev, batch_size=FEAT_BATCH, compute_dtype="bfloat16")
+    fast = cli_serve.build_extractor("resnet", "random", ["bottleneck_chain"], **kw)
+    plain = cli_serve.build_extractor("resnet", "random", [], **kw)
+    feats, timed = {}, {}
+    for name, ext in (("kernels", fast), ("plain", plain)):
+        t0 = time.perf_counter()
+        feats[name] = spatial.featurize_tiles(slide_file, df, PATCH, ext, resize_to=PATCH)
+        torch.cuda.synchronize()
+        timed[name] = time.perf_counter() - t0
+    feat_rel = float(np.abs(feats["kernels"] - feats["plain"]).max()
+                     / np.abs(feats["plain"]).max())
+    if feat_rel > 0.05 or not np.isfinite(feats["kernels"]).all():
+        raise AssertionError(f"spatial: K4 tile features {feat_rel:.3g} from plain (> 0.05)")
+    del fast, plain
+    fold_models, ntok = viz.load_fold_predictors(dirs["vis"], list(range(FOLDS)), "vis", dev)
+    windows = spatial.collect_windows(df, stride=SPATIAL_STRIDE)
+    tile_feats, every, n = feats["kernels"], list(range(GENES)), len(df)
+    spatial.sliding_window_predict_arrays(tile_feats, df, fold_models, every[:8], stride=16,
+                                          accumulate="device", num_tokens=ntok)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, sums, counts = spatial.sliding_window_predict_arrays(
+        tile_feats, df, fold_models, every, stride=SPATIAL_STRIDE, accumulate="device",
+        num_tokens=ntok, _device_sums=True)
+    torch.cuda.synchronize()
+    windows_s = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(v).all()) for v in sums.values()):
+        raise AssertionError("spatial: device window sums not finite")
+    del sums
+    # the forward alone over the same window batches
+    table = torch.cat([torch.as_tensor(tile_feats).to(dev),
+                       torch.zeros((1, tile_feats.shape[1]), device=dev)])
+    t0 = time.perf_counter()
+    for s in range(0, len(windows), 64):
+        gidx = np.full((64, ntok), n, np.int64)
+        for i, sel in enumerate(windows[s:s + 64]):
+            gidx[i, :min(len(sel), ntok)] = sel[:ntok]
+        fold_models.raw_fwd(table[torch.from_numpy(gidx).to(dev)])
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    del table
+    torch.cuda.empty_cache()
+    checked = {}
+    for acc in ("host", "device"):
+        t0 = time.perf_counter()
+        checked[acc] = spatial.sliding_window_predict_arrays(
+            tile_feats, df, fold_models, every, stride=SPATIAL_HOST_STRIDE, accumulate=acc,
+            num_tokens=ntok)
+        torch.cuda.synchronize()
+        checked[acc + "_s"] = time.perf_counter() - t0
+    (hk, hm, hseen), (dk, dm, dseen) = checked["host"], checked["device"]
+    if hk != dk or not (hseen == dseen).all():
+        raise AssertionError("spatial: the host and device window stages cover other tiles")
+    worst = 0.0
+    for f in hk:
+        a, b = dm[f][hseen], hm[f][hseen]
+        np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
+        worst = max(worst, float(np.abs(a - b).max()))
+    res.update(tiles=n, windows=len(windows), stride=SPATIAL_STRIDE, tokens=ntok, genes=GENES,
+               folds=FOLDS, tiles_covered=int((counts > 0).sum()),
+               featurize_s=timed["kernels"], featurize_plain_s=timed["plain"],
+               features_max_rel_diff_vs_plain=feat_rel, windows_s=windows_s,
+               window_forward_s=forward_s, accumulate_s=windows_s - forward_s,
+               host_vs_device={"stride": SPATIAL_HOST_STRIDE, "windows": len(
+                   spatial.collect_windows(df, stride=SPATIAL_HOST_STRIDE)),
+                   "host_s": checked["host_s"], "device_s": checked["device_s"],
+                   "max_abs_diff": worst, "rtol": 2e-5, "atol": 2e-6})
+    return res
+
+
+def independent(torch, dev, root: str, feat_root: str, vis_dir: str) -> dict:
+    """``cli.predict_independent`` with the five ViS folds as a local
+    ``{fold}`` template over the phase 8 cohort: ``pred`` and ``random``
+    frames of (CV_SLIDES, GENES), finite."""
+    import numpy as np
+    from sequoia_tpu_torch.cli import predict_independent as cli_pi
+
+    t0 = time.perf_counter()
+    out = cli_pi.main(["--ref_file", os.path.join(root, "ref.csv"), "--feature_path",
+                       feat_root, "--checkpoint_template",
+                       os.path.join(vis_dir, "model_best_{fold}.pt"), "--folds", str(FOLDS),
+                       "--save_dir", root, "--exp_name", "indep", "--device", dev.type])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for key in ("pred", "random"):
+        v = out[key].to_numpy()
+        if v.shape != (CV_SLIDES, GENES) or not np.isfinite(v).all():
+            raise AssertionError(f"independent: {key} {v.shape}")
+    if not os.path.exists(os.path.join(root, "indep", "test_results.pkl")):
+        raise AssertionError("independent: test_results.pkl not written")
+    return {"seconds": secs, "pred_shape": list(out["pred"].shape),
+            "random_shape": list(out["random"].shape), "finite": True,
+            "pred_random_max_abs_diff": float(np.abs(out["pred"].to_numpy()
+                                                     - out["random"].to_numpy()).max())}
+
+
+def aggregators_path(torch, dev) -> dict:
+    """Phase 9; returns the kernels' launch counts of its kernel runs (the
+    serve CLI and its HTTP POST with ``build_predictor``'s set, and
+    cli.visualize's tile features), each read from 0."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from sequoia_tpu_torch import _build, native
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in _build.LAUNCHES}
+    emit({"phase": "he2rna_parity", **he2rna_parity(torch, dev)})
+    torch.cuda.empty_cache()
+    emit({"phase": "he2rna_step", **he2rna_step(torch, dev)})
+    genes = [f"GENE{i:05d}" for i in range(GENES)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_agg_")
+    try:
+        t0 = time.perf_counter()
+        feat_root, store, source = write_cohort(np, tmp)
+        cohort = {"slides": CV_SLIDES, "features_from": source,
+                  "write_s": time.perf_counter() - t0}
+        with feature_store(store):
+            emit({"phase": "he2rna_cv", "cohort": cohort,
+                  **he2rna_cv(torch, dev, tmp, feat_root)})
+        _, vis_folds = models(torch, dev)  # phase 4's folds, from the same seeds
+        dirs, write_s = write_fold_dirs(torch, dev, tmp, vis_folds, genes)
+        del vis_folds
+        torch.cuda.empty_cache()
+        slides = [make_slide(torch, dev, s) for s in (1, 2)]  # phase 5's slides
+        writer = "native" if native.available() else "pillow"
+        paths = [os.path.join(tmp, f"slide{i}.tiff") for i in range(len(slides))]
+        for slide, path in zip(slides, paths):
+            write_slide_file(slide, path, writer)
+        emit({"phase": "serve_models", "fold_write_seconds": write_s, "slide_files_by": writer,
+              **serve_models(torch, dev, tmp, dirs, paths, genes, launches)})
+        torch.cuda.empty_cache()
+        emit({"phase": "spatial", **spatial_maps(torch, dev, tmp, dirs, slides[0], paths[0],
+                                                  genes, launches)})
+        del slides
+        torch.cuda.empty_cache()
+        with feature_store(store):
+            emit({"phase": "independent",
+                  **independent(torch, dev, tmp, feat_root, dirs["vis"])})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_launched(launches, ("bottleneck_chain", "lloyd_stats"), "aggregators path")
+    emit({"phase": "aggregators_launches", **launches,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -2144,8 +2739,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
-                    "for these alone) and/or uni_path (phase 7), train_path (phase 8); "
-                    "prints no result line")
+                    "for these alone) and/or uni_path (phase 7), train_path (phase 8), "
+                    "aggregators_path (phase 9); prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -2175,7 +2770,8 @@ def main() -> int:
               ("bottleneck_chain_cp", functools.partial(check_chain, kname="bottleneck_chain_cp")),
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
-    known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path"]
+    known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
+                                      "aggregators_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -2202,6 +2798,8 @@ def main() -> int:
             emit({"phase": "uni_launches", **uni_path(torch, dev, [None, None])})
         if "train_path" in only:
             train_path(torch, dev)
+        if "aggregators_path" in only:
+            aggregators_path(torch, dev)
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
@@ -2224,7 +2822,9 @@ def main() -> int:
     trained = train_path(torch, dev)
     if any(trained.values()):
         raise AssertionError(f"the training path launched a TPU kernel's port: {trained}")
-    launches = {k: main[k] + wsi[k] + served[k] + uni[k] for k in results}
+    torch.cuda.empty_cache()
+    agg = aggregators_path(torch, dev)
+    launches = {k: main[k] + wsi[k] + served[k] + uni[k] + agg[k] for k in results}
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],

@@ -1,10 +1,10 @@
-"""GTEx pretraining of the ViS or ViT: the train-only phase.
+"""GTEx pretraining of the ViS, ViT or HE2RNA: the train-only phase.
 
 Counterpart of ``sequoia_tpu/cli/pretrain_gtex.py`` (reference
-``src/pretrain_gtex.py``): AdamW at lr 3e-3, a date-stamped experiment name,
-``--quick`` (20 slides, 5 epochs); writes ``{save_dir}/{date}_{exp_name}/
-model_best.pt``.  It runs on CUDA unless ``--device cpu`` is given.
-``--model he2rna`` is not ported yet (ROADMAP.md queue 1 item 5).
+``src/pretrain_gtex.py``): AdamW at lr 3e-3 for vis/vit, Adam at lr 3e-3 for
+he2rna, a date-stamped experiment name, ``--quick`` (20 slides, 5 epochs);
+writes ``{save_dir}/{date}_{exp_name}/model_best.pt`` (``model.pt`` for
+he2rna).  It runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from sequoia_tpu_torch.data import dataset as ds
-from sequoia_tpu_torch.train import checkpoint, cv, loop
+from sequoia_tpu_torch.models import convert, he2rna
+from sequoia_tpu_torch.train import checkpoint, cv, he2rna_fit, loop
 from sequoia_tpu_torch.utils.device import resolve_device
 from sequoia_tpu_torch.utils.logging import make_log_fn
 
@@ -43,11 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> str:
-    """Returns the path of the written ``model_best.pt``."""
+    """Returns the path of the written ``model_best.pt`` (``model.pt``)."""
     args = build_parser().parse_args(argv)
-    if args.model == "he2rna":
-        raise NotImplementedError("pretrain_gtex --model he2rna is not ported yet "
-                                  "(ROADMAP.md queue 1 item 5)")
     import pandas as pd
 
     dev = resolve_device(None if args.device == "cuda" else args.device)
@@ -68,16 +66,32 @@ def main(argv=None) -> str:
     dataset = ds.FeatureDataset(df, args.feature_path)
     loader = ds.BatchLoader(dataset, args.batch_size, shuffle=True, seed=args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    cfg, params, apply_fn, to_torch, from_torch = cv.build_model(
-        args.model, dataset.num_genes, dataset.feature_dim, gen,
-        num_clusters=getattr(dataset, "num_tokens", None) or 100)
-    if args.checkpoint:
-        cfg, params = from_torch(checkpoint.load_torch_checkpoint(args.checkpoint), cfg)
-    save_path = os.path.join(save_dir, "model_best.pt")
-    loop.train(apply_fn, params, functools.partial(loop.make_adamw, lr=3e-3),
-               {"train": loader}, num_epochs=args.num_epochs, phases=("train",),
-               log_fn=log_fn, device=dev,
-               save_fn=lambda p: checkpoint.save_torch_state_dict(to_torch(cfg, p), save_path))
+    if args.model in ("vis", "vit"):
+        cfg, params, apply_fn, to_torch, from_torch = cv.build_model(
+            args.model, dataset.num_genes, dataset.feature_dim, gen,
+            num_clusters=getattr(dataset, "num_tokens", None) or 100)
+        if args.checkpoint:
+            cfg, params = from_torch(checkpoint.load_torch_checkpoint(args.checkpoint), cfg)
+        save_path = os.path.join(save_dir, "model_best.pt")
+        loop.train(apply_fn, params, functools.partial(loop.make_adamw, lr=3e-3),
+                   {"train": loader}, num_epochs=args.num_epochs, phases=("train",),
+                   log_fn=log_fn, device=dev,
+                   save_fn=lambda p: checkpoint.save_torch_state_dict(to_torch(cfg, p),
+                                                                      save_path))
+    else:
+        cfg = he2rna.HE2RNAConfig(
+            input_dim=dataset.feature_dim, output_dim=dataset.num_genes, layers=(256, 256),
+            ks=he2rna.ks_for_tokens(getattr(dataset, "num_tokens", None)))
+        params = he2rna.init(cfg, gen)
+        if args.checkpoint:
+            # the architecture from the state dict, as train/cv.py's he2rna branch
+            cfg, params = convert.he2rna_from_torch(
+                checkpoint.load_torch_checkpoint(args.checkpoint))
+        save_path = os.path.join(save_dir, "model.pt")
+        he2rna_fit.fit(cfg, params, 3e-3, loader, None, None, max_epochs=args.num_epochs,
+                       seed=args.seed, log_fn=log_fn, device=dev,
+                       save_fn=lambda p: checkpoint.save_torch_state_dict(
+                           convert.he2rna_to_torch(cfg, p), save_path))
     finish()
     print("Finished pre-training")
     return save_path

@@ -2,34 +2,35 @@
 HTTP server.
 
 Counterpart of ``sequoia_tpu/cli/serve.py``: tiling, feature extraction,
-k-means and the fold-ensembled ViS forward in one process, the decode thread
-overlapping the device (``SlidePredictor.predict_slides``).
+k-means and the fold-ensembled aggregator (``--model_type vis|vit|he2rna``)
+in one process, the decode thread overlapping the device
+(``SlidePredictor.predict_slides``).
 
     python -m sequoia_tpu_torch.cli.serve \\
         --wsi slide1.svs slide2.svs --checkpoints saved_exp/brca/exp_vis \\
         --weights resnet50.pth --panel TP53,EGFR --out predictions.csv
     python -m sequoia_tpu_torch.cli.serve --http 8000 --checkpoints DIR --weights random
 
-``--checkpoints`` takes a CV output directory (``model_best_{i}.pt`` and
-``test_results.pkl``, folds found by name), a single ``.pt``, or a local
-HF-layout directory (``config.json`` and ``model.safetensors`` or
-``pytorch_model.bin``).  It runs on CUDA unless ``--device cpu`` is given,
+``--checkpoints`` takes a CV output directory (``model_best_{i}.pt``, or
+HE2RNA's ``model_{i}.pt``, and ``test_results.pkl``, folds found by name), a
+single ``.pt``, or a local HF-layout directory (``config.json`` and
+``model.safetensors`` or ``pytorch_model.bin``; ViS folds only, as in JAX).  It runs on CUDA unless ``--device cpu`` is given,
 and raises without CUDA.
 
 Where the port differs from the JAX CLI:
 
 * on CUDA it serves with the kernel set of :func:`build_predictor` (K4 in
   every ResNet stage, with ``--feat_type resnet``; K5 for k-means; K1 for
-  the ViS folds where ``cuda_vis.kernel_takes`` accepts their config, which
-  UNI's 1024-d folds do not) and prints one stderr line naming it;
-  ``--kernels off`` or ``--device cpu`` serves with the plain PyTorch
-  versions;
-* ``--compute_dtype`` also sets the folds' compute dtype (the JAX CLI
-  serves them in f32 whatever the flag; ``--compute_dtype float32`` gives
-  its numerics);
-* flags the port does not serve yet (``--data_parallel``, ``--multihost``,
-  ``--model_type vit|he2rna``) stop at parse time, naming their ROADMAP.md
-  item; the JAX compile-cache flag is gone;
+  ViS folds where ``cuda_vis.kernel_takes`` accepts their config, which
+  UNI's 1024-d folds do not, and never for ViT or HE2RNA folds) and prints
+  one stderr line naming it and why K1 was left out; ``--kernels off`` or
+  ``--device cpu`` serves with the plain PyTorch versions;
+* ``--compute_dtype`` also sets the ViS and ViT folds' compute dtype (the
+  JAX CLI serves them in f32 whatever the flag; ``--compute_dtype float32``
+  gives its numerics); HE2RNA folds run in f32;
+* flags the port does not serve yet (``--data_parallel``, ``--multihost``)
+  stop at parse time, naming their ROADMAP.md item; the JAX compile-cache
+  flag is gone;
 * no pandas: the gene lists and the CSV go through the ``csv`` module.
 """
 
@@ -48,7 +49,7 @@ import numpy as np
 
 from sequoia_tpu_torch.cli import NotPorted
 from sequoia_tpu_torch.cli.compute_features import load_extractor
-from sequoia_tpu_torch.models import convert, vis
+from sequoia_tpu_torch.models import convert, he2rna, vis, vit
 from sequoia_tpu_torch.ops import cuda_vis
 from sequoia_tpu_torch.ops.nn import compute_dtype as to_dtype
 from sequoia_tpu_torch.serve import SlidePredictor
@@ -60,21 +61,39 @@ from sequoia_tpu_torch.utils.device import resolve_device
 #: every Lloyd step, K1 for the ViS folds' blocks
 SERVING_KERNELS = ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused")
 
-def load_fold_models(path: str, model_type: str = "vis") -> list[tuple[vis.ViSConfig, dict]]:
+#: each aggregator's state-dict converter and panel slicer
+_FROM_TORCH = {"vis": convert.vis_from_torch, "vit": convert.vit_from_torch,
+               "he2rna": convert.he2rna_from_torch}
+_SLICERS = {"vis": vis.slice_head, "vit": vit.slice_head, "he2rna": he2rna.slice_head}
+
+
+def load_fold_models(path: str, model_type: str = "vis") -> list[tuple[object, dict]]:
     """CV directory / single ``.pt`` / HF-layout directory -> ``[(cfg,
-    params), ...]`` (f32, on the CPU).  Only ``model_type="vis"`` is ported."""
-    if model_type != "vis":
-        raise NotImplementedError(f"model_type {model_type!r} is not ported yet (ROADMAP.md "
-                                  "queue 1 item 5)")
+    params), ...]`` (f32, on the CPU).  A ViS or ViT CV directory holds
+    ``model_best_{i}.pt``, an HE2RNA one ``model_{i}.pt`` (the reference's
+    whole-module saves); the HF layout is ViS-only."""
+    from_torch = _FROM_TORCH[model_type]
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "config.json")):  # HF layout
+            if model_type != "vis":
+                raise SystemExit(f"HF-layout loading is vis-only (got {model_type})")
             return [convert.vis_from_torch(checkpoint.load_hf_vis_state_dict(path))]
         pts = (sorted(glob.glob(os.path.join(path, "model_best*.pt")))
                or sorted(glob.glob(os.path.join(path, "model_*.pt"))))
         if not pts:
             raise SystemExit(f"no model_best*.pt / model_*.pt under {path}")
-        return [convert.vis_from_torch(checkpoint.load_torch_checkpoint(p)) for p in pts]
-    return [convert.vis_from_torch(checkpoint.load_torch_checkpoint(path))]
+        return [from_torch(checkpoint.load_torch_checkpoint(p)) for p in pts]
+    return [from_torch(checkpoint.load_torch_checkpoint(path))]
+
+
+def n_outputs(cfg) -> int:
+    """A fold config's head width (HE2RNA names it ``output_dim``)."""
+    return getattr(cfg, "num_outputs", None) or cfg.output_dim
+
+
+def input_width(cfg) -> int:
+    """The feature width a fold config takes (the ViT names it ``dim``)."""
+    return getattr(cfg, "input_dim", None) or cfg.dim
 
 
 def read_gene_list_file(path: str) -> list[str]:
@@ -123,11 +142,12 @@ def resolve_panel(arg: str, genes: list[str]) -> tuple[list[int], list[str]]:
     return [pos[g] for g in wanted], wanted
 
 
-def serving_kernels(device, models, kernels=SERVING_KERNELS) -> tuple[list[str], str]:
+def serving_kernels(device, models, kernels=SERVING_KERNELS,
+                    model_type: str = "vis") -> tuple[list[str], str]:
     """The kernel set to serve ``models`` with: the named kernels (a subset
-    of :data:`SERVING_KERNELS`) on a CUDA device, K1 only where
-    ``cuda_vis.kernel_takes`` accepts every fold's config; none on another
-    device.  Returns ``(kernels, why K1 was left out or "")``."""
+    of :data:`SERVING_KERNELS`) on a CUDA device, K1 only for ViS folds and
+    where ``cuda_vis.kernel_takes`` accepts every fold's config; none on
+    another device.  Returns ``(kernels, why K1 was left out or "")``."""
     unknown = set(kernels) - set(SERVING_KERNELS)
     if unknown:
         raise ValueError(f"kernels: {sorted(unknown)} are not serving kernels "
@@ -135,6 +155,9 @@ def serving_kernels(device, models, kernels=SERVING_KERNELS) -> tuple[list[str],
     if resolve_device(device).type != "cuda":
         return [], ""
     on = [k for k in SERVING_KERNELS if k in kernels]
+    if "vis_blocks_fused" in on and model_type != "vis":
+        on.remove("vis_blocks_fused")
+        return on, f"{model_type} folds have no ViS blocks"
     if "vis_blocks_fused" in on:
         for cfg, _ in models:
             takes, why = cuda_vis.kernel_takes(cfg, to_dtype(cfg.compute_dtype))
@@ -144,22 +167,33 @@ def serving_kernels(device, models, kernels=SERVING_KERNELS) -> tuple[list[str],
     return on, ""
 
 
+def build_extractor(feat_type: str, weights: str, on: list[str], *, device,
+                    batch_size: int, compute_dtype: str):
+    """The backbone of :func:`build_predictor`: K4 in every ResNet stage where
+    ``bottleneck_chain`` is in ``on`` (removed from ``on`` for UNI)."""
+    if feat_type != "resnet" and "bottleneck_chain" in on:
+        on.remove("bottleneck_chain")
+    return load_extractor(feat_type, weights, batch_size, compute_dtype, device=device,
+                          fused_stages=(1, 2, 3, 4) if "bottleneck_chain" in on else ())
+
+
 def build_predictor(feat_type: str, weights: str, models, *, device=None,
                     kernels=SERVING_KERNELS, batch_size: int = 128,
                     compute_dtype: str = "bfloat16", n_clusters: int = 100,
-                    max_patches: int = 4000, patch_size: int = 256):
+                    max_patches: int = 4000, patch_size: int = 256,
+                    model_type: str = "vis"):
     """The serving predictor with the kernel set of :func:`serving_kernels`,
-    less the ResNet kernel K4 for ``feat_type="uni"``.  Returns
-    ``(SlidePredictor, line)``, the line naming the kernels it serves with
-    and, where K1 is left out, why.  No kernel failure is caught."""
+    less the ResNet kernel K4 for ``feat_type="uni"`` and K1 for ViT and
+    HE2RNA folds.  Returns ``(SlidePredictor, line)``, the line naming the
+    kernels it serves with and, where K1 is left out, why.  No kernel
+    failure is caught."""
     dev = resolve_device(device)
-    on, why = serving_kernels(dev, models, kernels)
-    if feat_type != "resnet" and "bottleneck_chain" in on:
-        on.remove("bottleneck_chain")
-    extractor = load_extractor(feat_type, weights, batch_size, compute_dtype, device=dev,
-                               fused_stages=(1, 2, 3, 4) if "bottleneck_chain" in on else ())
-    pred = SlidePredictor(extractor, models, n_clusters=n_clusters, max_patches=max_patches,
-                          patch_size=patch_size, use_pallas_kmeans="lloyd_stats" in on,
+    on, why = serving_kernels(dev, models, kernels, model_type)
+    extractor = build_extractor(feat_type, weights, on, device=dev, batch_size=batch_size,
+                                compute_dtype=compute_dtype)
+    pred = SlidePredictor(extractor, models, model_type=model_type, n_clusters=n_clusters,
+                          max_patches=max_patches, patch_size=patch_size,
+                          use_pallas_kmeans="lloyd_stats" in on,
                           use_fused_vis="vis_blocks_fused" in on, device=dev)
     line = (f"serve: {dev.type}, kernels: " + (", ".join(on) or "none (plain PyTorch)")
             + (f"; vis_blocks_fused left out: {why}" if why else ""))
@@ -183,7 +217,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feat_type", default="resnet", choices=["resnet", "uni"],
                    help="backbone: ResNet-50 (2048-d) or UNI ViT-L/16 (1024-d)")
     p.add_argument("--model_type", default="vis", choices=["vis", "vit", "he2rna"],
-                   action=NotPorted, refused={"vit", "he2rna"}, item="queue 1 item 5",
                    help="aggregator family of the checkpoints")
     p.add_argument("--weights", type=str, required=True,
                    help='backbone weights (.pt/.bin) or "random"')
@@ -232,28 +265,32 @@ def main(argv=None) -> dict | None:
                          "takes slides via POST /predict)")
     device = resolve_device(None if args.device == "cuda" else args.device)
     models = load_fold_models(args.checkpoints, args.model_type)
-    genes = load_gene_names(args.gene_names, args.checkpoints, models[0][0].num_outputs)
-    if len(genes) != models[0][0].num_outputs:
-        raise SystemExit(f"{len(genes)} gene names vs model head {models[0][0].num_outputs}")
+    width = n_outputs(models[0][0])
+    genes = load_gene_names(args.gene_names, args.checkpoints, width)
+    if len(genes) != width:
+        raise SystemExit(f"{len(genes)} gene names vs model head {width}")
     if args.panel:
         idx, genes = resolve_panel(args.panel, genes)
-        models = [vis.slice_head(cfg, params, idx) for cfg, params in models]
+        slicer = _SLICERS[args.model_type]
+        models = [slicer(cfg, params, idx) for cfg, params in models]
     cfg0 = models[0][0]
-    if cfg0.num_clusters != args.num_clusters:
+    # HE2RNA has no position embedding: any token count serves
+    if getattr(cfg0, "num_clusters", args.num_clusters) != args.num_clusters:
         raise SystemExit(f"--num_clusters {args.num_clusters} != checkpoint num_clusters "
                          f"{cfg0.num_clusters} (inferred from pos_emb)")
-    fold_dtype = None if args.compute_dtype == "float32" else args.compute_dtype
-    models = [(dataclasses.replace(cfg, compute_dtype=fold_dtype), p) for cfg, p in models]
+    if args.model_type != "he2rna":
+        fold_dtype = None if args.compute_dtype == "float32" else args.compute_dtype
+        models = [(dataclasses.replace(cfg, compute_dtype=fold_dtype), p) for cfg, p in models]
 
     pred, line = build_predictor(
         args.feat_type, args.weights, models, device=device,
         kernels=SERVING_KERNELS if args.kernels == "on" else (), batch_size=args.batch_size,
         compute_dtype=args.compute_dtype, n_clusters=args.num_clusters,
-        max_patches=args.max_patches, patch_size=args.patch_size)
-    if cfg0.input_dim != pred.extractor.feature_dim:
+        max_patches=args.max_patches, patch_size=args.patch_size, model_type=args.model_type)
+    if input_width(cfg0) != pred.extractor.feature_dim:
         raise SystemExit(f"--feat_type {args.feat_type} produces "
                          f"{pred.extractor.feature_dim}-d features but the checkpoint "
-                         f"expects input_dim {cfg0.input_dim}")
+                         f"expects input_dim {input_width(cfg0)}")
     print(line, file=sys.stderr)
 
     if args.http:

@@ -1,16 +1,20 @@
 """Weight conversion: reference torch state dicts <-> the port's parameter
 dicts, and carry-over of the JAX package's parameter trees.
 
-Counterpart of ``sequoia_tpu/models/convert.py`` (the ViS and ViT parts).
+Counterpart of ``sequoia_tpu/models/convert.py`` (the ViS, ViT and HE2RNA
+parts).
 The port keeps the JAX package's stacked layouts, so a released fold
 (``gevaertlab/sequoia-{cancer}-{fold}``, torch names
 ``transformer.layers.{i}.0.mixers.{h}.{f,s,c,...}``) loads directly with
 :func:`vis_from_torch` and writes back with :func:`vis_to_torch`; a reference
 ViT (``transformer.layers.{i}.0.{norm,to_qkv,to_out}``) goes through
-:func:`vit_from_torch` and :func:`vit_to_torch`.
+:func:`vit_from_torch` and :func:`vit_to_torch`; an HE2RNA
+(``conv{i}.weight`` Conv1d kernels ``(out, in, 1)``) through
+:func:`he2rna_from_torch` and :func:`he2rna_to_torch`.
 
 :func:`vis_params_from_numpy`, :func:`vit_params_from_numpy`,
-:func:`resnet_params_from_numpy` and :func:`uni_params_from_numpy` turn the
+:func:`he2rna_params_from_numpy`, :func:`resnet_params_from_numpy` and
+:func:`uni_params_from_numpy` turn the
 JAX package's parameter trees, given as numpy arrays (``jax.device_get`` or
 ``np.asarray`` of each leaf), into the port's, so one set of weights can run
 through both implementations.
@@ -23,6 +27,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from sequoia_tpu_torch.models.he2rna import HE2RNAConfig
 from sequoia_tpu_torch.models.vis import ViSConfig
 from sequoia_tpu_torch.models.vit import ViTConfig
 
@@ -229,6 +234,52 @@ def vit_params_from_numpy(params):
     (``models/vit.py``): the same stacked layout, only the containers
     change."""
     return vis_params_from_numpy(params)
+
+
+# ---------------------------------------------------------------------------
+# HE2RNA
+# ---------------------------------------------------------------------------
+
+def he2rna_config_from_state_dict(sd, ks=HE2RNAConfig.ks) -> HE2RNAConfig:
+    """Infer the architecture from a torch HE2RNA state dict; a whole-module
+    pickle's ``__ks__`` (kept by ``checkpoint.load_torch_checkpoint``) gives
+    the trained k sweep, which the model must be evaluated with."""
+    n = 0
+    while f"conv{n}.weight" in sd:
+        n += 1
+    if "__ks__" in sd:
+        ks = tuple(int(k) for k in np.asarray(sd["__ks__"]).tolist())
+    dims = [tuple(sd["conv0.weight"].shape)[1]]
+    dims += [tuple(sd[f"conv{i}.weight"].shape)[0] for i in range(n)]
+    return HE2RNAConfig(input_dim=dims[0], output_dim=dims[-1], layers=tuple(dims[1:-1]),
+                        ks=tuple(ks))
+
+
+def he2rna_from_torch(sd, cfg: HE2RNAConfig | None = None):
+    """Torch HE2RNA state dict -> (cfg, params): ``{"w": [(in, out)],
+    "b": [(out,)]}``, f32 on the CPU."""
+    if cfg is None:
+        cfg = he2rna_config_from_state_dict(sd)
+    ws, bs = [], []
+    for i in range(len(cfg.layers) + 1):
+        ws.append(_t(_np(sd[f"conv{i}.weight"])[:, :, 0].T))  # Conv1d (out, in, 1)
+        bs.append(_t(sd[f"conv{i}.bias"]))
+    return cfg, {"w": ws, "b": bs}
+
+
+def he2rna_to_torch(cfg: HE2RNAConfig, params) -> "OrderedDict[str, np.ndarray]":
+    """The port's HE2RNA params -> torch-named state dict (numpy values)."""
+    sd: OrderedDict[str, np.ndarray] = OrderedDict()
+    for i, (w, b) in enumerate(zip(params["w"], params["b"])):
+        sd[f"conv{i}.weight"] = _np(w).T[:, :, None]
+        sd[f"conv{i}.bias"] = _np(b)
+    return sd
+
+
+def he2rna_params_from_numpy(params):
+    """A JAX HE2RNA parameter tree (numpy leaves) -> the port's params: the
+    same ``{"w": [...], "b": [...]}`` layout."""
+    return {"w": [_t(w) for w in params["w"]], "b": [_t(b) for b in params["b"]]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,13 @@
 """Slide serving, from a whole-slide image or patches to a gene panel.
 
-Counterpart of ``sequoia_tpu/serve.py`` (``SlidePredictor`` for
-``model_type="vis"``):
+Counterpart of ``sequoia_tpu/serve.py`` (``SlidePredictor`` for every
+``model_type``: the ViS, the ViT and HE2RNA folds):
 
-    predict_wsi(path)             tissue screen -> features -> k-means -> ViS
+    predict_wsi(path)             tissue screen -> features -> k-means -> folds
     predict_slides(paths)         the same over a cohort, pipelined
-    predict_patches(u8)           features -> k-means -> ViS fold ensemble
-    predict_features(feats)       k-means -> ViS fold ensemble
-    predict_cluster_features(cf)  ViS fold ensemble only
+    predict_patches(u8)           features -> k-means -> fold ensemble
+    predict_features(feats)       k-means -> fold ensemble
+    predict_cluster_features(cf)  fold ensemble only
 
 ``predict_wsi`` streams a slide: the slide-level tissue mask and the shuffled
 candidate grid (``pipeline/patch_gen.py``) are computed first, then a daemon
@@ -27,11 +27,14 @@ i+1's decode before slide i's tail and quarantines a failing slide through
 they give the same pixels as ``'rgb'`` there.
 
 The fold ensemble is the mean over folds of each fold's prediction (the
-reference's 5-fold averaging).  Each fold runs the plain ``vis.apply``, or
-with ``use_fused_vis`` its blocks run through the K1 kernel
-(``ops/cuda_vis.vis_apply_fused``, B = 1 per slide; off by default, as JAX
-serves through ``vis.apply``); a fold config outside the kernel's packed
-layout (``cuda_vis.kernel_takes``) raises at construction.  ``use_pallas_kmeans`` (the JAX
+reference's 5-fold averaging).  Each fold runs its model's ``apply``: HE2RNA
+with the reference's predict-time ReLU before the mean (``he2rna.py:175-190``)
+and its k sweep clamped to ``n_clusters`` (a line on stderr; an error where
+every k exceeds it).  With ``use_fused_vis`` the ViS folds' blocks run
+through the K1 kernel (``ops/cuda_vis.vis_apply_fused``, B = 1 per slide; off
+by default, as JAX serves through ``vis.apply``); a fold config outside the
+kernel's packed layout (``cuda_vis.kernel_takes``), or a ViT or HE2RNA fold,
+raises at construction.  ``use_pallas_kmeans`` (the JAX
 name) runs every Lloyd step through the K5 kernel; the extractor's
 ``cfg`` picks the ResNet kernels (``fused_stages`` for K4).  Slides with
 fewer patches than clusters get their empty clusters zero-filled.
@@ -39,6 +42,7 @@ fewer patches than clusters get their empty clusters zero-filled.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import sys
 import threading
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from sequoia_tpu_torch.data.wsi import open_slide, read_regions
-from sequoia_tpu_torch.models import vis
+from sequoia_tpu_torch.models import he2rna, vis, vit
 from sequoia_tpu_torch.ops import cuda_vis
 from sequoia_tpu_torch.ops import kmeans as km
 from sequoia_tpu_torch.ops import masking
@@ -57,6 +61,37 @@ from sequoia_tpu_torch.pipeline.features import FeatureExtractor
 from sequoia_tpu_torch.utils.device import resolve_device, tree_to
 
 
+def _aggregator_apply(model_type: str, cfg):
+    """``(params, (B, N, D) cluster features) -> (B, G)`` for one fold;
+    HE2RNA with the reference's predict-time ReLU."""
+    if model_type == "vis":
+        return lambda p, x: vis.apply(cfg, p, x)
+    if model_type == "vit":
+        return lambda p, x: vit.apply(cfg, p, x)
+    if model_type == "he2rna":
+        return lambda p, x: torch.relu(he2rna.apply(cfg, p, x))
+    raise ValueError(f"unknown model_type {model_type!r}")
+
+
+def _clamp_ks(vis_models, n_clusters: int):
+    """HE2RNA folds with their k sweep limited to ``n_clusters`` tokens (a
+    converted state dict carries the training-time ks, which can exceed a
+    smaller serving ``n_clusters``); an empty sweep raises, since the eval
+    forward would then predict 0 for every gene."""
+    clamped = []
+    for cfg, params in vis_models:
+        ks = tuple(k for k in cfg.ks if k <= n_clusters)
+        if not ks:
+            raise ValueError(f"he2rna ks {tuple(cfg.ks)} all exceed n_clusters={n_clusters}; "
+                             "nothing to average")
+        if ks != tuple(cfg.ks):
+            print(f"he2rna: clamping ks {tuple(cfg.ks)} -> {ks} (n_clusters={n_clusters})",
+                  file=sys.stderr)
+            cfg = dataclasses.replace(cfg, ks=ks)
+        clamped.append((cfg, params))
+    return clamped
+
+
 class SlidePredictor:
     def __init__(self, extractor: FeatureExtractor,
                  vis_models: list[tuple[vis.ViSConfig, dict]], *,
@@ -64,10 +99,16 @@ class SlidePredictor:
                  patch_size: int = 256, kmeans_seed: int = 0,
                  use_pallas_kmeans: bool = False, use_fused_vis: bool = False,
                  device=None):
-        if model_type != "vis":
-            raise NotImplementedError(f"model_type {model_type!r} is not ported yet "
-                                      "(ROADMAP.md)")
+        """``vis_models``: ``(cfg, params)`` per fold of ``model_type``
+        (``"vis"``, ``"vit"`` or ``"he2rna"``)."""
+        if model_type not in ("vis", "vit", "he2rna"):
+            raise ValueError(f"unknown model_type {model_type!r}")
+        if use_fused_vis and model_type != "vis":
+            raise ValueError(f"use_fused_vis runs the ViS blocks through the K1 kernel; "
+                             f"model_type {model_type!r} has none")
         self.device = resolve_device(device)
+        if model_type == "he2rna":
+            vis_models = _clamp_ks(vis_models, n_clusters)
         if use_fused_vis:  # before any tensor moves: a refusal costs nothing
             for cfg, _ in vis_models:
                 takes, why = cuda_vis.kernel_takes(cfg, compute_dtype(cfg.compute_dtype))
@@ -85,6 +126,7 @@ class SlidePredictor:
         self.kmeans_seed = kmeans_seed
         self.use_pallas = use_pallas_kmeans
         self.vis_models = [(cfg, tree_to(params, self.device)) for cfg, params in vis_models]
+        self._applies = [_aggregator_apply(model_type, cfg) for cfg, _ in self.vis_models]
         self._packed = None
         if use_fused_vis:
             self._packed = [cuda_vis.pack_vis_blocks(cfg, params,
@@ -210,7 +252,7 @@ class SlidePredictor:
         preds = []
         for i, (cfg, params) in enumerate(self.vis_models):
             if self._packed is None:
-                preds.append(vis.apply(cfg, params, cf))
+                preds.append(self._applies[i](params, cf))
             else:
                 preds.append(torch.cat([
                     cuda_vis.vis_apply_fused(cfg, params, self._packed[i], cf[b:b + 1])
@@ -355,7 +397,7 @@ class SlidePredictor:
 
     def predict_wsi(self, wsi_path) -> np.ndarray:
         """Streaming slide inference: decode on a producer thread, screen and
-        featurise on the device, then k-means and the ViS ensemble."""
+        featurise on the device, then k-means and the fold ensemble."""
         return self._consume_retrying(wsi_path, self._start_producer(wsi_path))
 
     def _consume_retrying(self, wsi_path, producer) -> np.ndarray:

@@ -1,10 +1,10 @@
 """Checkpoint interchange with the reference's torch formats.
 
 Counterpart of ``sequoia_tpu/train/checkpoint.py``: the checkpoint readers
-and writers (``:26-163``) and the train-state resume (``:187-224``).  Not
-ported: the HE2RNA hub layout (ROADMAP.md queue 1 item 5) and Orbax, whose
-torch counterpart is ``torch.distributed.checkpoint`` for sharded states
-(queue 1 item 8).  The contracts:
+and writers (``:26-163``), the ViS and HE2RNA hub layouts (``:141-178``) and
+the train-state resume (``:187-224``).  Not ported: Orbax, whose torch
+counterpart is ``torch.distributed.checkpoint`` for sharded states
+(ROADMAP.md queue 1 item 8).  The contracts:
 
 * ViS/ViT: ``torch.save(model.state_dict(), 'model_best_{split}.pt')``,
   plain name -> tensor dicts.
@@ -231,3 +231,19 @@ def save_hf_vis_layout(out_dir: str, cfg, params) -> None:
         "dimensions_c": cfg.dim_c,
         "num_clusters": cfg.num_clusters,
     }, convert.vis_to_torch(cfg, params))
+
+
+def save_hf_he2rna_layout(out_dir: str, cfg, params) -> None:
+    """An HE2RNA directory in the hub layout (the reference's HE2RNA mixes in
+    ``PyTorchModelHubMixin`` too, ``he2rna.py:42``).  ``nonlin`` and
+    ``bias_init`` are left out: the defaults rebuild them and the trained
+    bias already carries any init."""
+    from sequoia_tpu_torch.models import convert
+
+    _write_hf_dir(out_dir, {
+        "input_dim": cfg.input_dim,
+        "output_dim": cfg.output_dim,
+        "layers": list(cfg.layers),
+        "ks": list(cfg.ks),
+        "dropout": cfg.dropout,
+    }, convert.he2rna_to_torch(cfg, params))

@@ -1,12 +1,12 @@
 """5-fold patient cross-validation of the ViS and the ViT (reference
-``src/main.py``).
+``src/main.py``) and of HE2RNA (the reference ``src/he2rna.py`` __main__).
 
-Counterpart of ``sequoia_tpu/train/cv.py:25-201``; HE2RNA's CV is not ported
-yet (ROADMAP.md queue 1 item 5).  Output contract, the reference's:
-``test_results.pkl`` = ``{'split_{i}': {'real', 'preds', 'random',
-'wsi_file_name', 'tcga_project'}, 'genes': [...]}`` (pickle HIGHEST
-protocol), ``model_best_{i}.pt`` torch state dicts, ``{train,val,test}_{i}.npy``
-patient ids and, with ``hf_export``, ``hf_fold_{i}/`` hub directories.
+Counterpart of ``sequoia_tpu/train/cv.py``.  Output contract, the
+reference's: ``test_results.pkl`` = ``{'split_{i}': {'real', 'preds',
+'random', 'wsi_file_name', 'tcga_project'}, 'genes': [...]}`` (pickle HIGHEST
+protocol); for the ViS and the ViT ``model_best_{i}.pt`` torch state dicts and
+``{train,val,test}_{i}.npy`` patient ids, for HE2RNA ``model_{i}.pt``; and,
+with ``hf_export``, ``hf_fold_{i}/`` hub directories.
 
 Initial weights come from one ``torch.Generator`` seeded with ``seed`` (the
 fold's model, its new head where one is swapped in, then its random null
@@ -25,8 +25,8 @@ import torch
 
 from sequoia_tpu_torch.data import dataset as ds
 from sequoia_tpu_torch.data import splits as sp
-from sequoia_tpu_torch.models import convert, vis, vit
-from sequoia_tpu_torch.train import checkpoint, loop
+from sequoia_tpu_torch.models import convert, he2rna, vis, vit
+from sequoia_tpu_torch.train import checkpoint, he2rna_fit, loop
 from sequoia_tpu_torch.utils.device import resolve_device, tree_to
 
 _MODELS = {"vis": vis, "vit": vit}
@@ -95,8 +95,9 @@ def run_cross_validation(
     if mesh is not None:
         raise loop._not_ported("run_cross_validation(mesh=...)")
     if hf_export and model_type != "vis":
-        raise ValueError("hf_export supports model_type='vis' (the reference's ViT has no "
-                         "hub mixin)")
+        raise ValueError("hf_export supports model_type='vis' here (the reference's ViT has "
+                         "no hub mixin); HE2RNA exports via "
+                         "run_he2rna_cross_validation(hf_export=True)")
     dev = resolve_device(device)
     os.makedirs(save_dir, exist_ok=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -174,6 +175,80 @@ def run_cross_validation(
 
         test_results_splits[f"split_{i}"] = {
             "real": real, "preds": preds, "random": random_preds,
+            "wsi_file_name": wsis, "tcga_project": projs,
+        }
+
+    test_results_splits["genes"] = ds.gene_names(df)
+    with open(os.path.join(save_dir, "test_results.pkl"), "wb") as f:
+        pickle.dump(test_results_splits, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return test_results_splits
+
+
+def run_he2rna_cross_validation(
+        df, feature_path: str, save_dir: str, *, k: int = 5, batch_size: int = 16,
+        lr: float = 1e-3, max_epochs: int = 200, seed: int = 99,
+        checkpoint_path: str | None = None, change_num_genes: bool = False,
+        num_genes: int | None = None, log_fn=None, verbose: bool = True,
+        hf_export: bool = False, device=None) -> dict:
+    """The reference ``src/he2rna.py`` __main__ CV on ``device`` (cuda unless
+    asked otherwise): per fold, the random null (the untrained or loaded
+    model's predictions) before the fit, then ``he2rna_fit.fit`` writing
+    ``model_{i}.pt``, the test fold's predictions of its best model, and with
+    ``hf_export`` the saved model as ``hf_fold_{i}/``.
+
+    ``checkpoint_path``: one ``.pt`` whose architecture (and ``__ks__``) the
+    fold models take; ``change_num_genes`` then swaps its head for one of
+    this cohort's width.  Without a checkpoint, ``change_num_genes`` with
+    ``num_genes`` builds the head at ``num_genes`` and swaps it, as the
+    reference does."""
+    dev = resolve_device(device)
+    os.makedirs(save_dir, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    df = df.copy()  # one block per dtype, as in run_cross_validation
+
+    train_idxs, val_idxs, test_idxs = sp.patient_kfold(df["patient_id"].to_numpy(), n_splits=k)
+
+    test_results_splits: dict = {}
+    for i, (train_idx, val_idx, test_idx) in enumerate(zip(train_idxs, val_idxs, test_idxs)):
+        train_ds = ds.FeatureDataset(df.iloc[train_idx], feature_path)
+        val_ds = ds.FeatureDataset(df.iloc[val_idx], feature_path)
+        test_ds = ds.FeatureDataset(df.iloc[test_idx], feature_path)
+
+        out_dim = num_genes if change_num_genes and num_genes else train_ds.num_genes
+        cfg = he2rna.HE2RNAConfig(
+            input_dim=train_ds.feature_dim, output_dim=out_dim, layers=(256, 256),
+            ks=he2rna.ks_for_tokens(getattr(train_ds, "num_tokens", None)))
+        params = he2rna.init(cfg, gen)
+        if checkpoint_path:
+            # the architecture (and a pickled module's ks) from the state dict
+            cfg, params = convert.he2rna_from_torch(
+                checkpoint.load_torch_checkpoint(checkpoint_path))
+            params = tree_to(params, dev)
+        if change_num_genes:
+            cfg, params = he2rna.replace_head(cfg, params, train_ds.num_genes, gen)
+
+        test_loader = ds.BatchLoader(test_ds, batch_size, shuffle=False)
+        # the random null before the fit (reference he2rna.py:411)
+        preds_random, _, _, _ = he2rna_fit.he2rna_predict(cfg, params, test_loader, device=dev)
+
+        save_path = os.path.join(save_dir, f"model_{i}.pt")
+        preds, labels, wsis, projs = he2rna_fit.fit(
+            cfg, params, lr, ds.BatchLoader(train_ds, batch_size, shuffle=True, seed=seed),
+            ds.BatchLoader(val_ds, batch_size, shuffle=False), test_loader,
+            max_epochs=max_epochs, patience=100, seed=seed, log_fn=log_fn, verbose=verbose,
+            device=dev,
+            save_fn=lambda p, c=cfg, path=save_path: checkpoint.save_torch_state_dict(
+                convert.he2rna_to_torch(c, p), path))
+        del params
+        if hf_export:
+            if not os.path.exists(save_path):
+                raise FileNotFoundError(f"hf_export: {save_path} missing — fit() saved no "
+                                        "model; refusing to publish untrained init weights")
+            _, best = convert.he2rna_from_torch(checkpoint.load_torch_checkpoint(save_path))
+            checkpoint.save_hf_he2rna_layout(os.path.join(save_dir, f"hf_fold_{i}"), cfg, best)
+
+        test_results_splits[f"split_{i}"] = {
+            "real": labels, "preds": preds, "random": preds_random,
             "wsi_file_name": wsis, "tcga_project": projs,
         }
 

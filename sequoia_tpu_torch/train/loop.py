@@ -91,6 +91,18 @@ def make_adamw(params, lr: float = 1e-3, weight_decay: float = 0.0,
                        moment_dtype=dt)
 
 
+def make_adam(params, lr: float = 1e-3) -> torch.optim.Optimizer:
+    """Adam, not AdamW, over ``params`` (a parameter tree or a list of
+    tensors): betas (0.9, 0.999), eps 1e-8 and ``weight_decay=0`` passed
+    explicitly, foreach on every device (the reference HE2RNA ``fit``;
+    JAX ``make_adam`` is ``optax.adam`` with the same constants)."""
+    leaves = tree_leaves(params) if isinstance(params, dict) else list(params or ())
+    if not leaves:
+        raise ValueError("make_adam needs the parameters it updates; got none")
+    return torch.optim.Adam(leaves, lr=lr, betas=BETAS, eps=EPS, weight_decay=0,
+                            amsgrad=False, foreach=True)
+
+
 def _dtype(name) -> torch.dtype:
     if name is None:
         return torch.float32

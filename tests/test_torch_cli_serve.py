@@ -133,8 +133,8 @@ def test_load_fold_models_layouts(files):
         assert torch.equal(pt[0][1][k], hf[0][1][k])
         assert torch.equal(pt[1][1][k], one[0][1][k])
     assert pt[0][0] == hf[0][0] and pt[0][0].num_clusters == K
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.load_fold_models(str(files / "exp"), model_type="vit")
+    with pytest.raises(SystemExit, match="vis-only"):
+        tcli.load_fold_models(str(files / "hf"), model_type="vit")
     with pytest.raises(SystemExit, match="model_best"):
         tcli.load_fold_models(str(files))
 
@@ -211,13 +211,22 @@ def test_cli_profile_writes_trace(files, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--data_parallel"], ["--multihost"],
-                                  ["--feat_type", "uni", "--model_type", "vit"],
-                                  ["--model_type", "vit"], ["--model_type", "he2rna"]])
+                                  ["--feat_type", "uni", "--model_type", "vit",
+                                   "--data_parallel"],
+                                  ["--model_type", "vit", "--multihost"],
+                                  ["--model_type", "he2rna", "--data_parallel"]])
 def test_unported_flags_stop_at_parse_time(flag, capsys):
+    """The multi-GPU flags stop at parse time with every model type (the
+    ViT and HE2RNA model types themselves are served)."""
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["--checkpoints", "x", "--weights", "random", *flag])
     err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md queue 1 item" in err
+    assert "not ported yet" in err and "ROADMAP.md queue 1 item 8" in err
+    served = [f for f in flag if f not in ("--data_parallel", "--multihost")]
+    args = tcli.build_parser().parse_args(["--checkpoints", "x", "--weights", "random",
+                                           *served])
+    assert args.model_type == (served[served.index("--model_type") + 1]
+                               if "--model_type" in served else "vis")
 
 
 def test_cli_needs_cuda_unless_asked_for_cpu(files, monkeypatch):

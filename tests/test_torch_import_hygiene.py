@@ -23,6 +23,15 @@ SLICE_MODULES = ("sequoia_tpu_torch/train/checkpoint.py", "sequoia_tpu_torch/cli
                  "sequoia_tpu_torch/cli/compute_features.py", "sequoia_tpu_torch/http_serve.py",
                  "sequoia_tpu_torch/native/__init__.py", "sequoia_tpu_torch/utils/profiling.py",
                  "sequoia_tpu_torch/bench_serving.py")
+# the aggregators slice: HE2RNA trained and served, spatial maps,
+# independent-cohort prediction
+AGGREGATOR_MODULES = ("sequoia_tpu_torch/models/he2rna.py",
+                      "sequoia_tpu_torch/train/he2rna_fit.py",
+                      "sequoia_tpu_torch/cli/he2rna.py", "sequoia_tpu_torch/pipeline/spatial.py",
+                      "sequoia_tpu_torch/cli/visualize.py",
+                      "sequoia_tpu_torch/evaluation/__init__.py",
+                      "sequoia_tpu_torch/evaluation/predict_independent.py",
+                      "sequoia_tpu_torch/cli/predict_independent.py")
 # the training slice
 TRAIN_MODULES = ("sequoia_tpu_torch/ops/stats.py", "sequoia_tpu_torch/data/splits.py",
                  "sequoia_tpu_torch/data/dataset.py", "sequoia_tpu_torch/utils/logging.py",
@@ -66,7 +75,7 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/ops/cuda_kmeans.py", "sequoia_tpu_torch/ops/masking.py",
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
                  "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
-                 "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES):
+                 "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES, *AGGREGATOR_MODULES):
         assert want in names
 
 
@@ -142,6 +151,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         cv.run_cross_validation(None, "features", "out")
 
+    from sequoia_tpu_torch.evaluation import predict_independent as pi
+    from sequoia_tpu_torch.models import he2rna
+    from sequoia_tpu_torch.train import he2rna_fit
+
+    hcfg = he2rna.HE2RNAConfig(input_dim=4, output_dim=2, layers=(3,), ks=(1,))
+    hp = {"w": [torch.zeros(4, 3), torch.zeros(3, 2)], "b": [torch.zeros(3), torch.zeros(2)]}
+    for call in (lambda: he2rna_fit.fit(hcfg, hp, 1e-3, [], None, None),
+                 lambda: he2rna_fit.he2rna_evaluate(hcfg, hp, []),
+                 lambda: he2rna_fit.he2rna_predict(hcfg, hp, []),
+                 lambda: cv.run_he2rna_cross_validation(None, "features", "out"),
+                 lambda: pi.ensemble_predict(cfg, [], []),
+                 lambda: pi.predict_independent(None, "features", "out",
+                                                checkpoint_template="x{fold}")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
 
 def test_unported_options_raise():
     from sequoia_tpu_torch.models import resnet, vis
@@ -162,11 +187,12 @@ def test_unported_options_raise():
                         dim_s=32, dim_c=32, num_clusters=4)
     with pytest.raises(ValueError, match="backbone"):
         make_slide_program(params, cfg, {}, backbone="vit", device="cpu")
-    for model_type in ("vit", "he2rna"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SlidePredictor(None, [], model_type=model_type, device="cpu")
+    for model_type in ("vit", "he2rna"):  # served since the aggregators slice
+        assert SlidePredictor(None, [], model_type=model_type, device="cpu").model_type \
+            == model_type
 
-    from sequoia_tpu_torch.cli import pretrain_gtex
+    from sequoia_tpu_torch.cli import pretrain_gtex, visualize
+    from sequoia_tpu_torch.pipeline import spatial
     from sequoia_tpu_torch.train import cv, loop
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
@@ -174,8 +200,22 @@ def test_unported_options_raise():
                    device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
         cv.run_cross_validation(None, "features", "out", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        pretrain_gtex.main(["--path_csv", "x.csv", "--model", "he2rna", "--device", "cpu"])
+    assert pretrain_gtex.build_parser().parse_args(
+        ["--path_csv", "x.csv", "--model", "he2rna"]).model == "he2rna"
+    import pandas as pd
+
+    df = pd.DataFrame({"xcoord_tf": np.arange(3), "ycoord_tf": np.zeros(3, int)})
+    for call in (lambda: spatial.sliding_window_predict_arrays(
+                     np.zeros((3, 4), np.float32), df, {}, [0], mesh=object()),
+                 lambda: spatial.make_vis_stacked_predict_fn(cfg, {}, mesh=object()),
+                 lambda: spatial.run_visualize(None, None, [], {}, None, mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+            call()
+    with pytest.raises(SystemExit):
+        visualize.build_parser().parse_args(
+            ["--study", "s", "--project", "p", "--wsi_file_name", "w", "--save_folder", "f",
+             "--model_type", "vis", "--feat_type", "resnet", "--weights", "random",
+             "--data_parallel"])
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
