@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
     python3 chip_smoke.py --only train_path    # phases 1-2 and 8
     python3 chip_smoke.py --only aggregators_path   # phases 1-2 and 9
+    python3 chip_smoke.py --only stages_path   # phases 1-2 and 10
 
 Phases, each printing one JSON line:
 
@@ -137,10 +138,38 @@ Phases, each printing one JSON line:
    folds; K4 tile features), then every gene's window stage on the device
    timed and held against the host's float64 means; ``independent``,
    ``cli.predict_independent`` with the five ViS folds over phase 8's cohort;
-   ``aggregators_launches`` (K4 and K5 must rise).
+   ``aggregators_launches`` (K4 and K5 must rise);
+10. the offline stages and evaluation, through their CLIs (``stages_*``
+   lines, each saying whether its HDF5 stores were real files or, where
+   h5py does not import, :class:`MemoryH5`, a dict-backed stand-in put in
+   ``sys.modules["h5py"]`` for the length of the phase and never inside the
+   package): ``stages_patch_gen``, phase 5's two slides as files tiled by
+   ``cli.patch_gen`` in the tiles and the packed layout (patches and seconds
+   per slide; the layouts hold equal patches, each slide as many as phase
+   5's ``predict_wsi`` kept); ``stages_features``, a third slide of 4,200
+   seeded patches in the packed layout so that the cap of 4,000 binds, then
+   ``cli.compute_features --weights random`` over the three in f32 and bf16,
+   with K4 and with ``--kernels off`` (seconds per slide, slides/hour and ms
+   per extractor batch of 256 from its StageTimer; K4's features within
+   1e-4 of the plain ones' max in f32 and 5% in bf16); ``stages_kmeans``,
+   ``cli.kmean_features`` with the hybrid backend with K5 and with
+   ``--kernels off``, and the device backend with K5, each on its own copy
+   (K5's final assignment against the float64 argmin to the same centers,
+   its means against the float64 means of its labels, and its centers a
+   fixed point: the float64 means of its final labels within the Lloyd
+   tolerance; its inertia within 1e-3 of, and its labels and steps against,
+   a float64 Lloyd fit from the same hybrid seeding; a second run writes
+   nothing);
+   ``stages_evaluate``, ``cli.evaluate_model`` over phase 8's five-fold
+   ``test_results.pkl`` (under ``--only stages_path``, a 1-epoch
+   ``cli.main`` CV on phase 8's cohort): 20,820 rows and the reference's
+   columns; ``stages_launches`` (K4 and K5 must rise).  ``cli.get_emd`` and
+   ``cli.gbm_analysis`` are host code that needs ``cv2`` and matplotlib; the
+   phase does not run them (the CPU tests hold them against the JAX
+   package).
 
 The last lines are the kernels table (``launches`` sums the counts of the
-kernel runs of phases 4-7 and 9, each read from 0), the script's run time, the
+kernel runs of phases 4-7, 9 and 10, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -2105,9 +2134,10 @@ def train_gtex(torch, dev, root: str, feat_root: str) -> dict:
             "pos_emb_drift_max": drift}
 
 
-def train_path(torch, dev) -> dict:
+def train_path(torch, dev, keep: dict | None = None) -> dict:
     """Phase 8; returns the kernels' launch counts over it (none of K1-K5 is
-    on the training path)."""
+    on the training path).  ``keep`` (a dict) receives the bytes of the CV's
+    ``test_results.pkl`` under "test_results" (phase 10 evaluates them)."""
     import shutil
     import tempfile
 
@@ -2131,6 +2161,9 @@ def train_path(torch, dev) -> dict:
                   "write_s": time.perf_counter() - t0}
         with feature_store(store):
             emit({"phase": "train_cv", "cohort": cohort, **train_cv(torch, dev, tmp, feat_root)})
+            if keep is not None:
+                with open(os.path.join(tmp, "exp", "TCGA", "cv", "test_results.pkl"), "rb") as f:
+                    keep["test_results"] = f.read()
             shutil.rmtree(os.path.join(tmp, "exp"))
             emit({"phase": "train_resume", **train_resume(torch, dev, tmp, feat_root)})
             shutil.rmtree(os.path.join(tmp, "exp"))
@@ -2717,6 +2750,537 @@ def aggregators_path(torch, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the offline stages (tiling, features, k-means) and evaluation
+# ---------------------------------------------------------------------------
+
+# the features stage's third slide: STAGE_PATCHES seeded 256-px patches in the
+# packed layout, so that compute_features' default cap (STAGE_CAP) binds; its
+# extractor batch (the CLI's default)
+STAGE_PATCHES, STAGE_CAP, STAGE_BATCH = 4200, 4000, 256
+# K4's stage features against the plain ones, relative to max |plain|, by
+# compute dtype: f32 sits between K4's f32 reading (1.0e-6) and what a
+# TF32 or bf16 product would give; bf16 is PERF.md's 5% agreement rule
+STAGE_FEAT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# K5's k-means on the stage's features against float64.  Random-weight
+# features of noise and of one texture are near-ties, where one f32 rounding
+# can send a Lloyd fit down another path than f64's from the same seeding
+# (PERF.md), so the fits' labels and inertia are reported, and the checks
+# hold what the kernel computes: K5's final assignment equals the f64 argmin
+# to the same centers except where the two f64 distances are within
+# STAGE_TIE_GAP (relative) of each other; the written means are the f64
+# means of the fit's labels within STAGE_MEANS_TOL of max |mean|; the fit
+# is a fixed point: its centers (K5's sums over counts) are the f64 means
+# of its final labels within the Lloyd tolerance (sum of squared shifts at
+# most tol * mean variance, the loop's own stop rule); and its inertia is
+# at most 1 + STAGE_INERTIA_TOL of the f64 fit's
+STAGE_TIE_GAP, STAGE_MEANS_TOL, STAGE_INERTIA_TOL = 1e-5, 1e-5, 1e-3
+# all_genes.csv's columns after the gene index (evaluation/evaluate_model.py)
+EVAL_COLUMNS = ("pred_real_r", "random_real_r", "pearson_p", "Steiger_p", "rmse_pred",
+                "rmse_random", "rmse_quantile_norm", "rmse_mean_norm", "fdr_pearson_p",
+                "fdr_Steiger_p", "cancer")
+
+
+class MemoryH5:
+    """A dict-backed stand-in for the part of h5py the stage modules call,
+    for a machine where h5py does not import: ``File(path, mode)`` with modes
+    ``r`` / ``w`` / ``r+`` (a missing file raises OSError; ``w`` truncates and
+    leaves an empty file on disk, so that path checks hold), ``keys()`` in
+    h5py's order (names sorted byte-wise), ``in``, ``create_dataset`` with
+    ``data`` / ``shape`` / ``maxshape`` / ``chunks`` / ``dtype`` (an existing
+    name raises), and datasets with ``shape``, ``dtype``, ``resize``, slicing,
+    assignment and fancy indexing that, as in h5py, must increase.
+    ``files`` maps each absolute path to its {name: array}."""
+
+    def __init__(self):
+        self.files: dict[str, dict] = {}
+
+    def File(self, path, mode: str = "r"):  # noqa: N802 (h5py's name)
+        return _MemoryFile(self, os.path.abspath(path), mode)
+
+    def copy_tree(self, src: str, dst: str) -> None:
+        """Copy the stores under ``src`` to the same places under ``dst``."""
+        src, dst = os.path.abspath(src), os.path.abspath(dst)
+        for path, data in list(self.files.items()):
+            if path.startswith(src + os.sep):
+                self.files[dst + path[len(src):]] = {
+                    k: {**v, "data": v["data"].copy()} for k, v in data.items()}
+
+
+class _MemoryFile:
+    def __init__(self, h5: MemoryH5, path: str, mode: str):
+        if mode == "w":
+            with open(path, "wb"):  # raises where h5py would: no such directory
+                pass
+            h5.files[path] = {}
+        elif mode not in ("r", "r+"):
+            raise ValueError(f"MemoryH5: mode {mode!r} is not covered")
+        elif path not in h5.files:
+            raise FileNotFoundError(f"Unable to open file {path} (no such HDF5 store)")
+        self._data, self._writable = h5.files[path], mode != "r"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self) -> None:
+        pass
+
+    def keys(self) -> list:
+        return sorted(self._data, key=lambda name: name.encode())
+
+    def __contains__(self, name) -> bool:
+        return name in self._data
+
+    def __getitem__(self, name):
+        if name not in self._data:
+            raise KeyError(f"Unable to open object (object '{name}' doesn't exist)")
+        return _MemoryDataset(self._data[name])
+
+    def create_dataset(self, name, shape=None, dtype=None, data=None, maxshape=None,
+                       chunks=None):
+        import numpy as np
+
+        if not self._writable:
+            raise ValueError("Unable to create dataset (no write intent on file)")
+        if name in self._data:
+            raise ValueError(f"Unable to create dataset (name already exists): {name}")
+        arr = np.array(data, dtype=dtype) if data is not None else np.zeros(shape, dtype)
+        self._data[name] = {"data": arr, "maxshape": maxshape or arr.shape}
+        return _MemoryDataset(self._data[name])
+
+
+class _MemoryDataset:
+    def __init__(self, entry: dict):
+        self._entry = entry
+
+    @property
+    def shape(self) -> tuple:
+        return self._entry["data"].shape
+
+    @property
+    def dtype(self):
+        return self._entry["data"].dtype
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        import numpy as np
+
+        if isinstance(idx, (list, np.ndarray)):
+            idx = np.asarray(idx)
+            if idx.ndim != 1 or (len(idx) > 1 and not (np.diff(idx) > 0).all()):
+                raise TypeError("Indexing elements must be in increasing order")
+        return np.array(self._entry["data"][idx])
+
+    def __setitem__(self, idx, value) -> None:
+        self._entry["data"][idx] = value
+
+    def resize(self, size: int, axis: int = 0) -> None:
+        import numpy as np
+
+        old, limit = self._entry["data"], self._entry["maxshape"][axis]
+        if limit is not None and size > limit:
+            raise ValueError(f"resize: {size} past maxshape {limit}")
+        shape = list(old.shape)
+        shape[axis] = size
+        new = np.zeros(shape, old.dtype)
+        keep = tuple(slice(0, min(a, b)) for a, b in zip(old.shape, shape))
+        new[keep] = old[keep]
+        self._entry["data"] = new
+
+
+@contextlib.contextmanager
+def memory_h5():
+    """A :class:`MemoryH5` in ``sys.modules["h5py"]`` for the length of the
+    block, whatever was there restored after it."""
+    saved = sys.modules.get("h5py")
+    mem = sys.modules["h5py"] = MemoryH5()
+    try:
+        yield mem
+    finally:
+        if saved is None:
+            sys.modules.pop("h5py", None)
+        else:
+            sys.modules["h5py"] = saved
+
+
+def h5_or_memory():
+    """Real h5py files where h5py imports (``(nullcontext, "files")``), else
+    :func:`memory_h5` for the phase."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return memory_h5(), "memory (h5py does not import)"
+    return contextlib.nullcontext(), "files"
+
+
+def stage_patch_gen(torch, dev, root: str, kept: list) -> dict:
+    """Phase 5's two slides as files, tiled by ``cli.patch_gen.main`` in
+    both layouts: patches and seconds per slide, the layouts holding equal
+    patches, each slide's count equal to phase 5's ``predict_wsi`` kept count
+    (where phase 5 ran)."""
+    import h5py
+    import numpy as np
+    from sequoia_tpu_torch import native
+    from sequoia_tpu_torch.cli import patch_gen as cli
+
+    slides = [make_slide(torch, dev, s) for s in (1, 2)]
+    writer = "native" if native.available() else "pillow"
+    wsi = os.path.join(root, "wsi")
+    os.makedirs(wsi)
+    ids = [f"TCGA-STG-{i + 1:02d}" for i in range(len(slides))]
+    for sid, slide in zip(ids, slides):
+        write_slide_file(slide, os.path.join(wsi, f"{sid}.tiff"), writer)
+    # warm-up: the slide mask and the tissue screen's kernels on the card
+    from sequoia_tpu_torch.ops import masking
+    from sequoia_tpu_torch.pipeline import patch_gen
+
+    patch_gen.compute_slide_mask(slides[0], device=dev)
+    masking.patch_keep_flags(torch.zeros((64, PATCH, PATCH, 3), dtype=torch.uint8,
+                                         device=dev))
+    del slides
+    res, written = {"slide_files_by": writer}, {}
+    for layout in ("tiles", "packed"):
+        t0 = time.perf_counter()
+        written[layout] = cli.main(["--wsi_path", wsi, "--patch_path",
+                                    os.path.join(root, layout), "--mask_path",
+                                    os.path.join(root, f"{layout}_masks"), "--layout", layout])
+        torch.cuda.synchronize()
+        res[f"{layout}_seconds_per_slide"] = (time.perf_counter() - t0) / len(ids)
+    for i, sid in enumerate(ids):
+        with h5py.File(os.path.join(root, "tiles", sid, f"{sid}.hdf5"), "r") as f:
+            tiles = {k: f[k][:] for k in f.keys()}
+        with h5py.File(os.path.join(root, "packed", sid, f"{sid}.hdf5"), "r") as f:
+            patches, coords = f["patches"][:], f["coords"][:]
+        same = len(tiles) == len(patches) == written["tiles"][sid] == written["packed"][sid] \
+            and all(np.array_equal(img, tiles.get(f"{x}_{y}")) for img, (x, y)
+                    in zip(patches, coords))
+        if not same or not 0 < len(tiles) or (kept[i] is not None and len(tiles) != kept[i]):
+            raise AssertionError(f"stages_patch_gen: {sid} tiles {len(tiles)}, packed "
+                                 f"{len(patches)}, phase 5 kept {kept[i]}")
+        masks = [np.load(os.path.join(root, f"{lay}_masks", sid, "mask.npy"))
+                 for lay in ("tiles", "packed")]
+        if not np.array_equal(*masks):
+            raise AssertionError(f"stages_patch_gen: {sid} masks differ between layouts")
+    res.update({"slides": len(ids), "patches_per_slide": [written["tiles"][s] for s in ids],
+                "phase5_kept": kept, "layouts_equal": True})
+    return res
+
+
+def stage_features(torch, dev, root: str, tiled: list) -> tuple[dict, dict]:
+    """A third, packed slide of STAGE_PATCHES seeded patches, then
+    ``cli.compute_features.main --weights random`` over the three slides in
+    f32 and bf16, with K4 and with ``--kernels off``: seconds per slide,
+    slides/hour and ms per extractor batch from its StageTimer, K4's
+    features against the plain ones', the cap.  ``tiled``: the patches of
+    the two tiled slides.  Returns the line and the launch counts of the K4
+    runs."""
+    import math
+
+    import h5py
+    import numpy as np
+    import pandas as pd
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.cli import compute_features as cli
+
+    sid = "TCGA-STG-03"
+    g = torch.Generator(device=dev).manual_seed(17)
+    u8 = torch.randint(0, 256, (STAGE_PATCHES, PATCH, PATCH, 3), generator=g, device=dev,
+                       dtype=torch.uint8).cpu().numpy()
+    os.makedirs(os.path.join(root, "packed", sid))
+    with h5py.File(os.path.join(root, "packed", sid, f"{sid}.hdf5"), "w") as f:
+        f.create_dataset("patches", data=u8, chunks=(min(64, STAGE_PATCHES), PATCH, PATCH, 3))
+        f.create_dataset("coords", data=np.stack([np.arange(STAGE_PATCHES) % 64 * PATCH,
+                                                  np.arange(STAGE_PATCHES) // 64 * PATCH],
+                                                 1).astype(np.int64))
+    del u8
+    ids = ["TCGA-STG-01", "TCGA-STG-02", sid]
+    ref = os.path.join(root, "ref.csv")
+    pd.DataFrame({"wsi_file_name": [f"{s}.svs" for s in ids], "patient_id": ids,
+                  "tcga_project": "TCGA-STG"}).to_csv(ref, index=False)
+    n_patches = [*tiled, STAGE_CAP]
+    batches = sum(math.ceil(n / STAGE_BATCH) for n in n_patches)
+    # warm-up: cuDNN plans and the allocator at the stage's batch, both dtypes
+    warm = torch.randint(0, 256, (STAGE_BATCH, PATCH, PATCH, 3), device=dev,
+                         dtype=torch.uint8, generator=g)
+    for dtype in ("float32", "bfloat16"):
+        for stages in ((1, 2, 3, 4), ()):
+            ext = cli.load_extractor("resnet", "random", STAGE_BATCH, dtype, device=dev,
+                                     fused_stages=stages)
+            ext.features(warm)
+    del warm, ext
+    torch.cuda.synchronize()
+
+    runs, feats, launches = {}, {}, {k: 0 for k in _build.LAUNCHES}
+    for dtype in ("float32", "bfloat16"):
+        for kernels in ("on", "off"):
+            out = os.path.join(root, f"features_{dtype}_{kernels}")
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            got = cli.main(["--ref_file", ref, "--patch_data_path", os.path.join(root, "packed"),
+                            "--feature_path", out, "--weights", "random", "--compute_dtype",
+                            dtype, "--kernels", kernels])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {k: _build.LAUNCHES[k] - before[k] for k in before}
+            if kernels == "on":
+                for k, v in counts.items():
+                    launches[k] += v
+            stages = got["stages"]
+            feats[dtype, kernels] = []
+            for s in ids:
+                with h5py.File(os.path.join(out, "TCGA-STG", s, f"{s}.h5"), "r") as f:
+                    feats[dtype, kernels].append(f["resnet_features"][:])
+            runs[f"{dtype}_{kernels}"] = {
+                "slides": got["slides"], "kernels": got["kernels"], "seconds": secs,
+                "seconds_per_slide": secs / len(ids),
+                "slides_per_hour": len(ids) / sum(s["seconds"] for s in stages.values()) * 3600,
+                "ms_per_batch": stages["extract"]["seconds"] / batches * 1e3,
+                "stage_seconds": {k: s["seconds"] for k, s in stages.items()},
+                "bottleneck_chain_launches": counts["bottleneck_chain"]}
+            shapes = [f.shape for f in feats[dtype, kernels]]
+            if got["slides"] != len(ids) or shapes != [(n, D) for n in n_patches] or not all(
+                    np.isfinite(f).all() for f in feats[dtype, kernels]):
+                raise AssertionError(f"stages_features {dtype} kernels {kernels}: "
+                                     f"{got['slides']} slides, shapes {shapes}")
+            k4 = dev.type == "cuda" and kernels == "on"
+            if got["kernels"] != (["bottleneck_chain"] if k4 else []) or \
+                    (counts["bottleneck_chain"] > 0) != k4:
+                raise AssertionError(f"stages_features {dtype} kernels {kernels}: K4 "
+                                     f"launched {counts['bottleneck_chain']} times")
+        rel = [float(np.abs(a - b).max() / np.abs(b).max())
+               for a, b in zip(feats[dtype, "on"], feats[dtype, "off"])]
+        runs[f"{dtype}_on"]["features_max_rel_diff_vs_plain"] = rel
+        runs[f"{dtype}_on"]["features_tol"] = STAGE_FEAT_TOL[dtype]
+        if max(rel) > STAGE_FEAT_TOL[dtype]:
+            raise AssertionError(f"stages_features {dtype}: K4 features {rel} off the plain "
+                                 f"(> {STAGE_FEAT_TOL[dtype]})")
+    res = {"slides": len(ids), "patches_per_slide": n_patches, "cap": STAGE_CAP,
+           "packed_patches": STAGE_PATCHES, "batch": STAGE_BATCH, "batches": batches,
+           "runs": runs, "k4_launches_per_batch": launches["bottleneck_chain"] / 2 / batches}
+    return res, launches
+
+
+def lloyd_f64_check(torch, dev, km, feats, written: dict) -> dict:
+    """One slide's hybrid seeding, then Lloyd with K5 and plain f32 (f32
+    operands) and on f64 operands.  For each f32 backend (``written``: its
+    CLI's cluster features): steps, the share of labels equal to the f64
+    fit's, its final assignment against the f64 argmin to the same centers
+    (points off it, and of those the ones not at an f64 near-tie), its means
+    against the f64 means of its labels, its centers' squared shift to
+    those means beside the Lloyd tolerance, its inertia over the f64 fit's."""
+    x32 = torch.as_tensor(feats, device=dev)
+    x64 = x32.double()
+    mask = torch.ones((x32.shape[0],), dtype=torch.bool, device=dev)
+    init = torch.as_tensor(km.sklearn_plusplus_centers(feats, K, 0), device=dev)
+
+    def sq_dists(c):  # (N, K) in f64
+        c = c.double()
+        return ((x64 * x64).sum(1, keepdim=True) + (c * c).sum(1)
+                - 2.0 * x64 @ c.T).clamp_min(0.0)
+
+    fits = {}
+    for name, dtype, kernel in (("plain_f64", torch.float64, False),
+                                ("lloyd_stats", torch.float32, True),
+                                ("plain", torch.float32, False)):
+        x = x32.to(dtype)
+        centers, labels, _, steps = km._lloyd(x, mask, init.to(dtype), 300,
+                                              km._tol_abs(x, mask, 1e-4), kernel)
+        fits[name] = (centers, labels, steps)
+    c64, l64, steps64 = fits["plain_f64"]
+    inertia64 = float(sq_dists(c64).gather(1, l64[:, None]).sum())
+    out = {"steps_f64": steps64, "lloyd_tol_abs": float(km._tol_abs(x64, mask, 1e-4))}
+    for name, kernel in (("lloyd_stats", True), ("plain", False)):
+        centers, labels, steps = fits[name]
+        final = km._stats_fn(x32, mask, kernel)(centers)[3]  # the backend's own argmin
+        d2 = sq_dists(centers)
+        best = d2.min(1).values
+        off = final != d2.argmin(1)
+        gap = (d2.gather(1, final[:, None])[:, 0] - best) / best.clamp_min(1e-30)
+        m64 = km.cluster_means(x64, labels, mask, K)
+        means = torch.as_tensor(written[name], device=dev).double()
+        out[name] = {
+            "steps": steps, "labels_equal_f64_fit": float((labels == l64).double().mean()),
+            "assignment_off_f64_argmin": int(off.sum()),
+            "assignment_off_beyond_tie_gap": int((off & (gap > STAGE_TIE_GAP)).sum()),
+            "off_max_rel_gap": float(gap[off].max()) if bool(off.any()) else 0.0,
+            "means_max_rel_diff_f64": float((means - m64).abs().max() / m64.abs().max()),
+            "fixed_point_shift": float(((centers.double() - m64) ** 2).sum()),
+            "inertia_over_f64_fit": float(d2.gather(1, labels[:, None]).sum()) / inertia64}
+    return out
+
+
+def stage_kmeans(torch, dev, root: str, mem) -> tuple[dict, dict]:
+    """``cli.kmean_features.main`` over the f32 K4 features: the hybrid
+    backend with K5 and with ``--kernels off`` (each on its own copy), then
+    the device backend with K5; K5's fits against float64
+    (:func:`lloyd_f64_check`), and a second K5 run that writes nothing.
+    Returns the line and the K5 runs' launch counts."""
+    import shutil
+
+    import h5py
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.cli import kmean_features as cli
+    from sequoia_tpu_torch.ops import kmeans as km
+
+    src = os.path.join(root, "features_float32_on")
+    ids = ["TCGA-STG-01", "TCGA-STG-02", "TCGA-STG-03"]
+    ref = os.path.join(root, "ref.csv")
+    launches = {k: 0 for k in _build.LAUNCHES}
+    res, written = {}, {}
+
+    def h5(dirname, sid):
+        return os.path.join(root, dirname, "TCGA-STG", sid, f"{sid}.h5")
+
+    for label, backend, kernels in (("hybrid_k5", "hybrid", "on"),
+                                    ("hybrid_plain", "hybrid", "off"),
+                                    ("device_k5", "device", "on")):
+        dst = os.path.join(root, f"kmeans_{label}")
+        shutil.copytree(src, dst)
+        if mem is not None:
+            mem.copy_tree(src, dst)
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        got = cli.main(["--ref_file", ref, "--feature_path", dst, "--backend", backend,
+                        "--kernels", kernels])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        if kernels == "on":
+            for k, v in counts.items():
+                launches[k] += v
+        written[label] = []
+        for sid in ids:
+            with h5py.File(h5(f"kmeans_{label}", sid), "r") as f:
+                written[label].append(f["cluster_features"][:])
+        if got["slides"] != len(ids) or any(cf.shape != (K, D) or not np.isfinite(cf).all()
+                                            for cf in written[label]):
+            raise AssertionError(f"stages_kmeans {label}: {got['slides']} slides")
+        k5 = dev.type == "cuda" and kernels == "on"
+        if got["kernels"] != (["lloyd_stats"] if k5 else []) or \
+                (counts["lloyd_stats"] > 0) != k5:
+            raise AssertionError(f"stages_kmeans {label}: K5 launched "
+                                 f"{counts['lloyd_stats']} times")
+        res[label] = {"seconds": secs, "seconds_per_slide": secs / len(ids),
+                      "kernels": got["kernels"], "lloyd_stats_launches": counts["lloyd_stats"]}
+
+    again = cli.main(["--ref_file", ref, "--feature_path", os.path.join(root, "kmeans_hybrid_k5"),
+                      "--backend", "hybrid"])
+    for sid, cf in zip(ids, written["hybrid_k5"]):
+        with h5py.File(h5("kmeans_hybrid_k5", sid), "r") as f:
+            if not np.array_equal(f["cluster_features"][:], cf, equal_nan=True):
+                raise AssertionError(f"stages_kmeans: the second run changed {sid}")
+    if again["slides"] != 0:
+        raise AssertionError(f"stages_kmeans: the second run clustered {again['slides']}")
+
+    checks = []
+    for i, sid in enumerate(ids):
+        with h5py.File(h5("kmeans_hybrid_k5", sid), "r") as f:
+            feats = f["resnet_features"][:]
+        row = {"slide": sid, "patches": len(feats),
+               **lloyd_f64_check(torch, dev, km, feats, {
+                   "lloyd_stats": written["hybrid_k5"][i],
+                   "plain": written["hybrid_plain"][i]})}
+        k5 = row["lloyd_stats"]
+        if k5["assignment_off_beyond_tie_gap"] or k5["means_max_rel_diff_f64"] > STAGE_MEANS_TOL \
+                or not k5["fixed_point_shift"] <= row["lloyd_tol_abs"] \
+                or not k5["inertia_over_f64_fit"] <= 1 + STAGE_INERTIA_TOL:
+            raise AssertionError(f"stages_kmeans: K5 off float64 on {sid}: {row}")
+        checks.append(row)
+    res.update({"against_f64": checks, "second_run_clustered": again["slides"],
+                "k5_launches_per_slide": res["hybrid_k5"]["lloyd_stats_launches"] / len(ids)})
+    return res, launches
+
+
+def stage_evaluate(torch, dev, root: str, test_results) -> dict:
+    """``cli.evaluate_model.main`` over a five-fold ``test_results.pkl`` that
+    the port's CV wrote on the card: phase 8's (``test_results``, pickled
+    bytes), or else a 1-epoch ``cli.main`` CV on phase 8's cohort."""
+    import numpy as np
+    from sequoia_tpu_torch.cli import evaluate_model as cli
+
+    model_dir = os.path.join(root, "eval")
+    os.makedirs(os.path.join(model_dir, "syn"))
+    res = {"test_results_from": "phase 8 train_cv"}
+    if test_results is None:
+        from sequoia_tpu_torch.cli import main as cli_main
+
+        cohort = os.path.join(root, "cohort")
+        os.makedirs(cohort)
+        feat_root, store, source = write_cohort(np, cohort)
+        t0 = time.perf_counter()
+        with feature_store(store):
+            cli_main.main(["--ref_file", os.path.join(cohort, "ref.csv"), "--feature_path",
+                           feat_root, "--model_type", "vis", "--train", "--k", "5",
+                           "--num_epochs", "1", "--filter_no_features", "0", "--save_dir",
+                           os.path.join(cohort, "exp"), "--exp_name", "cv", "--batch_size",
+                           str(TRAIN_BATCH), "--lr", str(TRAIN_LR)])
+        torch.cuda.synchronize()
+        res = {"test_results_from": f"1-epoch cli.main CV, features from {source}",
+               "cv_seconds": time.perf_counter() - t0}
+        with open(os.path.join(cohort, "exp", "TCGA", "cv", "test_results.pkl"), "rb") as f:
+            test_results = f.read()
+    with open(os.path.join(model_dir, "syn", "test_results.pkl"), "wb") as f:
+        f.write(test_results)
+    t0 = time.perf_counter()
+    all_res, sig_res = cli.main(["--model_dir", model_dir, "--cancers", "syn"])
+    secs = time.perf_counter() - t0
+    import pandas as pd
+
+    on_disk = pd.read_csv(os.path.join(model_dir, "results", "all_genes.csv"), index_col=0)
+    if len(on_disk) != GENES or tuple(on_disk.columns) != EVAL_COLUMNS or \
+            len(all_res) != GENES or not np.isfinite(on_disk["pred_real_r"]).all():
+        raise AssertionError(f"stages_evaluate: all_genes.csv {on_disk.shape}, columns "
+                             f"{list(on_disk.columns)}")
+    for name in ("sig_genes.csv", "num_sign_genes.csv"):
+        if not os.path.exists(os.path.join(model_dir, "results", name)):
+            raise AssertionError(f"stages_evaluate: {name} not written")
+    res.update({"seconds": secs, "genes": len(on_disk), "columns": list(on_disk.columns),
+                "significant": len(sig_res),
+                "pred_real_r_max": float(on_disk["pred_real_r"].max())})
+    return res
+
+
+def stages_path(torch, dev, kept: list, test_results=None) -> dict:
+    """Phase 10; returns the kernels' launch counts of its kernel runs (the
+    features stage with K4, the k-means stage with K5)."""
+    import shutil
+    import tempfile
+
+    from sequoia_tpu_torch import _build
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in _build.LAUNCHES}
+    ctx, store = h5_or_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stages_")
+    try:
+        with ctx as mem:
+            line = stage_patch_gen(torch, dev, tmp, kept)
+            emit({"phase": "stages_patch_gen", "h5": store, **line})
+            line, counts = stage_features(torch, dev, tmp, line["patches_per_slide"])
+            emit({"phase": "stages_features", "h5": store, **line})
+            for k, v in counts.items():
+                launches[k] += v
+            torch.cuda.empty_cache()
+            line, counts = stage_kmeans(torch, dev, tmp, mem)
+            emit({"phase": "stages_kmeans", "h5": store, **line})
+            for k, v in counts.items():
+                launches[k] += v
+        del mem  # the stand-in's stores (the packed slide alone is 826 MB)
+        emit({"phase": "stages_evaluate", **stage_evaluate(torch, dev, tmp, test_results)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_launched(launches, ("bottleneck_chain", "lloyd_stats"), "stages path")
+    emit({"phase": "stages_launches", "h5": store, **launches,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -2740,7 +3304,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
                     "for these alone) and/or uni_path (phase 7), train_path (phase 8), "
-                    "aggregators_path (phase 9); prints no result line")
+                    "aggregators_path (phase 9), stages_path (phase 10); prints no result "
+                    "line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -2771,7 +3336,7 @@ def main() -> int:
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
     known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
-                                      "aggregators_path"]
+                                      "aggregators_path", "stages_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -2800,6 +3365,8 @@ def main() -> int:
             train_path(torch, dev)
         if "aggregators_path" in only:
             aggregators_path(torch, dev)
+        if "stages_path" in only:
+            stages_path(torch, dev, [None, None])
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
@@ -2819,12 +3386,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     uni = uni_path(torch, dev, kept)
     torch.cuda.empty_cache()
-    trained = train_path(torch, dev)
+    keep = {}
+    trained = train_path(torch, dev, keep)
     if any(trained.values()):
         raise AssertionError(f"the training path launched a TPU kernel's port: {trained}")
     torch.cuda.empty_cache()
     agg = aggregators_path(torch, dev)
-    launches = {k: main[k] + wsi[k] + served[k] + uni[k] + agg[k] for k in results}
+    torch.cuda.empty_cache()
+    stages = stages_path(torch, dev, kept, keep.pop("test_results"))
+    launches = {k: main[k] + wsi[k] + served[k] + uni[k] + agg[k] + stages[k] for k in results}
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],

@@ -19,3 +19,15 @@ class NotPorted(argparse.Action):
             shown = option_string if self.refused is None else f"{option_string} {values}"
             parser.error(f"{shown} is not ported yet (ROADMAP.md {self.item})")
         setattr(namespace, self.dest, values)
+
+
+#: the ROADMAP.md item that multi-GPU and multi-host work waits for
+MULTI_GPU = "queue 1 item 8"
+
+
+def add_fleet_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' multi-host fleet flags, each stopping at parse time."""
+    g = p.add_argument_group("multi-host fleet (not ported)")
+    g.add_argument("--multihost", nargs=0, action=NotPorted, item=MULTI_GPU)
+    for flag in ("--coordinator", "--num_processes", "--process_id"):
+        g.add_argument(flag, default=None, action=NotPorted, item=MULTI_GPU)

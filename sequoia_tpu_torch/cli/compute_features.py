@@ -1,26 +1,44 @@
-"""Backbone loading for the feature-extraction and serving entry points.
+"""Feature extraction over a ref file's slides, and the backbone loading
+that serving shares.
 
-Counterpart of ``sequoia_tpu/cli/compute_features.py:24-60``
-(``load_extractor``).  ``weights`` is a local torch state dict
+Counterpart of ``sequoia_tpu/cli/compute_features.py`` (reference
+``pre_processing/compute_features_hdf5.py`` flags and outputs)::
+
+    python -m sequoia_tpu_torch.cli.compute_features --ref_file ref.csv \
+        --patch_data_path patches --feature_path features --weights resnet50.pth
+
+``load_extractor``: ``weights`` is a local torch state dict
 (``.pt``/``.bin``: torchvision's ResNet-50 names, or timm's ViT names for
 UNI, e.g. the MahmoodLab UNI ``pytorch_model.bin``) or ``"random"`` (random
 weights from seed 0, for benchmarks and smoke runs); nothing is downloaded.
 A UNI state dict gives its own config (``uni_vit.uni_from_torch``), with
-``compute_dtype`` applied to it.  Data parallelism is not ported yet
-(ROADMAP.md queue 1 item 8); this module's ``main``, the HDF5 feature
-stage, waits for item 6.
+``compute_dtype`` applied to it.
+
+The CLI runs on CUDA unless ``--device cpu`` is given, and raises without
+CUDA.  On CUDA with ``--feat_type resnet`` it extracts through the K4 kernel
+in every ResNet stage (``fused_stages=(1, 2, 3, 4)``, as serving does) and
+names the kernel set on stderr; ``--kernels off`` or ``--device cpu`` runs
+the plain PyTorch versions.  Where it differs from the JAX CLI: ``--device``
+and ``--kernels`` are new; the JAX compile-cache flag is gone;
+``--data_parallel`` and the multi-host fleet flags stop at parse time
+(ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import sys
 
 import torch
 
+from sequoia_tpu_torch.cli import MULTI_GPU, NotPorted, add_fleet_args
 from sequoia_tpu_torch.models import resnet, uni_vit
 from sequoia_tpu_torch.ops.nn import compute_dtype as to_dtype
-from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+from sequoia_tpu_torch.pipeline.features import FeatureExtractor, compute_features
 from sequoia_tpu_torch.train import checkpoint
+from sequoia_tpu_torch.utils.device import resolve_device
+from sequoia_tpu_torch.utils.profiling import StageTimer
 
 
 def load_extractor(feat_type: str, weights: str, batch_size: int,
@@ -53,3 +71,60 @@ def load_extractor(feat_type: str, weights: str, batch_size: int,
         params = resnet.resnet50_from_torch(checkpoint.load_torch_checkpoint(weights))
     cfg = resnet.ResNetConfig(compute_dtype=dtype, fused_stages=tuple(fused_stages))
     return FeatureExtractor(feat_type, params, batch_size=batch_size, cfg=cfg, device=device)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Per-patch feature extraction (PyTorch/CUDA)")
+    p.add_argument("--feat_type", default="resnet", choices=["resnet", "uni"])
+    p.add_argument("--ref_file", required=True, type=str)
+    p.add_argument("--patch_data_path", required=True, type=str)
+    p.add_argument("--feature_path", type=str, default="features")
+    p.add_argument("--max_patch_number", type=int, default=4000)
+    p.add_argument("--seed", type=int, default=99)
+    p.add_argument("--tcga_projects", default=None, type=str, nargs="*")
+    p.add_argument("--start", type=int, default=0)
+    p.add_argument("--end", type=int, default=None)
+    p.add_argument("--weights", type=str, required=True,
+                   help='torch state-dict path, or "random"')
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without CUDA) or cpu")
+    p.add_argument("--kernels", default="on", choices=["on", "off"],
+                   help="extract with the CUDA kernel K4 (on) or the plain PyTorch versions")
+    p.add_argument("--data_parallel", nargs=0, action=NotPorted, item=MULTI_GPU)
+    add_fleet_args(p)
+    return p
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns ``{"slides": slides written, "kernels": [...],
+    "stages": the StageTimer's {stage: {"seconds", "items"}}}``."""
+    args = build_parser().parse_args(argv)
+    import pandas as pd
+
+    dev = resolve_device(None if args.device == "cuda" else args.device)
+    df = pd.read_csv(args.ref_file)
+    if args.tcga_projects:
+        df = df[df["tcga_project"].isin(args.tcga_projects)]
+    df = df.iloc[args.start:args.end]
+    print(f"Number of slides = {df.shape[0]}")
+
+    kernels = (["bottleneck_chain"] if dev.type == "cuda" and args.kernels == "on"
+               and args.feat_type == "resnet" else [])
+    extractor = load_extractor(args.feat_type, args.weights, args.batch_size,
+                               args.compute_dtype, device=dev,
+                               fused_stages=(1, 2, 3, 4) if kernels else ())
+    print(f"compute_features: {dev.type}, kernels: "
+          + (", ".join(kernels) or "none (plain PyTorch)"), file=sys.stderr)
+    timer = StageTimer()
+    done = compute_features(df, args.patch_data_path, args.feature_path, extractor,
+                            max_patch_number=args.max_patch_number, seed=args.seed,
+                            timer=timer)
+    print(f"Extracted features for {done} slides")
+    return {"slides": done, "kernels": kernels, "stages": timer.stages}
+
+
+if __name__ == "__main__":
+    main()

@@ -21,12 +21,10 @@ import sys
 
 import numpy as np
 
-from sequoia_tpu_torch.cli import NotPorted
+from sequoia_tpu_torch.cli import MULTI_GPU, NotPorted, add_fleet_args
 from sequoia_tpu_torch.data import dataset as ds
 from sequoia_tpu_torch.train import cv
 from sequoia_tpu_torch.utils.logging import make_log_fn
-
-MULTI_GPU = "queue 1 item 8"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,10 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     p.add_argument("--mesh", type=str, default=None, action=NotPorted, item=MULTI_GPU)
-    g = p.add_argument_group("multi-host fleet (not ported)")
-    g.add_argument("--multihost", nargs=0, action=NotPorted, item=MULTI_GPU)
-    for flag in ("--coordinator", "--num_processes", "--process_id"):
-        g.add_argument(flag, default=None, action=NotPorted, item=MULTI_GPU)
+    add_fleet_args(p)
     return p
 
 

@@ -201,27 +201,43 @@ def cluster_means(x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
 
 
 def kmeans_cluster_features(features: np.ndarray, n_clusters: int = 100, seed: int = 0,
-                            backend: str = "device", device=None) -> np.ndarray:
+                            backend: str = "device", device=None,
+                            use_pallas: bool = False) -> np.ndarray:
     """(N, D) patch features -> (k, D) cluster-mean features.
 
     backend='device': this module's kmeans++/Lloyd.  backend='hybrid':
     sklearn-exact kmeans++ seeding on the host, then Lloyd on the device.
-    backend='sklearn' (the reference's own KMeans) is not ported: the GPU
-    machine has no sklearn (ROADMAP.md)."""
-    if backend == "sklearn":
-        raise NotImplementedError("kmeans backend 'sklearn' is not ported (ROADMAP.md)")
-    if backend not in ("device", "hybrid"):
-        raise ValueError(f"backend must be 'device' or 'hybrid'; got {backend!r}")
-    dev = resolve_device(device)
+    ``use_pallas`` runs those Lloyd steps through K5.  backend='sklearn':
+    the reference's own ``KMeans(random_state=seed)`` on the host, NaN for
+    an empty cluster as the per-label ``np.mean`` gives; it needs sklearn
+    (the GPU machine has none) and raises an ImportError without it."""
     features = np.asarray(features, np.float32)
+    if backend == "sklearn":
+        try:
+            from sklearn.cluster import KMeans
+        except ImportError as e:
+            raise ImportError("kmeans backend 'sklearn' needs scikit-learn, which does "
+                              "not import here; use backend 'hybrid' (its seeding) or "
+                              "'device'") from e
+        labels = KMeans(n_clusters=n_clusters, random_state=seed).fit(features).labels_
+        means = [np.mean(features[labels == pos], axis=0) if np.any(labels == pos)
+                 else np.full(features.shape[1], np.nan, np.float32)
+                 for pos in range(n_clusters)]
+        return np.asarray(means, dtype=np.float32)
+    if backend not in ("device", "hybrid"):
+        # a misspelt backend must not write cluster_features that the
+        # skip-if-present rule then keeps
+        raise ValueError(f"backend must be 'device', 'hybrid' or 'sklearn'; got {backend!r}")
+    dev = resolve_device(device)
     x = torch.as_tensor(features, device=dev)
     mask = torch.ones((features.shape[0],), dtype=torch.bool, device=dev)
     if backend == "hybrid":
         init = torch.as_tensor(sklearn_plusplus_centers(features, n_clusters, seed), device=dev)
-        _, labels, _, _ = kmeans_lloyd(x, mask, init)
+        _, labels, _, _ = kmeans_lloyd(x, mask, init, use_pallas=use_pallas)
     else:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        _, labels, _, _ = kmeans_fit(x, mask, gen, n_clusters=n_clusters)
+        _, labels, _, _ = kmeans_fit(x, mask, gen, n_clusters=n_clusters,
+                                     use_pallas=use_pallas)
     return cluster_means(x, labels, mask, n_clusters).cpu().numpy()
 
 

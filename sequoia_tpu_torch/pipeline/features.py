@@ -1,20 +1,30 @@
-"""Batched backbone features with fused preprocessing: uint8 patches ->
-per-patch embeddings.
+"""Stage 2, feature extraction: patches HDF5 -> per-patch embeddings, and
+the batched backbone with fused preprocessing that serving shares.
 
-Counterpart of ``sequoia_tpu/pipeline/features.py:34-144`` (the in-memory
-``FeatureExtractor``).  Patches travel to the device as uint8 in fixed
-``batch_size`` blocks, the tail block zero-padded to the full batch; the
-preprocessing runs on the device with the backbone (the ImageNet
-normalization, and for UNI first the bit-exact Pillow resize to 224).
-``raw_fwd`` is the backbone as one ``(params, u8) -> (N, D)`` function
-honouring ``cfg``, so a caller can run more device work on the same
+Counterpart of ``sequoia_tpu/pipeline/features.py``. Patches travel to the
+device as uint8 in fixed ``batch_size`` blocks, the tail block zero-padded
+to the full batch; the preprocessing runs on the device with the backbone
+(the ImageNet normalization, and for UNI first the bit-exact Pillow resize
+to 224). ``raw_fwd`` is the backbone as one ``(params, u8) -> (N, D)``
+function honouring ``cfg``, so a caller can run more device work on the same
 uploaded batch (serving's tissue screen,
-``serve.SlidePredictor._fused_program``).  The mesh (multi-device) mode and
-the HDF5 feature stage (``compute_features``) are not ported yet
-(ROADMAP.md).
+``serve.SlidePredictor._fused_program``). The mesh (multi-device) mode is
+not ported yet (ROADMAP.md queue 1 item 8).
+
+On-disk contract of the stage (reference
+``pre_processing/compute_features_hdf5.py:99-139``):
+``{feature_path}/{project}/{wsi}/{wsi}.h5`` holding ``{feat_type}_features``
+(N, D) float32, then a ``complete_tile.txt`` sentinel; ``complete_resnet.txt``
+is honoured as a skip marker too; a slide's patches are subsampled to
+``max_patch_number`` with ``random.sample`` from one ``random.Random(seed)``
+for the whole ref file; a slide that fails is reported and skipped.  h5py is
+imported inside the functions that read or write it.
 """
 
 from __future__ import annotations
+
+import os
+import random as pyrandom
 
 import numpy as np
 import torch
@@ -107,3 +117,82 @@ class FeatureExtractor:
     def __call__(self, patches_u8) -> np.ndarray:
         """(N, ps, ps, 3) uint8 -> (N, D) f32 numpy."""
         return self.features(patches_u8).cpu().numpy()
+
+
+def load_patches(patch_h5_path: str, max_patch_number: int | None,
+                 rng: pyrandom.Random) -> np.ndarray:
+    """A slide's patches (N, ps, ps, 3) uint8 from either layout, subsampled
+    to ``max_patch_number`` with ``rng.sample`` over the tile names in h5py's
+    order.  The packed layout rebuilds that order from ``coords``, so a seed
+    selects the same patches, in the same order, from both layouts."""
+    import h5py
+
+    with h5py.File(patch_h5_path, "r") as f:
+        if "patches" in f:  # packed layout: one bulk read
+            coords = f["coords"][:]
+            names = [f"{x}_{y}" for x, y in coords]
+            row_of = {nm: i for i, nm in enumerate(names)}
+            keys = sorted(names)  # h5py lists names byte-wise sorted
+            if max_patch_number is not None and len(keys) > max_patch_number:
+                keys = rng.sample(keys, max_patch_number)
+            rows = np.asarray([row_of[nm] for nm in keys])
+            order = np.argsort(rows)  # h5py fancy indexing wants increasing rows
+            return f["patches"][rows[order]][np.argsort(order)]
+        keys = list(f.keys())
+        if max_patch_number is not None and len(keys) > max_patch_number:
+            keys = rng.sample(keys, max_patch_number)
+        return np.stack([f[k][:] for k in keys])
+
+
+def compute_features(df, patch_data_path: str, feature_path: str,
+                     extractor: FeatureExtractor, *, max_patch_number: int = 4000,
+                     seed: int = 99, verbose: bool = True, timer=None) -> int:
+    """The reference's feature stage over a ref-file DataFrame (duplicate
+    ``wsi_file_name`` rows dropped).  Returns the number of slides written.
+    ``timer``: a ``utils.profiling.StageTimer`` to accumulate the
+    ``read_patches`` / ``extract`` / ``write_features`` stages into."""
+    import h5py
+
+    from sequoia_tpu_torch.utils.profiling import StageTimer
+
+    timer = timer or StageTimer()
+    rng = pyrandom.Random(seed)  # one stream for the whole ref file, as the reference
+    df = df.drop_duplicates(["wsi_file_name"])
+    done = 0
+    for _, row in df.iterrows():
+        wsi = str(row["wsi_file_name"])
+        wsi_slide = wsi.split(".")[0]
+        project = row.get("tcga_project", "")
+        wsi = wsi.replace(".svs", "")
+
+        patch_dir = os.path.join(patch_data_path, wsi_slide)
+        if not os.path.exists(patch_dir):
+            if verbose:
+                print(f"Not exist {patch_dir}")
+            continue
+        path = os.path.join(patch_dir, wsi_slide + ".hdf5")
+        path_h5 = os.path.join(feature_path, str(project), wsi)
+        os.makedirs(path_h5, exist_ok=True)
+        if (os.path.exists(os.path.join(path_h5, "complete_resnet.txt"))
+                or os.path.exists(os.path.join(path_h5, "complete_tile.txt"))):
+            if verbose:
+                print(f"{wsi}: features already obtained")
+            continue
+
+        try:
+            with timer.stage("read_patches", items=1):
+                patches = load_patches(path, max_patch_number, rng)
+            with timer.stage("extract", items=len(patches)):
+                feats = extractor(patches)
+            with timer.stage("write_features", items=1):
+                with h5py.File(os.path.join(path_h5, wsi + ".h5"), "w") as fw:
+                    fw.create_dataset(f"{extractor.feat_type}_features", data=feats)
+            with open(os.path.join(path_h5, "complete_tile.txt"), "w") as fs:
+                fs.write(f"Total n patch = {len(feats)}")
+            done += 1
+        except Exception as e:  # per-slide quarantine (reference behaviour)
+            print(f"{wsi}: {e}")
+    if verbose and done:
+        print(timer.report())
+        print(f"slides/hour (feature stage): {timer.slides_per_hour():.1f}")
+    return done

@@ -1,8 +1,8 @@
 """The PyTorch port imports nothing of JAX or of the JAX package, builds and
 imports no kernel toolchain at import time, imports none of the packages the
 GPU machine lacks (pandas, h5py, Pillow, safetensors, huggingface_hub,
-openslide, sklearn) or wandb when a module is imported, and its entry points
-refuse to run on the CPU unless asked to."""
+openslide, sklearn, cv2, scanpy, matplotlib, seaborn) or wandb when a module
+is imported, and its entry points refuse to run on the CPU unless asked to."""
 
 import ast
 import pathlib
@@ -17,7 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "sequoia_tpu"}
 # imported inside the function that needs them, never at module level
 LAZY = {"pandas", "h5py", "PIL", "safetensors", "huggingface_hub", "openslide", "triton",
-        "wandb", "sklearn"}
+        "wandb", "sklearn", "cv2", "scanpy", "matplotlib", "seaborn"}
 # the serving slice: checkpoints, the CLI, the HTTP server, the native reader
 SLICE_MODULES = ("sequoia_tpu_torch/train/checkpoint.py", "sequoia_tpu_torch/cli/serve.py",
                  "sequoia_tpu_torch/cli/compute_features.py", "sequoia_tpu_torch/http_serve.py",
@@ -32,6 +32,16 @@ AGGREGATOR_MODULES = ("sequoia_tpu_torch/models/he2rna.py",
                       "sequoia_tpu_torch/evaluation/__init__.py",
                       "sequoia_tpu_torch/evaluation/predict_independent.py",
                       "sequoia_tpu_torch/cli/predict_independent.py")
+# the stages and evaluation slice: tiling, features and k-means stages and
+# their CLIs, the evaluation modules and theirs
+STAGE_MODULES = ("sequoia_tpu_torch/pipeline/kmeans_stage.py",
+                 "sequoia_tpu_torch/cli/patch_gen.py", "sequoia_tpu_torch/cli/kmean_features.py",
+                 "sequoia_tpu_torch/evaluation/correlation_stats.py",
+                 "sequoia_tpu_torch/evaluation/evaluate_model.py",
+                 "sequoia_tpu_torch/evaluation/spatial_metrics.py",
+                 "sequoia_tpu_torch/evaluation/gbm_modules.py",
+                 "sequoia_tpu_torch/cli/evaluate_model.py", "sequoia_tpu_torch/cli/get_emd.py",
+                 "sequoia_tpu_torch/cli/gbm_analysis.py")
 # the training slice
 TRAIN_MODULES = ("sequoia_tpu_torch/ops/stats.py", "sequoia_tpu_torch/data/splits.py",
                  "sequoia_tpu_torch/data/dataset.py", "sequoia_tpu_torch/utils/logging.py",
@@ -75,7 +85,8 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/ops/cuda_kmeans.py", "sequoia_tpu_torch/ops/masking.py",
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
                  "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
-                 "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES, *AGGREGATOR_MODULES):
+                 "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES, *AGGREGATOR_MODULES,
+                 *STAGE_MODULES):
         assert want in names
 
 
@@ -106,7 +117,8 @@ def test_import_loads_no_jax_module():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sequoia_tpu', 'triton', 'pandas', 'h5py', 'PIL', "
-        "'safetensors', 'huggingface_hub', 'openslide', 'wandb', 'sklearn'))\n"
+        "'safetensors', 'huggingface_hub', 'openslide', 'wandb', 'sklearn', 'cv2', "
+        "'scanpy', 'matplotlib', 'seaborn'))\n"
         "from sequoia_tpu_torch import native\n"
         "if native._lib is not None or native._error is not None:\n"
         "    bad.append('native library built at import')\n"
@@ -139,6 +151,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SlidePredictor(None, [])
     with pytest.raises(RuntimeError, match="CUDA"):
         kmeans.kmeans_cluster_features(np.zeros((8, 4), np.float32), n_clusters=2)
+    from sequoia_tpu_torch.pipeline import kmeans_stage
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kmeans_stage.run_kmeans(None, "features")
 
     from sequoia_tpu_torch.train import cv, loop
 
@@ -180,9 +196,9 @@ def test_unported_options_raise():
         FeatureExtractor("uni", params, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FeatureExtractor("resnet", params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kmeans.kmeans_cluster_features(np.zeros((8, 4), np.float32), n_clusters=2,
-                                       backend="sklearn", device="cpu")
+    # ported since the stages slice: the host's sklearn where it imports
+    assert kmeans.kmeans_cluster_features(np.arange(32, dtype=np.float32).reshape(8, 4),
+                                          n_clusters=2, backend="sklearn").shape == (2, 4)
     cfg = vis.ViSConfig(num_outputs=4, input_dim=256, depth=1, nheads=4, dim_f=32,
                         dim_s=32, dim_c=32, num_clusters=4)
     with pytest.raises(ValueError, match="backbone"):
