@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only train_path    # phases 1-2 and 8
     python3 chip_smoke.py --only aggregators_path   # phases 1-2 and 9
     python3 chip_smoke.py --only stages_path   # phases 1-2 and 10
+    python3 chip_smoke.py --only parallel_path # phases 1-2 and 11
 
 Phases, each printing one JSON line:
 
@@ -166,10 +167,35 @@ Phases, each printing one JSON line:
    columns; ``stages_launches`` (K4 and K5 must rise).  ``cli.get_emd`` and
    ``cli.gbm_analysis`` are host code that needs ``cv2`` and matplotlib; the
    phase does not run them (the CPU tests hold them against the JAX
-   package).
+   package);
+11. multi-GPU and multi-host paths on the one card (``parallel_*`` lines):
+   ``parallel_train``, an NCCL world of one (FileStore) with the full-width
+   ViS f32 step (batch 16, G = 20,820) through ``loop.train(mesh=)`` for
+   PAR_STEPS steps against the unsharded loop within 1e-6 relative, the NCCL
+   init seconds, ms per step sharded and unsharded (CUDA events) and the
+   all-reduces and their bytes per step; ``parallel_gloo``, two gloo ranks
+   sharing the card (NCCL refuses two ranks on one GPU) with the meshes
+   (data, model) = (1, 2) and (2, 1) of one world, each step's metrics
+   within loss and mae rtol 1e-5 / corr rtol 1e-4 of one process's, every
+   first AdamW moment after the steps within 1e-4 of its (per leaf,
+   relative to the leaf's largest value) and every parameter leaf's update
+   within 1e-3 of its (in norm), each rank's
+   head and AdamW-moment bytes 1/n_model of the whole, and a
+   ``torch.distributed.checkpoint`` round trip of the (1, 2) state (bit
+   equal; then read into the (2, 1) layout, bit equal to the gathered
+   state) with its seconds; ``parallel_dp``, a (2, 1) in-process mesh of
+   the card against one device at the per-device batch: K4 extraction
+   through ``load_extractor(data_parallel=True)``, K2 + K3 on one batch,
+   phase 5's slide 1 through a data-parallel serving predictor (K4, K5,
+   K1), and the window stage over (2, 1) and (1, 2); ``parallel_fleet``,
+   ``cli.serve --multihost`` (its ``.part0`` equal to the CSV without the
+   flag) and ``cli.compute_features --multihost --data_parallel`` (every
+   row) in a gloo world of one through ``--coordinator file://...``;
+   ``parallel_launches`` (every kernel must rise).  One card: no
+   multi-card number exists.
 
 The last lines are the kernels table (``launches`` sums the counts of the
-kernel runs of phases 4-7, 9 and 10, each read from 0), the script's run time, the
+kernel runs of phases 4-7 and 9-11, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -1022,15 +1048,15 @@ def main_path(torch, dev, rparams, folds) -> dict:
 # phase 5: serving from a whole-slide image
 # ---------------------------------------------------------------------------
 
-def make_slide(torch, dev, seed: int):
-    """A synthetic AppMag-20 slide: an 8192 x 8192 level 0 of background
+def make_slide(torch, dev, seed: int, side: int = WSI_SIDE):
+    """A synthetic AppMag-20 slide: a ``side`` x ``side`` (8192) level 0 of background
     (242) with a textured tissue ellipse over about 75% of it (the colour
     and texture of tests/test_pipeline_e2e.synthetic_wsi), and a 4x-down
     level 1, built on the card from a seed and held on the host."""
     from sequoia_tpu_torch.data.wsi import ArrayReader
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = WSI_SIDE
+    n = side
     ys = torch.arange(n, device=dev, dtype=torch.float32)[:, None]
     xs = torch.arange(n, device=dev, dtype=torch.float32)[None, :]
     ellipse = ((ys - n * (0.5 + 0.01 * seed)) / (0.5 * n)) ** 2 + (
@@ -3281,6 +3307,511 @@ def stages_path(torch, dev, kept: list, test_results=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: multi-GPU and multi-host paths on one card
+# ---------------------------------------------------------------------------
+
+# the sharded train step at full width: the reference's batch of 16 over
+# (100, 2048) cluster features, the 20,820-gene head, PAR_STEPS AdamW steps;
+# a world of one against the unsharded loop within PAR_REL, two gloo ranks
+# against one process: loss and mae at 1e-5, corr and every leaf's first
+# AdamW moment (max |diff| / max |single|) at 1e-4, the CPU tests'
+# tolerances (tests/test_multihost.py:95-98, tests/test_torch_multihost.py);
+# every parameter leaf's update after the steps, ||sharded - single|| /
+# ||single - initial||, at PAR_UPDATE_RTOL.  Not the parameters' max
+# relative error: AdamW's first steps move an element by about lr whatever
+# its gradient's size, so an element whose gradient cancels to rounding
+# moves by a different few % of lr under any change of summation order
+# (pure data parallelism included); it is printed, not held
+PAR_STEPS, PAR_TIMED, PAR_REL = 2, 5, 1e-6
+PAR_LOSS_RTOL, PAR_CORR_RTOL, PAR_UPDATE_RTOL = 1e-5, 1e-4, 1e-3
+# the data-parallel checks: a feature, prediction or map over a (2, 1) mesh
+# of the card against one device at the per-device batch (the same shapes
+# through the same kernels), max |dp - single| / max |single|; only the
+# window sums (chunks of another length) and the (1, 2) head's column
+# blocks may reorder f32 sums
+PAR_DP_TOL = 1e-5
+# the fleet CLIs' slide side and patch store
+PAR_SLIDE_SIDE, PAR_FLEET_PATCHES = 2048, 64
+
+
+def par_case(torch, dev):
+    """The full-width ViS (f32), its apply and PAR_STEPS batches, drawn on
+    the card from seeds (equal in every process on the card).  The targets
+    are the model's first prediction plus unit noise, so the mean per-gene
+    r is far from 0 and its relative error means something."""
+    from sequoia_tpu_torch.data.dataset import Batch
+
+    cfg, params, apply_fn = train_model(torch, dev, "vis", seed=1100)
+    g = torch.Generator(device=dev).manual_seed(1101)
+    batches = []
+    for _ in range(PAR_STEPS):
+        x, y, v = batch_on(torch, dev, g, D, GENES)
+        with torch.no_grad():
+            pred = apply_fn(params, x)
+        y = pred / pred.std() + y
+        batches.append(Batch(x.cpu().numpy(), y.cpu().numpy(), v.cpu().numpy(),
+                             [""] * TRAIN_BATCH, [""] * TRAIN_BATCH))
+    return cfg, params, apply_fn, batches
+
+
+def par_rank(tmp: str, device: str) -> dict:
+    """One of two gloo ranks on cuda:0: PAR_STEPS sharded steps over the
+    (data=1, model=2) mesh and over the (data=2, model=1) mesh of the same
+    world, the whole parameters and first moments after them (gathered)
+    against the same steps unsharded (run here first), each rank's head and
+    AdamW-moment bytes, and a ``torch.distributed.checkpoint``
+    round trip of the (1, 2) state (saved there, loaded there and on the
+    (2, 1) mesh)."""
+    import torch
+    from sequoia_tpu_torch.ops.nn import precision
+    from sequoia_tpu_torch.parallel import multihost as mh
+    from sequoia_tpu_torch.parallel import sharding as sh
+    from sequoia_tpu_torch.train import checkpoint, loop
+
+    precision()
+    dev = torch.device(device)
+    cfg, full, apply_fn, batches = par_case(torch, dev)
+    p1 = loop.tree_map(lambda t: t.detach().clone().requires_grad_(True), full)
+    opt1 = loop.make_adamw(p1, lr=TRAIN_LR)
+    step1, _ = loop.make_step_fns(apply_fn, opt1)
+    for b in batches:
+        step1(p1, *(torch.from_numpy(a).to(dev) for a in (b.features, b.rna, b.valid)))
+    def named(tree):
+        return dict(zip(leaf_paths(tree), loop.tree_leaves(tree)))
+
+    single = {"params": named(p1),
+              "mu": named(loop.tree_map(lambda t: opt1.state[t]["exp_avg"], p1))}
+    del opt1, step1
+    out, whole = {}, None
+    path = os.path.join(tmp, "dcp")
+    for n_model in (2, 1):
+        mesh = mh.make_global_mesh(n_model=n_model, device=dev, local_size=2)
+        p = loop.tree_map(lambda t: t.requires_grad_(True), sh.shard_params(mesh, full))
+        opt = loop.make_adamw(p, lr=TRAIN_LR)
+        step, _ = loop.make_sharded_step_fns(apply_fn, opt, mesh, apply_fn.head_input)
+        metrics = []
+        for b in batches:
+            args = sh.shard_batch_arrays(mesh, *(torch.from_numpy(a) for a in (
+                b.features, b.rna, b.valid)))
+            metrics.append({k: float(v) for k, v in step(p, *args).items()})
+        mu = loop.tree_map(lambda t: opt.state[t]["exp_avg"], p)
+        # per leaf max |sharded - single| / max |single|; the update's norm
+        rel, upd, init = {}, {}, named(full)
+        for k, t in (("params", p), ("mu", mu)):
+            rel[k] = {}
+            for leaf, a in named(sh.gather_params(mesh, t)).items():
+                a, b = a.detach().float(), single[k][leaf].detach().float()
+                rel[k][leaf] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                if k == "params":
+                    upd[leaf] = float((a - b).norm()
+                                      / (b - init[leaf].float()).norm().clamp(min=1e-30))
+        worst_leaf = max(rel["params"], key=rel["params"].get)
+        res = {"metrics": metrics, "update_max_rel": max(upd.values()),
+               "moments_max_rel": max(rel["mu"].values()),
+               "params_max_rel": [worst_leaf, rel["params"][worst_leaf]],
+               "head_bytes": p["head_w"].numel() * p["head_w"].element_size(),
+               "moment_bytes": sum(opt.state[p["head_w"]][k].numel() * 4
+                                   for k in ("exp_avg", "exp_avg_sq"))}
+        state = {"params": p, "mu": mu}
+        state_specs = {"params": sh.param_pspecs(p), "mu": sh.param_pspecs(mu)}
+        like = loop.tree_map(torch.zeros_like, state)
+        if n_model == 2:
+            mh.barrier(mesh)
+            t0 = time.perf_counter()
+            checkpoint.save_sharded(path, state, mesh, state_specs)
+            res["dcp_save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = checkpoint.load_sharded(path, like, mesh, state_specs)
+            res["dcp_load_s"] = time.perf_counter() - t0
+            res["dcp_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+                loop.tree_leaves(got), loop.tree_leaves(state)))
+            whole = {k: sh.gather_params(mesh, v) for k, v in state.items()}
+        else:  # the (1, 2) checkpoint read into the (2, 1) layout: the whole head
+            t0 = time.perf_counter()
+            got = checkpoint.load_sharded(path, like, mesh, state_specs)
+            res["dcp_reshard_load_s"] = time.perf_counter() - t0
+            res["dcp_reshard_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+                loop.tree_leaves(got), loop.tree_leaves(whole)))
+        out[f"{mesh.shape['data']}x{n_model}"] = res
+    return out
+
+
+def par_train(torch, dev) -> dict:
+    """Items 1 and 2 of phase 11: the sharded train loop in an NCCL world of
+    one against the unsharded loop, ms per step both ways with the
+    all-reduce bytes per step, then two gloo ranks on the card."""
+    import functools
+    import tempfile
+
+    import torch.distributed as dist
+    from sequoia_tpu_torch.parallel import multihost as mh
+    from sequoia_tpu_torch.parallel import sharding as sh
+    from sequoia_tpu_torch.train import loop
+
+    cfg, full, apply_fn, batches = par_case(torch, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="file://" + os.path.join(tmp, "store"),
+                                world_size=1, rank=0)
+        mesh = mh.make_global_mesh(n_model=1, device=dev)
+        mh.barrier(mesh)
+        torch.cuda.synchronize()
+        res["nccl_init_s"] = time.perf_counter() - t0
+        kw = dict(num_epochs=1, phases=("train",), verbose=False, prefetch_depth=0)
+        opt = functools.partial(loop.make_adamw, lr=TRAIN_LR)
+        runs = {}
+        for name, m in (("sharded", mesh), ("unsharded", None)):
+            r = loop.train(apply_fn, full, opt, {"train": batches}, mesh=m, device=dev, **kw)
+            runs[name] = (r.history[0]["train"], r.final_params)
+        (hs, ps), (hu, pu) = runs["sharded"], runs["unsharded"]
+        m_rel = max(abs(hs[k] - hu[k]) / max(abs(hu[k]), 1e-30) for k in hu)
+        p_rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    for a, b in zip(loop.tree_leaves(ps), loop.tree_leaves(pu)))
+        if m_rel > PAR_REL or p_rel > PAR_REL:
+            raise AssertionError(f"parallel_train: world of one off the unsharded loop: "
+                                 f"metrics {m_rel:.3g}, params {p_rel:.3g} > {PAR_REL:g}")
+        res["world1"] = {"steps": PAR_STEPS, "metrics": hs, "metrics_max_rel": m_rel,
+                         "params_max_rel": p_rel, "tol": PAR_REL}
+
+        # ms per step: CUDA events over PAR_TIMED steps after one warm-up
+        arrays = [tuple(torch.from_numpy(a) for a in (b.features, b.rna, b.valid))
+                  for b in batches]
+        timing = {}
+        for name in ("sharded", "unsharded"):
+            if name == "sharded":
+                p = loop.tree_map(lambda t: t.requires_grad_(True), sh.shard_params(mesh, full))
+                step, _ = loop.make_sharded_step_fns(apply_fn, loop.make_adamw(p, lr=TRAIN_LR),
+                                                     mesh)
+                args = [sh.shard_batch_arrays(mesh, *a) for a in arrays]
+            else:
+                p = loop.tree_map(lambda t: t.detach().clone().requires_grad_(True), full)
+                step, _ = loop.make_step_fns(apply_fn, loop.make_adamw(p, lr=TRAIN_LR))
+                args = [tuple(t.to(dev) for t in a) for a in arrays]
+            step(p, *args[0])
+            torch.cuda.synchronize()
+            calls, nbytes = mh.COLLECTIVES["calls"], mh.COLLECTIVES["bytes"]
+            t = time_ms(torch, lambda: step(p, *args[1 % len(args)]), PAR_TIMED)
+            timing[name] = {"ms_per_step": t,
+                            "all_reduces_per_step": (mh.COLLECTIVES["calls"] - calls)
+                            / (PAR_TIMED + 1),
+                            "all_reduce_bytes_per_step": (mh.COLLECTIVES["bytes"] - nbytes)
+                            / (PAR_TIMED + 1)}
+            del p, step, args
+        res["timing"] = timing
+        res["head_shard_mib"] = full["head_w"].numel() * 4 / 2**20
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # two gloo ranks sharing the card: (1, 2) and (2, 1) against one process
+        p = loop.tree_map(lambda t: t.detach().clone().requires_grad_(True), full)
+        step, _ = loop.make_step_fns(apply_fn, loop.make_adamw(p, lr=TRAIN_LR))
+        single = [{k: float(v) for k, v in step(p, *(t.to(dev) for t in a)).items()}
+                  for a in arrays]
+        del p, step, full
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one = "cuda:0" if dev.type == "cuda" else "cpu"
+        ranks = mh.spawn_local(par_rank, 2, (tmp, one), backend="gloo", devices=[one, one],
+                               timeout=600.0)
+        gloo = {"seconds": time.perf_counter() - t0, "single_metrics": single}
+        full_bytes = 4 * D * GENES
+        for name in ranks[0]:
+            worst = {"loss": 0.0, "corr": 0.0, "mae": 0.0}
+            for r in ranks:
+                for got, want in zip(r[name]["metrics"], single):
+                    for k in worst:
+                        worst[k] = max(worst[k], abs(got[k] - want[k]) / abs(want[k]))
+            n_model = int(name.split("x")[1])
+            heads = [r[name]["head_bytes"] for r in ranks]
+            moments = [r[name]["moment_bytes"] for r in ranks]
+            u_rel = max(r[name]["update_max_rel"] for r in ranks)
+            mu_rel = max(r[name]["moments_max_rel"] for r in ranks)
+            gloo[name] = {"metrics_max_rel": worst, "update_max_rel": u_rel,
+                          "moments_max_rel": mu_rel,
+                          "params_max_rel": ranks[0][name]["params_max_rel"],
+                          "head_bytes_per_rank": heads,
+                          "moment_bytes_per_rank": moments,
+                          **{k: v for k, v in ranks[0][name].items()
+                             if k.startswith("dcp")}}
+            if (max(worst["loss"], worst["mae"]) > PAR_LOSS_RTOL
+                    or max(worst["corr"], mu_rel) > PAR_CORR_RTOL or u_rel > PAR_UPDATE_RTOL):
+                raise AssertionError(f"parallel_gloo {name}: {worst}, moments {mu_rel:.3g}, "
+                                     f"updates {u_rel:.3g} past loss and mae "
+                                     f"{PAR_LOSS_RTOL:g} / corr and moments {PAR_CORR_RTOL:g} "
+                                     f"/ updates {PAR_UPDATE_RTOL:g}")
+            if any(h * n_model != full_bytes for h in heads) or any(
+                    m * n_model != 2 * full_bytes for m in moments):
+                raise AssertionError(f"parallel_gloo {name}: head {heads} / moments {moments} "
+                                     f"bytes are not 1/{n_model} of the whole")
+            for key in ("dcp_bit_equal", "dcp_reshard_bit_equal"):
+                if any(r[name].get(key) is False for r in ranks):
+                    raise AssertionError(f"parallel_dcp {name}: {key} fails")
+        res["gloo"] = gloo
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil_rmtree(tmp)
+    return res
+
+
+def shutil_rmtree(path: str) -> None:
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def rel_diff(torch, a, b) -> float:
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def par_dp(torch, dev, folds, launches: dict) -> dict:
+    """Item 3: in-process data parallelism over a (2, 1) mesh of the one
+    card against the same call on the card alone at the per-device batch:
+    K4 extraction
+    (``load_extractor(data_parallel=True)``), a serving slide through K4,
+    K5 and K1, the window stage over (2, 1) and (1, 2), and one batch
+    through K2 and K3.  Adds the data-parallel runs' launches to
+    ``launches``."""
+    import numpy as np
+    import pandas as pd
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.cli import serve as cli
+    from sequoia_tpu_torch.cli.compute_features import load_extractor
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.parallel import sharding as sh
+    from sequoia_tpu_torch.pipeline import spatial
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+
+    two = [dev, dev]
+    res = {}
+
+    def counted(fn):
+        before = dict(_build.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += _build.LAUNCHES[k] - before[k]
+        return out
+
+    def held(name, got, want, extra=None):
+        rel = rel_diff(torch, got, want)
+        res[name] = {"max_rel_diff": rel, "bit_equal": bool(torch.equal(
+            torch.as_tensor(got), torch.as_tensor(want))), "tol": PAR_DP_TOL, **(extra or {})}
+        if not rel <= PAR_DP_TOL:
+            raise AssertionError(f"parallel_dp {name}: {rel:.3g} > {PAR_DP_TOL:g}")
+
+    g = torch.Generator(device=dev).manual_seed(1110)
+    u8 = torch.randint(0, 256, (FEAT_BATCH, PATCH, PATCH, 3), generator=g, device=dev,
+                       dtype=torch.uint8)
+    kw = dict(device=dev, fused_stages=(1, 2, 3, 4))
+    half = FEAT_BATCH // 2
+    one = load_extractor("resnet", "random", half, "bfloat16", **kw)
+    dp = load_extractor("resnet", "random", FEAT_BATCH, "bfloat16", True, devices=two, **kw)
+    before = launches["bottleneck_chain"]
+    held("extractor_k4", counted(lambda: dp.features(u8)), one.features(u8),
+         {"mesh": dp.mesh.shape, "k4_launches": launches["bottleneck_chain"] - before})
+    del one, dp
+
+    params = resnet.random_params(torch.Generator(device=dev).manual_seed(1111))
+    cfg = resnet.ResNetConfig(compute_dtype=torch.bfloat16, early_pallas=True, cp_stages=(2, 3, 4))
+    one = FeatureExtractor("resnet", params, batch_size=half, cfg=cfg, device=dev)
+    dp = FeatureExtractor("resnet", params, batch_size=FEAT_BATCH, cfg=cfg,
+                          mesh=sh.make_mesh(2, 1, two))
+    before = {k: launches[k] for k in ("stem16", "bottleneck_chain_cp")}
+    held("extractor_k2_k3", counted(lambda: dp.features(u8)), one.features(u8),
+         {k + "_launches": launches[k] - before[k] for k in before})
+    del one, dp, params, u8
+
+    kwp = dict(device=dev, batch_size=FEAT_BATCH, n_clusters=K, patch_size=PATCH)
+    models = [(dataclasses.replace(c, compute_dtype="bfloat16"), p) for c, p in folds]
+    fast, _ = cli.build_predictor("resnet", "random", models, **{**kwp, "batch_size": half})
+    dpp, line = cli.build_predictor("resnet", "random", models, data_parallel=True,
+                                    devices=two, **kwp)
+    slide = make_slide(torch, dev, 1)
+    warm = torch.randint(0, 256, (FEAT_BATCH, PATCH, PATCH, 3), generator=g, device=dev,
+                         dtype=torch.uint8)
+    for p in (fast, dpp):  # cuDNN plans and the allocator at both batches first
+        p.predict_patches(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = counted(lambda: dpp.predict_wsi(slide))
+    dp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fast.predict_wsi(slide)
+    torch.cuda.synchronize()
+    held("serving_slide", got, want, {"kernels_line": line, "seconds_dp": dp_s,
+                                      "seconds_single": time.perf_counter() - t0})
+    del fast, dpp, slide
+
+    side, ntok = 24, K
+    xs, ys = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    df = pd.DataFrame({"xcoord_tf": xs.ravel(), "ycoord_tf": ys.ravel()})
+    feats = torch.randn((side * side, D), generator=g, device=dev).cpu().numpy()
+    fold_params = {i: p for i, (_, p) in enumerate(folds)}
+    vcfg = folds[0][0]
+    genes = np.arange(GENES)
+    plain = spatial.make_vis_stacked_predict_fn(vcfg, fold_params)
+    wants = {nd: spatial.sliding_window_predict_arrays(
+        feats, df, plain, genes, num_tokens=ntok, accumulate="device",
+        batch_windows=64 // nd)[1] for nd in (1, 2)}
+    for shape in ((2, 1), (1, 2)):
+        want = wants[shape[0]]
+        mesh = sh.make_mesh(*shape, devices=two)
+        multi = spatial.make_vis_stacked_predict_fn(vcfg, fold_params, mesh=mesh)
+        t0 = time.perf_counter()
+        _, got, _ = counted(lambda: spatial.sliding_window_predict_arrays(
+            feats, df, multi, genes, num_tokens=ntok, accumulate="device", mesh=mesh))
+        cell = multi.raw_fwd.cells[0][0]
+        head = sum(p["head_w"].numel() * p["head_w"].element_size() for p in cell.values())
+        held(f"windows_{shape[0]}x{shape[1]}", np.stack([got[f] for f in sorted(got)]),
+             np.stack([want[f] for f in sorted(want)]),
+             {"seconds": time.perf_counter() - t0, "head_mib_per_device": head / 2**20})
+        del multi
+    return res
+
+
+def par_fleet(torch, dev, folds, launches: dict) -> dict:
+    """Item 4: ``cli.serve --multihost`` and ``cli.compute_features
+    --multihost`` in a gloo world of one (a file store through
+    ``--coordinator``): the part file equals the CSV without the flag, and
+    the feature fleet covers every row."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+    import torch.distributed as dist
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.cli import compute_features as cf_cli
+    from sequoia_tpu_torch.cli import serve as cli
+    from sequoia_tpu_torch.models import convert, vis
+    from sequoia_tpu_torch.train import checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    res = {}
+
+    def fleet(name):
+        return ["--multihost", "--coordinator", "file://" + os.path.join(tmp, f"store_{name}"),
+                "--num_processes", "1", "--process_id", "0"]
+
+    def counted(fn):
+        before = dict(_build.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += _build.LAUNCHES[k] - before[k]
+        return out
+
+    try:
+        genes = [f"GENE{i:05d}" for i in range(PANEL)]
+        cfg, params = vis.slice_head(*folds[0], list(range(PANEL)))
+        exp = os.path.join(tmp, "exp")
+        checkpoint.save_torch_state_dict(convert.vis_to_torch(cfg, params),
+                                         os.path.join(exp, "model_best_0.pt"))
+        with open(os.path.join(exp, "test_results.pkl"), "wb") as f:
+            pickle.dump({"genes": genes}, f)
+        try:
+            import PIL  # noqa: F401
+
+            writer = "pillow"
+        except ImportError:
+            writer = None
+        if writer is not None:
+            path = os.path.join(tmp, "slide.tiff")
+            write_slide_file(make_slide(torch, dev, 3, side=PAR_SLIDE_SIDE), path, writer)
+            args = ["--wsi", path, "--checkpoints", exp, "--weights", "random",
+                    "--batch_size", str(FEAT_BATCH), "--num_clusters", str(K),
+                    "--patch_size", str(PATCH), "--device", dev.type]
+            plain = os.path.join(tmp, "preds.csv")
+            cli.main([*args, "--out", plain])
+            t0 = time.perf_counter()
+            got = counted(lambda: cli.main([*args, "--out", plain, *fleet("serve")]))
+            secs = time.perf_counter() - t0
+            dist.destroy_process_group()
+            part = os.path.join(tmp, "preds.part0.csv")
+            a, b = read_csv(part), read_csv(plain)
+            same = a[0] == b[0] and a[1] == b[1] and np.array_equal(a[2], b[2])
+            res["serve_multihost"] = {"out": os.path.basename(got["out"]), "slides": got["slides"],
+                                      "seconds": secs, "equal_to_plain_csv": same}
+            if not same:
+                raise AssertionError("parallel_fleet: serve --multihost .part0 differs from "
+                                     "the CSV without the flag")
+        else:
+            res["serve_multihost"] = "skipped: no slide writer (Pillow does not import)"
+
+        ctx, source = h5_or_memory()
+        with ctx:
+            import h5py
+
+            ids = ["TCGA-FLT-01", "TCGA-FLT-02"]
+            g = torch.Generator(device=dev).manual_seed(1120)
+            for sid in ids:
+                u8 = torch.randint(0, 256, (PAR_FLEET_PATCHES, PATCH, PATCH, 3), generator=g,
+                                   device=dev, dtype=torch.uint8).cpu().numpy()
+                os.makedirs(os.path.join(tmp, "packed", sid))
+                with h5py.File(os.path.join(tmp, "packed", sid, f"{sid}.hdf5"), "w") as f:
+                    f.create_dataset("patches", data=u8)
+                    f.create_dataset("coords", data=np.stack(
+                        [np.arange(PAR_FLEET_PATCHES) * PATCH,
+                         np.zeros(PAR_FLEET_PATCHES, np.int64)], 1).astype(np.int64))
+            ref = os.path.join(tmp, "ref.csv")
+            pd.DataFrame({"wsi_file_name": [f"{s}.svs" for s in ids], "patient_id": ids,
+                          "tcga_project": "TCGA-FLT"}).to_csv(ref, index=False)
+            out = os.path.join(tmp, "features")
+            t0 = time.perf_counter()
+            got = counted(lambda: cf_cli.main([
+                "--ref_file", ref, "--patch_data_path", os.path.join(tmp, "packed"),
+                "--feature_path", out, "--weights", "random", "--batch_size", "32",
+                "--compute_dtype", "bfloat16", "--data_parallel", "--device", dev.type,
+                *fleet("features")]))
+            secs = time.perf_counter() - t0
+            dist.destroy_process_group()
+            shapes = []
+            for sid in ids:
+                with h5py.File(os.path.join(out, "TCGA-FLT", sid, f"{sid}.h5"), "r") as f:
+                    shapes.append(list(f["resnet_features"][:].shape))
+            res["compute_features_multihost"] = {"slides": got["slides"], "shapes": shapes,
+                                                 "seconds": secs, "store": source}
+            if got["slides"] != len(ids) or shapes != [[PAR_FLEET_PATCHES, D]] * len(ids):
+                raise AssertionError(f"parallel_fleet: compute_features --multihost wrote "
+                                     f"{got['slides']} slides {shapes}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil_rmtree(tmp)
+    return res
+
+
+def parallel_path(torch, dev, folds=None) -> dict:
+    """Phase 11; returns the kernels' launch counts of its data-parallel and
+    fleet runs."""
+    from sequoia_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    if folds is None:
+        _, folds = models(torch, dev)
+    launches = {k: 0 for k in _build.LAUNCHES}
+    train = par_train(torch, dev)
+    emit({"phase": "parallel_train", **{k: v for k, v in train.items() if k != "gloo"}})
+    emit({"phase": "parallel_gloo", **train["gloo"]})
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel_dp", **par_dp(torch, dev, folds, launches)})
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel_fleet", **par_fleet(torch, dev, folds, launches)})
+    check_launched(launches, ("stem16", "bottleneck_chain_cp", "bottleneck_chain",
+                              "lloyd_stats", "vis_blocks_fused"), "parallel path")
+    emit({"phase": "parallel_launches", **launches,
+          "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -3336,7 +3867,7 @@ def main() -> int:
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
     known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
-                                      "aggregators_path", "stages_path"]
+                                      "aggregators_path", "stages_path", "parallel_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -3367,6 +3898,8 @@ def main() -> int:
             aggregators_path(torch, dev)
         if "stages_path" in only:
             stages_path(torch, dev, [None, None])
+        if "parallel_path" in only:
+            parallel_path(torch, dev)
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
@@ -3394,7 +3927,10 @@ def main() -> int:
     agg = aggregators_path(torch, dev)
     torch.cuda.empty_cache()
     stages = stages_path(torch, dev, kept, keep.pop("test_results"))
-    launches = {k: main[k] + wsi[k] + served[k] + uni[k] + agg[k] + stages[k] for k in results}
+    torch.cuda.empty_cache()
+    par = parallel_path(torch, dev)
+    launches = {k: main[k] + wsi[k] + served[k] + uni[k] + agg[k] + stages[k] + par[k]
+                for k in results}
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],

@@ -19,9 +19,13 @@ CUDA.  On CUDA with ``--feat_type resnet`` it extracts through the K4 kernel
 in every ResNet stage (``fused_stages=(1, 2, 3, 4)``, as serving does) and
 names the kernel set on stderr; ``--kernels off`` or ``--device cpu`` runs
 the plain PyTorch versions.  Where it differs from the JAX CLI: ``--device``
-and ``--kernels`` are new; the JAX compile-cache flag is gone;
-``--data_parallel`` and the multi-host fleet flags stop at parse time
-(ROADMAP.md queue 1 item 8).
+and ``--kernels`` are new; ``--compilation_cache`` is accepted and unused.
+
+``--data_parallel`` splits each patch batch over this process's devices
+(every CUDA device; the CPU is one device), ``batch_size`` dividing by
+their count.  ``--multihost`` gives each rank of a fleet its contiguous
+share of the ref file's rows (``parallel.multihost.fleet_shard_rows``); the
+ranks share nothing else and write the usual per-slide files.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import sys
 
 import torch
 
-from sequoia_tpu_torch.cli import MULTI_GPU, NotPorted, add_fleet_args
+from sequoia_tpu_torch.cli import add_compile_cache_arg, add_fleet_args
 from sequoia_tpu_torch.models import resnet, uni_vit
 from sequoia_tpu_torch.ops.nn import compute_dtype as to_dtype
 from sequoia_tpu_torch.pipeline.features import FeatureExtractor, compute_features
@@ -43,15 +47,25 @@ from sequoia_tpu_torch.utils.profiling import StageTimer
 
 def load_extractor(feat_type: str, weights: str, batch_size: int,
                    compute_dtype: str = "float32", data_parallel: bool = False, *,
-                   device=None, fused_stages: tuple[int, ...] = ()) -> FeatureExtractor:
+                   device=None, fused_stages: tuple[int, ...] = (),
+                   devices=None) -> FeatureExtractor:
     """A :class:`FeatureExtractor` on ``device`` (CUDA unless given, as every
     entry point), ``fused_stages`` running those ResNet stages' stride-1
-    blocks through the K4 kernel (a ResNet option only)."""
+    blocks through the K4 kernel (a ResNet option only).
+
+    ``data_parallel``: a data mesh over ``devices``, by default this
+    process's devices of ``device``'s type (local devices only, as in JAX:
+    a fleet rank drives its own)."""
     if feat_type not in ("resnet", "uni"):
         raise ValueError('feat_type must be "resnet" or "uni"')
+    mesh = None
     if data_parallel:
-        raise NotImplementedError("data_parallel is not ported yet (ROADMAP.md queue 1 "
-                                  "item 8)")
+        from sequoia_tpu_torch.parallel import sharding as sh
+
+        dev = resolve_device(device)
+        local = list(devices) if devices is not None else sh.local_devices(dev.type)
+        mesh = sh.make_mesh(n_data=len(local), n_model=1, devices=local)
+        device = mesh.first
     dtype = to_dtype(compute_dtype)
     if feat_type == "uni":
         if fused_stages:
@@ -64,13 +78,14 @@ def load_extractor(feat_type: str, weights: str, batch_size: int,
             cfg, params = uni_vit.uni_from_torch(checkpoint.load_torch_checkpoint(weights))
         cfg = dataclasses.replace(cfg, compute_dtype=dtype)
         return FeatureExtractor(feat_type, params, batch_size=batch_size, cfg=cfg,
-                                device=device)
+                                device=device, mesh=mesh)
     if weights == "random":
         params = resnet.random_params(torch.Generator().manual_seed(0))
     else:
         params = resnet.resnet50_from_torch(checkpoint.load_torch_checkpoint(weights))
     cfg = resnet.ResNetConfig(compute_dtype=dtype, fused_stages=tuple(fused_stages))
-    return FeatureExtractor(feat_type, params, batch_size=batch_size, cfg=cfg, device=device)
+    return FeatureExtractor(feat_type, params, batch_size=batch_size, cfg=cfg, device=device,
+                            mesh=mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,7 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (the default; raises without CUDA) or cpu")
     p.add_argument("--kernels", default="on", choices=["on", "off"],
                    help="extract with the CUDA kernel K4 (on) or the plain PyTorch versions")
-    p.add_argument("--data_parallel", nargs=0, action=NotPorted, item=MULTI_GPU)
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split patch batches over this process's devices (batch_size "
+                        "must divide evenly by the device count)")
+    add_compile_cache_arg(p)
     add_fleet_args(p)
     return p
 
@@ -109,12 +127,16 @@ def main(argv=None) -> dict:
     if args.tcga_projects:
         df = df[df["tcga_project"].isin(args.tcga_projects)]
     df = df.iloc[args.start:args.end]
+    from sequoia_tpu_torch.parallel import multihost
+
+    df = multihost.fleet_shard_rows(df, args)
+    dev = multihost.fleet_device(args, dev)
     print(f"Number of slides = {df.shape[0]}")
 
     kernels = (["bottleneck_chain"] if dev.type == "cuda" and args.kernels == "on"
                and args.feat_type == "resnet" else [])
     extractor = load_extractor(args.feat_type, args.weights, args.batch_size,
-                               args.compute_dtype, device=dev,
+                               args.compute_dtype, args.data_parallel, device=dev,
                                fused_stages=(1, 2, 3, 4) if kernels else ())
     print(f"compute_features: {dev.type}, kernels: "
           + (", ".join(kernels) or "none (plain PyTorch)"), file=sys.stderr)

@@ -8,8 +8,8 @@ __main__ contract, the same flags and outputs:
     python -m sequoia_tpu_torch.cli.he2rna --path_csv ref.csv --feature_path features
 
 It runs on CUDA unless ``--device cpu`` is given, and raises without CUDA.
-Where it differs from the JAX CLI: ``--device`` is new; the JAX
-compile-cache flag is gone.
+Where it differs from the JAX CLI: ``--device`` is new;
+``--compilation_cache`` is accepted and unused.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 
+from sequoia_tpu_torch.cli import add_compile_cache_arg
 from sequoia_tpu_torch.data import dataset as ds
 from sequoia_tpu_torch.train import cv
 from sequoia_tpu_torch.utils.logging import make_log_fn
@@ -44,6 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hf_export", action="store_true",
                    help="also write per-fold PyTorchModelHubMixin layout dirs (hf_fold_{i}/) "
                         "for hub publishing")
+    add_compile_cache_arg(p)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     return p

@@ -14,8 +14,9 @@ the reference's own ``KMeans`` on the host and needs scikit-learn.  It runs on
 CUDA unless ``--device cpu`` is given, and raises without CUDA; on CUDA the
 Lloyd steps run through the K5 kernel, named on stderr, unless
 ``--kernels off``.  Where it differs from the JAX CLI: ``--device`` and
-``--kernels`` are new and ``tpu`` is ``device``; the multi-host fleet flags
-stop at parse time (ROADMAP.md queue 1 item 8).
+``--kernels`` are new, and ``tpu`` (the JAX default) is taken as ``device``.
+``--multihost`` gives each rank of a fleet its contiguous share of the ref
+file's rows (``parallel.multihost.fleet_shard_rows``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(accepted for compatibility; the fit is seeded with 0, as the "
                         "reference's KMeans(random_state=0))")
     p.add_argument("--backend", type=str, default="device",
-                   choices=["device", "hybrid", "sklearn"])
+                   choices=["device", "tpu", "hybrid", "sklearn"],
+                   help="device: kmeans++ and Lloyd on the card (tpu: the JAX name of "
+                        "it); hybrid: sklearn's seeding on the host, Lloyd on the card; "
+                        "sklearn: the reference's KMeans on the host")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     p.add_argument("--kernels", default="on", choices=["on", "off"],
@@ -58,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI; returns ``{"slides": slides clustered, "kernels": [...]}``."""
     args = build_parser().parse_args(argv)
+    if args.backend == "tpu":
+        args.backend = "device"
     import pandas as pd
 
     dev = resolve_device(None if args.device == "cuda" else args.device)
@@ -65,6 +71,10 @@ def main(argv=None) -> dict:
     if args.tcga_projects:
         df = df[df["tcga_project"].isin(args.tcga_projects)]
     df = df.iloc[args.start:args.end]
+    from sequoia_tpu_torch.parallel import multihost
+
+    df = multihost.fleet_shard_rows(df, args)
+    dev = multihost.fleet_device(args, dev)
     print(f"Number of slides = {df.shape[0]}")
 
     kernels = (["lloyd_stats"] if dev.type == "cuda" and args.kernels == "on"

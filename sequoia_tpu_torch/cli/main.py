@@ -8,9 +8,16 @@ the same outputs: ``{save_dir}/{cohort}/{exp_name}/model_best_{i}.pt`` and
         --model_type vis --train --save_on loss+corr --stop_on loss+corr
 
 It runs on CUDA unless ``--device cpu`` is given, and raises without CUDA.
-Where it differs from the JAX CLI: ``--device`` is new; the JAX
-compile-cache flag is gone; ``--mesh`` and the multi-host flags stop at parse
-time (ROADMAP.md queue 1 item 8).
+Where it differs from the JAX CLI: ``--device`` is new;
+``--compilation_cache`` is accepted and unused.
+
+Several devices: ``--mesh data=N,model=M`` trains over N x M ranks, one per
+device (``parallel.multihost``; the gene head splits over ``model``).  From a
+plain command the CLI spawns the ranks on this host itself (``cuda:0`` ..
+``cuda:NM-1``; with ``--device cpu``, NM CPU processes over gloo; more ranks
+than CUDA devices raise); under torchrun, or with ``--multihost`` and the
+coordinator triplet (one process per device, ``--process_id`` the global
+rank), it joins that world instead.  Rank 0 writes every file.
 """
 
 from __future__ import annotations
@@ -21,10 +28,14 @@ import sys
 
 import numpy as np
 
-from sequoia_tpu_torch.cli import MULTI_GPU, NotPorted, add_fleet_args
+from sequoia_tpu_torch.cli import add_compile_cache_arg, add_fleet_args
 from sequoia_tpu_torch.data import dataset as ds
 from sequoia_tpu_torch.train import cv
 from sequoia_tpu_torch.utils.logging import make_log_fn
+
+
+#: seconds the spawned ``--mesh`` ranks may run before they are killed
+SPAWN_TIMEOUT = 7 * 24 * 3600.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,13 +84,98 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint and resume the full training state per fold")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
-    p.add_argument("--mesh", type=str, default=None, action=NotPorted, item=MULTI_GPU)
+    p.add_argument("--mesh", type=str, default=None,
+                   help='device mesh for the training step, e.g. "data=8" or '
+                        '"data=4,model=2" (gene-head TP); default single-device')
+    add_compile_cache_arg(p)
     add_fleet_args(p)
     return p
 
 
-def main(argv=None) -> dict:
+def parse_mesh(spec: str | None) -> tuple[int | None, int]:
+    """``"data=4,model=2"`` -> (4, 2); a missing axis: data None, model 1."""
+    if not spec:
+        return None, 1
+    kv = dict(part.split("=") for part in spec.split(","))
+    unknown = set(kv) - {"data", "model"}
+    if unknown:
+        raise SystemExit(f"--mesh axes are data and model, got {sorted(unknown)}")
+    return (int(kv["data"]) if "data" in kv else None), int(kv.get("model", 1))
+
+
+def resolve_mesh(args):
+    """``--multihost`` or a torchrun world -> this rank's
+    ``multihost.GlobalMesh``; ``--mesh`` alone -> the string ``"spawn"``
+    (:func:`main` starts the local ranks); neither -> None."""
+    from sequoia_tpu_torch.parallel import multihost
+
+    n_data, n_model = parse_mesh(args.mesh)
+    device = None if args.device == "cuda" else args.device
+    if args.multihost or (args.mesh and multihost._in_torchrun()):
+        if not args.multihost:
+            multihost.initialize()
+        mesh = multihost.mesh_from_args(args, n_model=n_model, device=device) \
+            if args.multihost else multihost.make_global_mesh(n_model, device=device)
+        if n_data is not None and n_data != mesh.shape["data"]:
+            raise SystemExit(f"--mesh data={n_data} but the world holds "
+                             f"{mesh.shape['data']} x model={n_model} ranks")
+        return mesh
+    return "spawn" if args.mesh else None
+
+
+def _rank_main(argv):
+    """One spawned rank of ``--mesh``: join the world, run the CV."""
+    from sequoia_tpu_torch.parallel import multihost
+
     args = build_parser().parse_args(argv)
+    device = multihost.rank_device(None if args.device == "cuda" else args.device)
+    mesh = multihost.make_global_mesh(parse_mesh(args.mesh)[1], device=device)
+    _run(args, mesh)
+
+
+def _spawn(args, argv):
+    """Start the ``--mesh`` ranks on this host and wait for them; returns
+    rank 0's ``test_results.pkl``."""
+    import pickle
+
+    from sequoia_tpu_torch.parallel import multihost, sharding
+
+    n_data, n_model = parse_mesh(args.mesh)
+    if args.device == "cuda":
+        local = len(sharding.local_devices("cuda"))
+        n_data = n_data or local // n_model
+        if n_data * n_model > local:
+            raise SystemExit(f"--mesh data={n_data},model={n_model} needs "
+                             f"{n_data * n_model} CUDA devices; this host has {local}")
+        backend, devices = multihost.default_backend(), [
+            f"cuda:{r}" for r in range(n_data * n_model)]
+    else:
+        n_data = n_data or 1
+        backend, devices = "gloo", None
+    multihost.spawn_local(_rank_main, n_data * n_model, (argv,), backend=backend,
+                          devices=devices, timeout=SPAWN_TIMEOUT)
+    with open(os.path.join(_save_dir(args), "test_results.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _save_dir(args) -> str:
+    return os.path.join(args.src_path, args.save_dir, args.cohort, args.exp_name)
+
+
+def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    mesh = resolve_mesh(args)
+    if mesh == "spawn":
+        if args.device == "cuda":  # no CUDA: raise here, before any rank starts
+            from sequoia_tpu_torch.utils.device import resolve_device
+
+            resolve_device(None)
+        return _spawn(args, argv)
+    return _run(args, mesh)
+
+
+def _run(args, mesh) -> dict | None:
     import pandas as pd
 
     if args.num_genes is not None:
@@ -87,9 +183,11 @@ def main(argv=None) -> dict:
               "width goes in --change_num_genes", file=sys.stderr)
     np.random.seed(args.seed)
 
-    save_dir = os.path.join(args.src_path, args.save_dir, args.cohort, args.exp_name)
+    save_dir = _save_dir(args)
     os.makedirs(save_dir, exist_ok=True)
-    log_fn, finish = make_log_fn(args.log, config=vars(args), name=args.exp_name)
+    lead = mesh is None or mesh.rank == 0
+    log_fn, finish = make_log_fn(args.log if lead else None, config=vars(args),
+                                 name=args.exp_name)
 
     df = pd.read_csv(args.ref_file)
     if args.sample_percent is not None:
@@ -108,7 +206,7 @@ def main(argv=None) -> dict:
         seed=args.seed, save_on=args.save_on, stop_on=args.stop_on,
         do_train=args.train, checkpoint_path=args.checkpoint,
         change_num_genes=args.change_num_genes, log_fn=log_fn, resume=args.resume,
-        hf_export=args.hf_export,
+        hf_export=args.hf_export, mesh=mesh,
         compute_dtype=None if args.compute_dtype == "float32" else args.compute_dtype,
         moment_dtype=None if args.moment_dtype == "float32" else args.moment_dtype,
         device=None if args.device == "cuda" else args.device)

@@ -11,8 +11,10 @@ kept where ``--ref_file``'s ``wsi_file_name`` names them (with or without
 the extension), then cut to ``--start:--end``; ``--debug`` keeps 5 slides of
 20 patches.  A slide's id is its name up to the first dot.  The tissue
 screen runs on CUDA unless ``--device cpu`` is given, and raises without
-CUDA.  Where it differs from the JAX CLI: ``--device`` is new; the
-multi-host fleet flags stop at parse time (ROADMAP.md queue 1 item 8).
+CUDA.  Where it differs from the JAX CLI: ``--device`` is new.
+``--multihost`` gives each rank of a fleet its contiguous share of the
+sorted slide list (after ``--start:--end``), so every rank cuts the same
+list.
 """
 
 from __future__ import annotations
@@ -67,6 +69,10 @@ def main(argv=None) -> dict[str, int]:
         wanted = names | {f"{s}.svs" for s in names} | {f"{s}.tiff" for s in names}
         slide_list = sorted(set(slide_list) & wanted)
     slide_list = slide_list[args.start:args.end]
+    from sequoia_tpu_torch.parallel import multihost
+
+    slide_list = multihost.fleet_shard_rows(slide_list, args)
+    device = multihost.fleet_device(args, device)
     if args.debug:
         slide_list = slide_list[:5]
         args.max_patches_per_slide = 20

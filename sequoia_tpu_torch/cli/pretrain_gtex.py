@@ -4,7 +4,8 @@ Counterpart of ``sequoia_tpu/cli/pretrain_gtex.py`` (reference
 ``src/pretrain_gtex.py``): AdamW at lr 3e-3 for vis/vit, Adam at lr 3e-3 for
 he2rna, a date-stamped experiment name, ``--quick`` (20 slides, 5 epochs);
 writes ``{save_dir}/{date}_{exp_name}/model_best.pt`` (``model.pt`` for
-he2rna).  It runs on CUDA unless ``--device cpu`` is given.
+he2rna).  It runs on CUDA unless ``--device cpu`` is given;
+``--compilation_cache`` is accepted and unused.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import numpy as np
 import torch
 
+from sequoia_tpu_torch.cli import add_compile_cache_arg
 from sequoia_tpu_torch.data import dataset as ds
 from sequoia_tpu_torch.models import convert, he2rna
 from sequoia_tpu_torch.train import checkpoint, cv, he2rna_fit, loop
@@ -38,6 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_workers", type=int, default=8, help="(accepted for compatibility)")
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--quick", type=int, default=0)
+    add_compile_cache_arg(p)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     return p

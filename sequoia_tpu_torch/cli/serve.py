@@ -28,9 +28,7 @@ Where the port differs from the JAX CLI:
 * ``--compute_dtype`` also sets the ViS and ViT folds' compute dtype (the
   JAX CLI serves them in f32 whatever the flag; ``--compute_dtype float32``
   gives its numerics); HE2RNA folds run in f32;
-* flags the port does not serve yet (``--data_parallel``, ``--multihost``)
-  stop at parse time, naming their ROADMAP.md item; the JAX compile-cache
-  flag is gone;
+* ``--compilation_cache`` is accepted and unused;
 * no pandas: the gene lists and the CSV go through the ``csv`` module.
 """
 
@@ -47,7 +45,7 @@ import time
 
 import numpy as np
 
-from sequoia_tpu_torch.cli import NotPorted
+from sequoia_tpu_torch.cli import add_compile_cache_arg, add_fleet_args
 from sequoia_tpu_torch.cli.compute_features import load_extractor
 from sequoia_tpu_torch.models import convert, he2rna, vis, vit
 from sequoia_tpu_torch.ops import cuda_vis
@@ -168,34 +166,45 @@ def serving_kernels(device, models, kernels=SERVING_KERNELS,
 
 
 def build_extractor(feat_type: str, weights: str, on: list[str], *, device,
-                    batch_size: int, compute_dtype: str):
+                    batch_size: int, compute_dtype: str, data_parallel: bool = False,
+                    devices=None):
     """The backbone of :func:`build_predictor`: K4 in every ResNet stage where
-    ``bottleneck_chain`` is in ``on`` (removed from ``on`` for UNI)."""
+    ``bottleneck_chain`` is in ``on`` (removed from ``on`` for UNI); data
+    parallel over ``devices`` (default: this process's) with
+    ``data_parallel``."""
     if feat_type != "resnet" and "bottleneck_chain" in on:
         on.remove("bottleneck_chain")
-    return load_extractor(feat_type, weights, batch_size, compute_dtype, device=device,
-                          fused_stages=(1, 2, 3, 4) if "bottleneck_chain" in on else ())
+    kw = {"devices": devices} if devices is not None else {}
+    return load_extractor(feat_type, weights, batch_size, compute_dtype, data_parallel,
+                          device=device, fused_stages=(1, 2, 3, 4) if "bottleneck_chain" in on
+                          else (), **kw)
 
 
 def build_predictor(feat_type: str, weights: str, models, *, device=None,
                     kernels=SERVING_KERNELS, batch_size: int = 128,
                     compute_dtype: str = "bfloat16", n_clusters: int = 100,
                     max_patches: int = 4000, patch_size: int = 256,
-                    model_type: str = "vis"):
+                    model_type: str = "vis", data_parallel: bool = False, devices=None):
     """The serving predictor with the kernel set of :func:`serving_kernels`,
     less the ResNet kernel K4 for ``feat_type="uni"`` and K1 for ViT and
     HE2RNA folds.  Returns ``(SlidePredictor, line)``, the line naming the
     kernels it serves with and, where K1 is left out, why.  No kernel
-    failure is caught."""
+    failure is caught.  ``data_parallel``: the backbone over ``devices``
+    (default: this process's), k-means and the folds on the first."""
     dev = resolve_device(device)
     on, why = serving_kernels(dev, models, kernels, model_type)
     extractor = build_extractor(feat_type, weights, on, device=dev, batch_size=batch_size,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, data_parallel=data_parallel,
+                                devices=devices)
+    dev = getattr(extractor, "device", dev)
     pred = SlidePredictor(extractor, models, model_type=model_type, n_clusters=n_clusters,
                           max_patches=max_patches, patch_size=patch_size,
                           use_pallas_kmeans="lloyd_stats" in on,
                           use_fused_vis="vis_blocks_fused" in on, device=dev)
-    line = (f"serve: {dev.type}, kernels: " + (", ".join(on) or "none (plain PyTorch)")
+    mesh = getattr(extractor, "mesh", None)
+    line = (f"serve: {dev.type}"
+            + (f" x{mesh.shape['data']} (data parallel)" if mesh else "")
+            + ", kernels: " + (", ".join(on) or "none (plain PyTorch)")
             + (f"; vis_blocks_fused left out: {why}" if why else ""))
     return pred, line
 
@@ -238,8 +247,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve with the CUDA kernels (on) or the plain PyTorch versions")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler trace of the one-shot run into DIR")
-    p.add_argument("--data_parallel", nargs=0, action=NotPorted, item="queue 1 item 8")
-    p.add_argument("--multihost", nargs=0, action=NotPorted, item="queue 1 item 8")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split backbone patch batches over this process's devices")
+    add_compile_cache_arg(p)
+    add_fleet_args(p)
     return p
 
 
@@ -264,6 +275,21 @@ def main(argv=None) -> dict | None:
         raise SystemExit("--wsi and --http are mutually exclusive (the resident server "
                          "takes slides via POST /predict)")
     device = resolve_device(None if args.device == "cuda" else args.device)
+    if args.multihost:
+        # bulk scoring across a fleet: each rank serves its contiguous shard of
+        # the slide list and writes {out}.part{rank}
+        if args.http:
+            raise SystemExit("--multihost shards one-shot bulk scoring; run one --http "
+                             "server per host instead")
+        from sequoia_tpu_torch.parallel import multihost
+
+        args.wsi = list(multihost.fleet_shard_rows(args.wsi, args))
+        device = multihost.fleet_device(args, device)
+        root, ext = os.path.splitext(args.out)
+        args.out = f"{root}.part{multihost.process_index()}{ext}"
+        if not args.wsi:
+            print("[multihost] empty shard; nothing to do")
+            return None
     models = load_fold_models(args.checkpoints, args.model_type)
     width = n_outputs(models[0][0])
     genes = load_gene_names(args.gene_names, args.checkpoints, width)
@@ -286,7 +312,8 @@ def main(argv=None) -> dict | None:
         args.feat_type, args.weights, models, device=device,
         kernels=SERVING_KERNELS if args.kernels == "on" else (), batch_size=args.batch_size,
         compute_dtype=args.compute_dtype, n_clusters=args.num_clusters,
-        max_patches=args.max_patches, patch_size=args.patch_size, model_type=args.model_type)
+        max_patches=args.max_patches, patch_size=args.patch_size, model_type=args.model_type,
+        data_parallel=args.data_parallel)
     if input_width(cfg0) != pred.extractor.feature_dim:
         raise SystemExit(f"--feat_type {args.feat_type} produces "
                          f"{pred.extractor.feature_dim}-d features but the checkpoint "

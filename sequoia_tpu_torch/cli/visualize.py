@@ -21,9 +21,14 @@ Where it differs from the JAX CLI: on CUDA the ResNet tile features go
 through K4 in every stage (``cli.serve``'s kernel choice; ``--kernels off``
 runs the plain PyTorch versions, and a stderr line names the set);
 ``--device``, ``--kernels`` and ``--compute_dtype`` (the backbone's; float32
-by default, as the JAX CLI) are new; ``--data_parallel`` stops at parse time
-(ROADMAP.md queue 1 item 8).  The window stage runs ``vis.apply`` batched
-over windows, as JAX does: K1 takes one slide at a time and is not on it.
+by default, as the JAX CLI) are new.  The window stage runs ``vis.apply``
+batched over windows, as JAX does: K1 takes one slide at a time and is not
+on it.
+
+``--data_parallel`` splits the tile batches over this process's devices
+and the window stage over them too (``spatial`` with the extractor's
+mesh, sums on the first device); as in JAX it needs ViS folds of one
+architecture and device accumulation, and refuses otherwise.
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ import sys
 
 import numpy as np
 
-from sequoia_tpu_torch.cli import NotPorted
 from sequoia_tpu_torch.cli.serve import build_extractor, serving_kernels
 from sequoia_tpu_torch.data.wsi import open_slide
 from sequoia_tpu_torch.models import convert
@@ -74,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (the default; raises without CUDA) or cpu")
     p.add_argument("--kernels", default="on", choices=["on", "off"],
                    help="ResNet tiles through the K4 kernel (on) or the plain PyTorch versions")
-    p.add_argument("--data_parallel", nargs=0, action=NotPorted, item="queue 1 item 8")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split tile batches and windows over this process's devices "
+                        "(vis folds of one architecture, device accumulation)")
     return p
 
 
@@ -123,10 +129,12 @@ def fold_checkpoint(ckpt_dir: str, fold: int, model_type: str) -> str:
     return ckpt
 
 
-def load_fold_predictors(ckpt_dir: str, folds: list[int], model_type: str, device):
+def load_fold_predictors(ckpt_dir: str, folds: list[int], model_type: str, device,
+                         mesh=None):
     """``(fold_models, num_tokens)``: one stacked predictor for ViS folds of
-    one architecture, else ``{fold: predict_fn}``; the token budget of the
-    windows is the models' ``num_clusters`` (100 for HE2RNA)."""
+    one architecture (sharded over ``mesh`` when given), else ``{fold:
+    predict_fn}``; the token budget of the windows is the models'
+    ``num_clusters`` (100 for HE2RNA)."""
     fold_models, vis_cfg, vis_params, cfg = {}, None, {}, None
     for fold in folds:
         sd = checkpoint.load_torch_checkpoint(fold_checkpoint(ckpt_dir, fold, model_type))
@@ -143,7 +151,9 @@ def load_fold_predictors(ckpt_dir: str, folds: list[int], model_type: str, devic
             cfg, params = convert.he2rna_from_torch(sd)
             fold_models[fold] = spatial.make_he2rna_predict_fn(cfg, tree_to(params, device))
     if model_type == "vis" and len(vis_params) == len(folds):
-        fold_models = spatial.make_vis_stacked_predict_fn(vis_cfg, vis_params)
+        fold_models = spatial.make_vis_stacked_predict_fn(vis_cfg, vis_params, mesh=mesh)
+    elif mesh is not None:
+        raise SystemExit("--data_parallel needs homogeneous vis folds")
     num_tokens = (vis_cfg.num_clusters if vis_cfg is not None
                   else getattr(cfg, "num_clusters", 100))
     return fold_models, num_tokens
@@ -168,12 +178,24 @@ def main(argv=None):
     slide = open_slide(slide_path)
     on, _ = serving_kernels(device, [], ("bottleneck_chain",) if args.kernels == "on" else ())
     extractor = build_extractor(args.feat_type, args.weights, on, device=device,
-                                batch_size=args.batch_size, compute_dtype=args.compute_dtype)
-    print(f"visualize: {device.type}, kernels: " + (", ".join(on) or "none (plain PyTorch)"),
-          file=sys.stderr)
+                                batch_size=args.batch_size, compute_dtype=args.compute_dtype,
+                                data_parallel=args.data_parallel)
+    mesh = getattr(extractor, "mesh", None)
+    if mesh is not None and args.model_type != "vis":
+        raise SystemExit("--data_parallel window sharding needs vis fold checkpoints "
+                         "(the stacked predictor)")
+    if mesh is not None and args.accumulate == "host":
+        # refused rather than switching an explicit float64 host sum to f32
+        raise SystemExit("--data_parallel requires device accumulation; drop --accumulate "
+                         "host (or --data_parallel)")
+    print(f"visualize: {device.type}"
+          + (f" x{mesh.shape['data']} (data parallel)" if mesh else "")
+          + ", kernels: " + (", ".join(on) or "none (plain PyTorch)"), file=sys.stderr)
 
     folds = [int(i) for i in args.folds.split(",")]
-    fold_models, num_tokens = load_fold_predictors(ckpt_dir, folds, args.model_type, device)
+    fold_models, num_tokens = load_fold_predictors(ckpt_dir, folds, args.model_type,
+                                                   getattr(extractor, "device", device),
+                                                   mesh=mesh)
 
     save_path = os.path.join("visualizations", args.project, args.save_folder,
                              args.wsi_file_name)
@@ -184,7 +206,8 @@ def main(argv=None):
                                 gene_names=gene_names, patch_size=args.patch_size,
                                 resize_factor=manual_resize, stride=args.stride,
                                 save_path=save_path, resize_patch_to=resize_to,
-                                accumulate=args.accumulate, num_tokens=num_tokens)
+                                accumulate="device" if mesh is not None else args.accumulate,
+                                num_tokens=num_tokens, mesh=mesh)
     print("Done")
     return res
 

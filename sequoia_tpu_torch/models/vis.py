@@ -117,22 +117,33 @@ def _block(cfg: ViSConfig, x: torch.Tensor, bp: dict[str, torch.Tensor]) -> torc
     return x + linear(y, bp["w2"], bp["b2"])
 
 
+def _head_norm(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token mean and LayerNorm in f32: ``(B, N, D)`` -> the gene head's
+    ``(B, D)`` input."""
+    x = tokens.float().mean(1)
+    return layer_norm(x, params["head_ln_scale"], params["head_ln_bias"])
+
+
 def head(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """Token mean, LayerNorm and the (D, G) gene head, in f32:
     ``(B, N, D)`` -> ``(B, G)``."""
-    x = tokens.float().mean(1)
-    x = layer_norm(x, params["head_ln_scale"], params["head_ln_bias"])
-    return linear(x, params["head_w"], params["head_b"])
+    return linear(_head_norm(params, tokens), params["head_w"], params["head_b"])
 
 
-def apply(cfg: ViSConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass: ``(B, N, D)`` cluster features -> ``(B, G)`` predictions."""
+def head_input(cfg: ViSConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Everything before the gene head: ``(B, N, D)`` cluster features ->
+    the ``(B, D)`` f32 rows that ``head_w``/``head_b`` map to genes."""
     if cfg.compute_dtype is not None:
         x = x.to(compute_dtype(cfg.compute_dtype))
     x = x + params["pos_emb"].to(x.dtype)
     for i in range(cfg.depth):
         x = _block(cfg, x, {k: v[i] for k, v in params["blocks"].items()})
-    return head(params, x)
+    return _head_norm(params, x)
+
+
+def apply(cfg: ViSConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Forward pass: ``(B, N, D)`` cluster features -> ``(B, G)`` predictions."""
+    return linear(head_input(cfg, params, x), params["head_w"], params["head_b"])
 
 
 def slice_head(cfg: ViSConfig, params: Params, indices) -> tuple[ViSConfig, Params]:

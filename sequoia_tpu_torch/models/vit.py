@@ -101,15 +101,20 @@ def _block(cfg: ViTConfig, x: torch.Tensor, bp: dict[str, torch.Tensor]) -> torc
     return x + linear(y, bp["w2"], bp["b2"])
 
 
-def apply(cfg: ViTConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass: ``(B, N, D)`` cluster features -> ``(B, G)`` predictions."""
+def head_input(cfg: ViTConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Everything before the gene head: ``(B, N, D)`` cluster features ->
+    the ``(B, D)`` f32 rows that ``head_w``/``head_b`` map to genes."""
     if cfg.compute_dtype is not None:
         x = x.to(compute_dtype(cfg.compute_dtype))
     x = x + params["pos_emb"].to(x.dtype)
     for i in range(cfg.depth):
         x = _block(cfg, x, {k: v[i] for k, v in params["blocks"].items()})
-    x = layer_norm(x.float().mean(1), params["head_ln_scale"], params["head_ln_bias"])
-    return linear(x, params["head_w"], params["head_b"])
+    return layer_norm(x.float().mean(1), params["head_ln_scale"], params["head_ln_bias"])
+
+
+def apply(cfg: ViTConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Forward pass: ``(B, N, D)`` cluster features -> ``(B, G)`` predictions."""
+    return linear(head_input(cfg, params, x), params["head_w"], params["head_b"])
 
 
 def slice_head(cfg: ViTConfig, params: Params, indices) -> tuple[ViTConfig, Params]:

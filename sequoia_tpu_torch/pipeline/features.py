@@ -8,8 +8,15 @@ to the full batch; the preprocessing runs on the device with the backbone
 to 224). ``raw_fwd`` is the backbone as one ``(params, u8) -> (N, D)``
 function honouring ``cfg``, so a caller can run more device work on the same
 uploaded batch (serving's tissue screen,
-``serve.SlidePredictor._fused_program``). The mesh (multi-device) mode is
-not ported yet (ROADMAP.md queue 1 item 8).
+``serve.SlidePredictor._fused_program``).
+
+With ``mesh`` (an in-process ``parallel.sharding.Mesh``) extraction is data
+parallel over the mesh's ``data`` rows: each row's first device holds a copy
+of the parameters, a batch splits into equal row shards (``batch_size`` must
+divide by the ``data`` axis, as in JAX), the shards are launched device by
+device with no sync in between, and the features are gathered on the mesh's
+first device.  The backbone mixes no examples, so no collective runs; the
+kernels the config selects run on every device.
 
 On-disk contract of the stage (reference
 ``pre_processing/compute_features_hdf5.py:99-139``):
@@ -23,6 +30,7 @@ imported inside the functions that read or write it.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random as pyrandom
 
@@ -43,8 +51,9 @@ class FeatureExtractor:
     ``feat_type="uni"``: resize to 224 (bit-exact Pillow BILINEAR, the
     reference's PIL ``Resize(224)``) -> ViT-L/16 -> 1024-d, the weights cast
     to the compute dtype once here.  ``params``: the port's parameters for
-    that backbone (moved to ``device``).  The compute dtype comes from
-    ``cfg`` or ``compute_dtype`` (f32 by default)."""
+    that backbone (moved to ``device``, or to every ``data`` row of
+    ``mesh``, whose first device is then the extractor's).  The compute
+    dtype comes from ``cfg`` or ``compute_dtype`` (f32 by default)."""
 
     #: UNI batches run through the ViT in chunks of this many patches where
     #: the batch is larger and a multiple of it (0: never); the upload
@@ -58,13 +67,21 @@ class FeatureExtractor:
         if feat_type not in ("resnet", "uni"):
             raise ValueError('feat_type must be "resnet" or "uni"')
         if mesh is not None:
-            raise NotImplementedError("mesh (multi-device) extraction is not ported "
-                                      "yet (ROADMAP.md)")
+            from sequoia_tpu_torch.parallel.sharding import in_process
+
+            in_process(mesh, "FeatureExtractor(mesh=)")
+            if batch_size % mesh.shape["data"]:
+                raise ValueError(f"batch_size {batch_size} not divisible by mesh data axis "
+                                 f"{mesh.shape['data']}")
+            if device is not None and torch.device(device) != mesh.first:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.first}")
+            device = mesh.first
         if (cfg is not None and compute_dtype is not None
                 and precision(cfg.compute_dtype) != precision(compute_dtype)):
             raise ValueError(f"cfg.compute_dtype={cfg.compute_dtype} conflicts with "
                              f"compute_dtype={compute_dtype}; set it on the cfg")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.feat_type = feat_type
         self.batch_size = batch_size
         self.patch_size = patch_size
@@ -72,24 +89,58 @@ class FeatureExtractor:
         if feat_type == "resnet":
             self.cfg = cfg or resnet_mod.ResNetConfig(compute_dtype=dt)
             self.feature_dim = self.cfg.feature_dim_for(patch_size, patch_size)
-            self.params = tree_to(params, self.device)
+
+            def place(d):
+                return tree_to(params, d)
         else:
             self.cfg = cfg or uni_vit.UniViTConfig(compute_dtype=dt)
             self.feature_dim = self.cfg.dim
-            self.params = uni_vit.prepare(self.cfg, tree_to(params, self.device))
+
+            def place(d):
+                return uni_vit.prepare(self.cfg, tree_to(params, d))
+        self.params = place(self.device)
+        # the other data rows' copies (row 0 computes with the params it is given)
+        self._replicas = [place(row[0]) for row in mesh.devices[1:]] if mesh else []
 
     def upload(self, block_u8: np.ndarray) -> torch.Tensor:
         """Host block -> the extractor's device."""
         return torch.as_tensor(block_u8).to(self.device, non_blocking=True)
 
+    def map_shards(self, fn, params, u8: torch.Tensor):
+        """``fn(params, rows)`` over the ``data`` row shards of ``u8`` (each
+        on its row's device, with its copy of the parameters; row 0 with
+        ``params``), the results (a tensor or a tuple of them) concatenated
+        on the first device.  Without a mesh, ``fn(params, u8)``."""
+        if self.mesh is None:
+            return fn(params, u8)
+        from sequoia_tpu_torch.parallel.sharding import dp_images
+
+        outs = []
+        for i, rows in enumerate(dp_images(self.mesh, u8)):
+            with _on(rows.device):  # the kernels launch on the current device's stream
+                outs.append(fn(params if i == 0 else self._replicas[i - 1], rows))
+        first = self.mesh.first
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[k].to(first, non_blocking=True) for o in outs])
+                         for k in range(len(outs[0])))
+        return torch.cat([o.to(first, non_blocking=True) for o in outs])
+
     def raw_fwd(self, params, u8: torch.Tensor) -> torch.Tensor:
         """(N, ps, ps, 3) uint8 on the device -> (N, D) f32 features through
         ``cfg`` (its kernel options included); UNI in chunks of
-        :attr:`UNI_SCAN_CHUNK`."""
+        :attr:`UNI_SCAN_CHUNK`.  Under a mesh, data parallel
+        (:meth:`map_shards`)."""
+        if self.mesh is not None:
+            return self.map_shards(self._one_fwd, params, u8)
+        return self._one_fwd(params, u8)
+
+    def _one_fwd(self, params, u8: torch.Tensor) -> torch.Tensor:
         if self.feat_type == "resnet":
             return resnet_mod.extract_from_uint8(self.cfg, params, u8)
         n, ck = u8.shape[0], self.UNI_SCAN_CHUNK
-        if ck and n > ck and n % ck == 0:
+        # under a mesh each device takes its whole shard in one call (the
+        # chunking is a single-device tiling choice, as in JAX)
+        if ck and n > ck and n % ck == 0 and self.mesh is None:
             return torch.cat([uni_vit.extract_from_uint8(self.cfg, params, u8[s:s + ck])
                               for s in range(0, n, ck)])
         return uni_vit.extract_from_uint8(self.cfg, params, u8)
@@ -117,6 +168,11 @@ class FeatureExtractor:
     def __call__(self, patches_u8) -> np.ndarray:
         """(N, ps, ps, 3) uint8 -> (N, D) f32 numpy."""
         return self.features(patches_u8).cpu().numpy()
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current CUDA device (nothing for the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def load_patches(patch_h5_path: str, max_patch_number: int | None,

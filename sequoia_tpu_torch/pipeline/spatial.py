@@ -24,9 +24,12 @@ is added to its member tiles' rows of an ``(n + 1, F * G_sel)`` f32 sum
 buffer by one product with the chunk's ``(n + 1, W)`` membership matrix
 (rows of pad index ``n`` land in the extra row, dropped at the end; with TF32
 off this sums the same f32 terms as a scatter-add, in another order).
-``mesh=`` (the JAX package's sharded window stage) is not ported
-(ROADMAP.md queue 1 item 8).  pandas and scipy are imported where a
-function needs them.
+With ``mesh=`` (an in-process ``parallel.sharding.Mesh``) the device stage
+is sharded as in JAX: each chunk's windows split over ``data`` (the chunk
+rounded up to a multiple of it), every fold's gene head splits by columns
+over ``model`` (:func:`make_vis_stacked_predict_fn` with the same mesh), and
+the overlap sums and counts are added on the mesh's first device.  pandas
+and scipy are imported where a function needs them.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ import numpy as np
 import torch
 
 from sequoia_tpu_torch.ops.nn import precision
-from sequoia_tpu_torch.train.loop import _not_ported
 
 BACKGROUND_THRESHOLD = 0.5
 
@@ -119,7 +121,8 @@ def collect_windows(df, *, stride: int = 1, window: int = 10) -> list[np.ndarray
 
 
 def _sliding_window_device(tile_feats, windows, multi_fn, gene_indices, n, dim, *,
-                           num_tokens: int, batch_windows: int, _device_sums: bool = False):
+                           num_tokens: int, batch_windows: int, _device_sums: bool = False,
+                           mesh=None):
     """The window stage on the device (``accumulate='device'``): the (n, D)
     table crosses to the device once; per chunk the padded windows are
     gathered from it (pad index n selects an appended zero row), the stacked
@@ -128,7 +131,11 @@ def _sliding_window_device(tile_feats, windows, multi_fn, gene_indices, n, dim, 
     (n + 1, F * G_sel) f32 sums (row n takes the pads and is dropped).
     Returns ``(fold_keys, means, seen)``, or with ``_device_sums`` the device
     sums ``{fold: (n, G_sel)}`` and the host counts (a benchmarking hook that
-    skips the readback)."""
+    skips the readback).  ``mesh``: chunks of a multiple of its ``data``
+    axis, which ``multi_fn.raw_fwd`` (built on the same mesh) shards."""
+    if mesh is not None:
+        nd = mesh.shape["data"]
+        batch_windows = -(-batch_windows // nd) * nd
     dev = multi_fn.device
     fold_keys = list(multi_fn.fold_keys)
     n_folds, g_sel = len(fold_keys), len(gene_indices)
@@ -199,8 +206,6 @@ def sliding_window_predict_arrays(tile_feats: np.ndarray, df, predict_fns, gene_
 
     Returns ``(fold_keys, means, seen)``: ``means[f]`` is the (n_tiles,
     G_sel) overlap-averaged table, NaN on tiles no window covers."""
-    if mesh is not None:
-        raise _not_ported("sliding_window_predict_arrays(mesh=...)")
     n, dim = tile_feats.shape
     windows = collect_windows(df, stride=stride, window=window)
     gene_indices = np.asarray(list(gene_indices), np.int64)
@@ -222,12 +227,22 @@ def sliding_window_predict_arrays(tile_feats: np.ndarray, df, predict_fns, gene_
     if accumulate == "device" and raw_fwd is None:
         raise ValueError("accumulate='device' needs a stacked predictor "
                          "(make_vis_stacked_predict_fn)")
+    if mesh is not None and raw_fwd is None:
+        raise ValueError("mesh sharding needs a stacked predictor "
+                         "(make_vis_stacked_predict_fn built with the same mesh)")
     if accumulate == "auto":
-        accumulate = "device" if raw_fwd is not None and len(gene_indices) >= 1024 else "host"
+        accumulate = ("device" if raw_fwd is not None
+                      and (mesh is not None or len(gene_indices) >= 1024) else "host")
+    if mesh is not None and accumulate != "device":
+        raise ValueError("mesh sharding requires accumulate='device'")
+    if mesh is not None:
+        from sequoia_tpu_torch.parallel.sharding import in_process
+
+        in_process(mesh, "sliding_window_predict_arrays(mesh=)")
     if accumulate == "device":
         return _sliding_window_device(tile_feats, windows, multi_fn, gene_indices, n, dim,
                                       num_tokens=num_tokens, batch_windows=batch_windows,
-                                      _device_sums=_device_sums)
+                                      _device_sums=_device_sums, mesh=mesh)
     if _device_sums:
         raise ValueError("_device_sums requires accumulate='device'")
 
@@ -302,11 +317,14 @@ def run_visualize(slide, mask_xy: np.ndarray, gene_ids: list[str], fold_models, 
     """One slide's map (reference visualize.py __main__): ``fold_models`` is
     ``{fold: predict_fn}`` or a stacked predictor; ``num_tokens`` the
     models' token budget (100 in the reference's contract).  Returns the
-    result frame and writes ``stride-{stride}.csv`` under ``save_path``."""
+    result frame and writes ``stride-{stride}.csv`` under ``save_path``.
+    ``mesh``: the sharded window stage (see the module docstring)."""
     import pandas as pd
 
     if mesh is not None:
-        raise _not_ported("run_visualize(mesh=...)")
+        from sequoia_tpu_torch.parallel.sharding import in_process
+
+        in_process(mesh, "run_visualize(mesh=)")
     if resize_factor is None:
         resize_factor = float(slide.properties.get("aperio.AppMag", 20) or 20) / 20.0
     patch_size_resized = int(resize_factor * patch_size)
@@ -329,7 +347,7 @@ def run_visualize(slide, mask_xy: np.ndarray, gene_ids: list[str], fold_models, 
                                  resize_to=resize_patch_to)
     fold_keys, means, _ = sliding_window_predict_arrays(
         tile_feats, df, fold_models, inds, stride=stride, num_tokens=num_tokens,
-        accumulate=accumulate)
+        accumulate=accumulate, mesh=mesh)
     folds = sorted(fold_keys)
     # every {gene}_{fold} and mean column in one concat (per-column inserts
     # are quadratic at --gene_names all)
@@ -396,18 +414,51 @@ def make_vis_stacked_predict_fn(cfg, fold_params: dict, mesh=None):
     qualifying window still get per-fold NaN columns), ``device`` (the
     folds' device) and ``raw_fwd`` (``(W, T, D)`` on the device -> ``(F, W,
     G)`` on the device, for ``accumulate='device'``).  Each fold runs
-    ``vis.apply`` batched over the windows."""
+    ``vis.apply`` batched over the windows.
+
+    ``mesh``: every mesh cell (i, j) holds each fold with its head's j-th
+    column block (``sharding.shard_params``; ``cells``); ``raw_fwd`` sends
+    the i-th row block of the windows to the cells of row i, launched cell
+    by cell with no sync, and joins the (F, W_i, G_j) blocks on the first
+    device, ``device``."""
     from sequoia_tpu_torch.models import vis
 
-    if mesh is not None:
-        raise _not_ported("make_vis_stacked_predict_fn(mesh=...)")
     precision()
     folds = sorted(fold_params)
-    dev = _device_of(fold_params[folds[0]])
+    if mesh is None:
+        dev = _device_of(fold_params[folds[0]])
 
-    @torch.no_grad()
-    def raw_fwd(feats_dev):
-        return torch.stack([vis.apply(cfg, fold_params[f], feats_dev) for f in folds])
+        @torch.no_grad()
+        def raw_fwd(feats_dev):
+            return torch.stack([vis.apply(cfg, fold_params[f], feats_dev) for f in folds])
+    else:
+        from sequoia_tpu_torch.parallel import sharding as sh
+        from sequoia_tpu_torch.pipeline.features import _on
+
+        dev = sh.in_process(mesh, "make_vis_stacked_predict_fn(mesh=)").first
+        grids = {f: sh.shard_params(mesh, fold_params[f]) for f in folds}
+        cells = [[{f: grids[f][i][j] for f in folds} for j, _ in enumerate(row)]
+                 for i, row in enumerate(mesh.devices)]
+
+        @torch.no_grad()
+        def raw_fwd(feats_dev):
+            nd = mesh.shape["data"]
+            if feats_dev.shape[0] % nd:
+                raise ValueError(f"{feats_dev.shape[0]} windows not divisible by mesh data "
+                                 f"axis {nd}")
+            step = feats_dev.shape[0] // nd
+            rows = []
+            for i, row in enumerate(mesh.devices):
+                blocks = []
+                for j, d in enumerate(row):
+                    with _on(d):
+                        x = feats_dev[i * step:(i + 1) * step].to(d, non_blocking=True)
+                        blocks.append(torch.stack([vis.apply(cfg, cells[i][j][f], x)
+                                                   for f in folds]).to(dev, non_blocking=True))
+                rows.append(torch.cat(blocks, dim=2))
+            return torch.cat(rows, dim=1)
+
+        raw_fwd.cells = cells
 
     def multi(feats):
         out = raw_fwd(torch.as_tensor(feats).to(dev).float()).cpu().numpy()

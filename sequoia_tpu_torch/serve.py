@@ -22,7 +22,10 @@ way the kept patches are the first ``max_patches`` candidates that pass the
 screen, in the reference's shuffled order, and decoding stops once they are
 in.  The kept features stay on the device.  ``predict_slides`` starts slide
 i+1's decode before slide i's tail and quarantines a failing slide through
-``on_error``.  The JAX package's raw-plane modes (``'ycbcr'``,
+``on_error``.  Over a data-parallel extractor (``FeatureExtractor(mesh=)``)
+each batch's backbone and screen run per device shard, and k-means and the
+folds run on the mesh's first device, the predictor's.  The JAX package's
+raw-plane modes (``'ycbcr'``,
 ``'mosaic'``, read through its native libtiff reader) are not ported yet;
 they give the same pixels as ``'rgb'`` there.
 
@@ -207,13 +210,16 @@ class SlidePredictor:
         backbone and the tissue screen on one uploaded batch, so a candidate
         crosses to the device once."""
         if self._fused_fwd is None:
-            raw = self.extractor.raw_fwd
+            ext = self.extractor
+            sharded = getattr(ext, "mesh", None) is not None
+            raw = ext._one_fwd if sharded else ext.raw_fwd
 
-            def both(params, u8):
+            def one(params, u8):
                 return raw(params, u8), masking.patch_keep_flags(
                     u8, background_threshold=patch_gen.BACKGROUND_THRESHOLD)
 
-            self._fused_fwd = both
+            # per data shard under the extractor's mesh
+            self._fused_fwd = (lambda p, u8: ext.map_shards(one, p, u8)) if sharded else one
         return self._fused_fwd
 
     def extract_patches(self, wsi_path) -> np.ndarray:

@@ -2,9 +2,10 @@
 
 Counterpart of ``sequoia_tpu/train/checkpoint.py``: the checkpoint readers
 and writers (``:26-163``), the ViS and HE2RNA hub layouts (``:141-178``) and
-the train-state resume (``:187-224``).  Not ported: Orbax, whose torch
-counterpart is ``torch.distributed.checkpoint`` for sharded states
-(ROADMAP.md queue 1 item 8).  The contracts:
+the train-state resume (``:187-224``); Orbax's sharded states
+(``save_orbax``/``load_orbax``, ``:227-247``) become
+``torch.distributed.checkpoint`` (:func:`save_sharded`, :func:`load_sharded`).
+The contracts:
 
 * ViS/ViT: ``torch.save(model.state_dict(), 'model_best_{split}.pt')``,
   plain name -> tensor dicts.
@@ -247,3 +248,110 @@ def save_hf_he2rna_layout(out_dir: str, cfg, params) -> None:
         "ks": list(cfg.ks),
         "dropout": cfg.dropout,
     }, convert.he2rna_to_torch(cfg, params))
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """``{"a.b.0": leaf}`` for a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}{k}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _flat(v, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def _flat_specs(tree, specs, prefix: str = "") -> dict:
+    """:func:`_flat` of ``specs`` along ``tree`` (a spec is a tuple, so the
+    tree gives the structure)."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat_specs(v, specs[k], f"{prefix}{k}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _flat_specs(v, specs[i], f"{prefix}{i}.").items()}
+    return {prefix[:-1]: specs}
+
+
+def _unflat(tree, flat: dict, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _unflat(v, flat, f"{prefix}{k}.") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflat(v, flat, f"{prefix}{i}.") for i, v in enumerate(tree))
+    return flat[prefix[:-1]]
+
+
+def _device_mesh(mesh):
+    """The ``DeviceMesh`` of a ``multihost.GlobalMesh`` over the host
+    backend (made once per mesh; every rank takes part)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dm = getattr(mesh, "_dcp_mesh", None)
+    if dm is None:
+        dm = mesh._dcp_mesh = DeviceMesh("cpu", torch.as_tensor(mesh.ranks),
+                                         mesh_dim_names=("data", "model"))
+    return dm
+
+
+def _as_dtensors(flat: dict, specs: dict, mesh) -> dict:
+    """Each rank's pieces as host ``DTensor``s: a mesh axis that a spec
+    names splits that array axis (``Shard``), any other replicates."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm = _device_mesh(mesh)
+    out = {}
+    for k, t in flat.items():
+        spec = tuple(specs[k])
+        placements = [Shard(spec.index(ax)) if ax in spec else Replicate()
+                      for ax in ("data", "model")]
+        out[k] = DTensor.from_local(t.detach().cpu(), dm, placements, run_check=False)
+    return out
+
+
+def save_sharded(path: str, tree, mesh=None, specs=None) -> None:
+    """A sharded train state through ``torch.distributed.checkpoint`` (the
+    counterpart of the JAX package's ``save_orbax``): ``tree`` holds this
+    rank's pieces of a ``multihost.GlobalMesh`` placed by ``specs`` (default
+    ``sharding.param_pspecs``), or whole tensors without a mesh.  Every rank
+    calls it and writes its own shard files; a replicated tensor is written
+    once.  :func:`load_sharded` restores it on any mesh, or in one process."""
+    import torch.distributed.checkpoint as dcp
+
+    flat = _flat(tree)
+    if mesh is not None:
+        from sequoia_tpu_torch.parallel.sharding import param_pspecs
+
+        flat = _as_dtensors(flat, _flat_specs(
+            tree, specs if specs is not None else param_pspecs(tree)), mesh)
+    else:
+        flat = {k: v.detach().cpu() for k, v in flat.items()}
+    dcp.save(flat, checkpoint_id=os.path.abspath(path))
+
+
+def load_sharded(path: str, like=None, mesh=None, specs=None):
+    """The tree :func:`save_sharded` wrote, whatever mesh wrote it: with
+    ``mesh``, this rank's pieces shaped like ``like`` (its pieces, placed by
+    ``specs``) on ``like``'s devices and dtypes; without one, whole tensors
+    (the structure and dtypes of ``like``, or every saved tensor on the CPU
+    under its flat key when ``like`` is None)."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    if like is None:
+        meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        flat = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+                for k, m in meta.items() if hasattr(m, "size")}
+        dcp.load(flat, checkpoint_id=path)
+        return flat
+    like_flat = _flat(like)
+    if mesh is not None:
+        from sequoia_tpu_torch.parallel.sharding import param_pspecs
+
+        flat = _as_dtensors(like_flat, _flat_specs(
+            like, specs if specs is not None else param_pspecs(like)), mesh)
+        dcp.load(flat, checkpoint_id=path)
+        got = {k: v.to_local() for k, v in flat.items()}
+    else:
+        got = {k: v.detach().cpu().clone() for k, v in like_flat.items()}
+        dcp.load(got, checkpoint_id=path)
+    return _unflat(like, {k: got[k].to(device=v.device, dtype=v.dtype)
+                          for k, v in like_flat.items()})

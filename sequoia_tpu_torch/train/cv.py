@@ -33,8 +33,15 @@ _MODELS = {"vis": vis, "vit": vit}
 
 
 def _apply_fn(model_type: str, cfg):
+    """The model's ``(params, x) -> (B, G)``, with ``head_input``: the same
+    model up to its gene head (what a split head needs)."""
     mod = _MODELS[model_type]
-    return lambda p, x: mod.apply(cfg, p, x)
+
+    def apply_fn(p, x):
+        return mod.apply(cfg, p, x)
+
+    apply_fn.head_input = lambda p, x: mod.head_input(cfg, p, x)
+    return apply_fn
 
 
 def build_model(model_type: str, num_outputs: int, feature_dim: int, gen: torch.Generator,
@@ -91,9 +98,22 @@ def run_cross_validation(
     ``moment_dtype`` picks ``loop.make_adamw``'s moment storage.
     ``eval_on="final"`` (the reference's behaviour) evaluates the last
     epoch's weights, ``"best"`` the saved best; ``hf_export`` publishes the
-    best-val weights.  ``mesh`` is not ported (ROADMAP.md queue 1 item 8)."""
+    best-val weights.
+
+    ``mesh``: a ``parallel.multihost.GlobalMesh``; every rank runs this
+    call.  Training is sharded (``loop.train(mesh=)``); every rank draws the
+    same initial weights and reads the same metrics, so all take the same
+    steps.  Rank 0 alone writes the files (the split ids, ``model_best_{i}.pt``
+    from the gathered head, the HF folds and ``test_results.pkl``) and
+    evaluates, unsharded; the other ranks return None."""
     if mesh is not None:
-        raise loop._not_ported("run_cross_validation(mesh=...)")
+        from sequoia_tpu_torch.parallel.multihost import GlobalMesh
+
+        if not isinstance(mesh, GlobalMesh):
+            raise TypeError("run_cross_validation(mesh=) takes a multihost.GlobalMesh (one "
+                            f"rank per device), got {type(mesh).__name__}")
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     if hf_export and model_type != "vis":
         raise ValueError("hf_export supports model_type='vis' here (the reference's ViT has "
                          "no hub mixin); HE2RNA exports via "
@@ -112,7 +132,9 @@ def run_cross_validation(
     for i, (train_idx, val_idx, test_idx) in enumerate(zip(train_idxs, val_idxs, test_idxs)):
         train_df, val_df, test_df = df.iloc[train_idx], df.iloc[val_idx], df.iloc[test_idx]
         for name, part in (("train", train_df), ("val", val_df), ("test", test_df)):
-            np.save(os.path.join(save_dir, f"{name}_{i}.npy"), np.unique(part["patient_id"]))
+            if lead:
+                np.save(os.path.join(save_dir, f"{name}_{i}.npy"),
+                        np.unique(part["patient_id"]))
 
         train_ds = ds.FeatureDataset(train_df, feature_path)
         val_ds = ds.FeatureDataset(val_df, feature_path)
@@ -147,10 +169,15 @@ def run_cross_validation(
                 loaders, num_epochs=num_epochs, patience=20, delta=0.5,
                 save_on=save_on, stop_on=stop_on, verbose=verbose, log_fn=log_fn,
                 state_path=(os.path.join(save_dir, f"train_state_{i}.npz") if resume else None),
-                h2d_dtype=compute_dtype, device=dev,
+                h2d_dtype=compute_dtype, device=dev, mesh=mesh,
+                head_input_fn=apply_fn.head_input,
                 save_fn=lambda p: checkpoint.save_torch_state_dict(to_torch(cfg, p), save_path))
             params = result.final_params if eval_on == "final" else result.params
 
+        if not lead:
+            # the random null's draw keeps this rank's generator in step with rank 0's
+            build(num_outputs)
+            continue
         if hf_export:
             # the reference's released checkpoints are the best-val weights,
             # which under eval_on='final' differ from the params in memory
@@ -178,6 +205,8 @@ def run_cross_validation(
             "wsi_file_name": wsis, "tcga_project": projs,
         }
 
+    if not lead:
+        return None
     test_results_splits["genes"] = ds.gene_names(df)
     with open(os.path.join(save_dir, "test_results.pkl"), "wb") as f:
         pickle.dump(test_results_splits, f, protocol=pickle.HIGHEST_PROTOCOL)

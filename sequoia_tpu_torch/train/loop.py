@@ -212,28 +212,175 @@ class TrainResult:
     # ``train`` returns the live module and ``main.py:193`` evaluates it
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 8: data parallelism and the "
-        "gene-head split over several GPUs)")
+def _mesh_metrics(pred, rna, valid, mesh, keys, s1=None) -> dict:
+    """``keys`` of ``stats`` over the whole batch from this rank's (rows,
+    genes) piece: every rank returns the same values.
+
+    The sums behind each metric are reduced, never the metrics: the
+    squared- and absolute-error sums over every rank, the valid-row count
+    over ``data``.  ``mean_correlation`` keeps ``stats``' two-pass form: the
+    per-gene means over ``data``, then the centred sums over ``data``, r per
+    local gene, and the r sum and kept-gene count over ``model`` (a one-pass
+    sum of squares cancels in f32).  ``s1``: the first pass's reduced
+    ``[n_valid, column sums of pred, of rna]`` when the caller has it."""
+    from sequoia_tpu_torch.parallel.multihost import all_reduce
+
+    pred, target = pred.detach().float(), rna.float()
+    m = valid[:, None].to(torch.float32)
+    g = target.shape[1]
+    if s1 is None:
+        s1 = _first_pass(pred, target, valid, mesh)
+    n = s1[0].clamp(min=1)
+    g_total = g * mesh.shape["model"]
+    diff = pred - target
+    sums = [(diff.square() * m).sum(), (diff.abs() * m).sum()]
+    if "smape" in keys:
+        den = target.abs() + pred.abs()
+        pos = den > 0
+        ratio = torch.where(pos, 2.0 * diff.abs() / torch.where(pos, den, torch.ones_like(den)),
+                            torch.zeros_like(den))
+        sums.append((ratio * m).sum())
+    sums = all_reduce(torch.stack(sums))
+    dp = (pred - s1[1:1 + g] / n) * m
+    dt = (target - s1[1 + g:] / n) * m
+    s2 = all_reduce(torch.cat([(dp * dt).sum(0), (dp * dp).sum(0), (dt * dt).sum(0)]),
+                    mesh.data_group)
+    cov, vp, vt = s2[:g], s2[g:2 * g], s2[2 * g:]
+    r = cov / torch.sqrt(vp * vt)
+    ok = (vt > 0) & ~torch.isnan(r)
+    s3 = all_reduce(torch.stack([torch.where(ok, r, torch.zeros_like(r)).sum(),
+                                 ok.sum().to(torch.float32)]), mesh.model_group)
+    corr = torch.where(s3[1] > 0, s3[0] / s3[1].clamp(min=1),
+                       torch.full_like(s3[0], float("nan")))
+    out = {"loss": sums[0] / (n * g_total), "mae": sums[1] / (n * g_total), "corr": corr}
+    if "smape" in keys:
+        out["smape"] = 100.0 / n * sums[2]
+    return {k: out[k] for k in keys}
 
 
-def _uploader(dev: torch.device, feat_dtype: torch.dtype | None):
+def _first_pass(pred, target, valid, mesh) -> torch.Tensor:
+    """``[n_valid, per-gene column sums of pred, of target]`` over the data
+    group (the rows of every rank with this rank's genes)."""
+    from sequoia_tpu_torch.parallel.multihost import all_reduce
+
+    m = valid[:, None].to(torch.float32)
+    return all_reduce(torch.cat([valid.sum().to(torch.float32).reshape(1),
+                                 (pred.detach().float() * m).sum(0),
+                                 (target.float() * m).sum(0)]), mesh.data_group)
+
+
+class _ModelSum(torch.autograd.Function):
+    """The identity going forward; going backward, the cotangent summed
+    over ``group``.  On the gene head's ``(B, D)`` input it gives each rank
+    of a ``model`` group the trunk gradient of every gene slice, not only
+    its own."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from sequoia_tpu_torch.parallel.multihost import all_reduce
+
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def _reduce_grads(leaves: list, mesh) -> None:
+    """Sum every gradient over the ``data`` group, in one all-reduce.
+
+    After :class:`_ModelSum` a rank's gradients cover its own rows: the
+    replicated tensors' for every gene, the head slice's for its genes.
+    The ranks of its ``data`` group hold the other rows, so their sum is
+    the whole batch's gradient.  The loss is a global sum over a global
+    count, so nothing is rescaled."""
+    from sequoia_tpu_torch.parallel.multihost import all_reduce
+
+    grads = [p.grad for p in leaves if p.grad is not None]
+    flat = all_reduce(torch.cat([g.reshape(-1).float() for g in grads]), mesh.data_group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+
+
+def make_sharded_step_fns(apply_fn: Callable, optimizer: torch.optim.Optimizer, mesh,
+                          head_input_fn: Callable | None = None):
+    """(train_step, eval_step) of :func:`make_step_fns` for one rank of a
+    ``multihost.GlobalMesh``: ``params`` hold the rank's gene-head slice,
+    the batch arrays its rows (and rna its genes).
+
+    ``head_input_fn(params, x)``: the model up to its gene head
+    (``vis.head_input``), needed where the head is split (``model`` > 1).
+    The step then routes its ``(B, D)`` output through :class:`_ModelSum`
+    over the ``model`` group and applies the local ``head_w``/``head_b``.
+
+    The loss is ``stats.masked_mse`` of the whole batch, sum / (n_valid *
+    G): this rank's squared-error sum over the reduced count and the full
+    gene count, so its backward gives this rank's share of every gradient,
+    summed by :func:`_reduce_grads`."""
+    from sequoia_tpu_torch.ops.nn import linear
+
+    if mesh.shape["model"] > 1 and head_input_fn is None:
+        raise ValueError("a model axis > 1 splits the gene head: pass head_input_fn, the "
+                         "model up to its head (e.g. vis.head_input)")
+
+    def forward(params, feats):
+        if mesh.shape["model"] == 1:
+            return apply_fn(params, feats)
+        x = _ModelSum.apply(head_input_fn(params, feats), mesh.model_group)
+        return linear(x, params["head_w"], params["head_b"])
+
+    def train_step(params, feats, rna, valid):
+        optimizer.zero_grad(set_to_none=True)
+        pred = forward(params, feats)
+        s1 = _first_pass(pred, rna, valid, mesh)
+        m = valid[:, None].to(torch.float32)
+        g_total = rna.shape[1] * mesh.shape["model"]
+        sq = ((pred.float() - rna.float()).square() * m).sum()
+        (sq / (s1[0].clamp(min=1) * g_total)).backward()
+        _reduce_grads(tree_leaves(params), mesh)
+        with torch.no_grad():
+            metrics = _mesh_metrics(pred, rna, valid, mesh, TRAIN_METRICS, s1=s1)
+        optimizer.step()
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(params, feats, rna, valid):
+        pred = apply_fn(params, feats)
+        return pred, _mesh_metrics(pred, rna, valid, mesh, EVAL_METRICS)
+
+    return train_step, eval_step
+
+
+def _uploader(dev: torch.device, feat_dtype: torch.dtype | None, mesh=None):
     """batch -> (feats, rna, valid) on ``dev``, or None for an all-pad batch.
     Features are cast to ``feat_dtype`` on the host first; on CUDA the
-    arrays go through pinned memory with non-blocking copies."""
+    arrays go through pinned memory with non-blocking copies.  Under a
+    ``mesh`` the arrays are cut on the host to this rank's rows, and rna to
+    its genes (``sharding.shard_batch_arrays``'s layout)."""
     pin = dev.type == "cuda"
 
     def up(t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
         return t.pin_memory().to(dev, non_blocking=True) if pin else t.to(dev)
 
     def to_device(batch):
         if batch.n_valid == 0:
             return None
-        feats = torch.from_numpy(batch.features)
+        feats, rna, valid = (torch.from_numpy(np.asarray(a))
+                             for a in (batch.features, batch.rna, batch.valid))
+        if mesh is not None:
+            from sequoia_tpu_torch.parallel.sharding import shard_axis
+
+            nd, di = mesh.shape["data"], mesh.data_index
+            feats, valid = shard_axis(feats, 0, nd, di), shard_axis(valid, 0, nd, di)
+            rna = shard_axis(shard_axis(rna, 0, nd, di), 1, mesh.shape["model"],
+                             mesh.model_index)
         if feat_dtype is not None and feats.dtype != feat_dtype:
             feats = feats.to(feat_dtype)
-        return up(feats), up(torch.from_numpy(batch.rna)), up(torch.from_numpy(batch.valid))
+        return up(feats), up(rna), up(valid)
 
     return to_device
 
@@ -253,7 +400,8 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
           phases=("train", "val"), save_fn: Callable | None = None,
           log_fn: Callable | None = None, verbose: bool = True,
           state_path: str | None = None, prefetch_depth: int = 2, mesh=None,
-          h2d_dtype: str | None = None, device=None) -> TrainResult:
+          head_input_fn: Callable | None = None, h2d_dtype: str | None = None,
+          device=None) -> TrainResult:
     """The reference ``vit.train`` over eager steps on ``device`` (cuda
     unless asked otherwise; raises without CUDA).
 
@@ -280,17 +428,52 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
     the device (the previous one released first, a host copy taken if the
     device copy cannot be allocated).
 
-    ``mesh`` is not ported.  The JAX loop's per-phase "step has compiled"
-    gate on the prefetch thread has no counterpart: it kept uploads from
-    overlapping an XLA compile, and eager PyTorch compiles nothing."""
+    ``mesh``: a ``parallel.multihost.GlobalMesh``; every rank of it calls
+    ``train`` with the same arguments.  Each rank trains its gene-head
+    slice (``sharding.param_pspecs``; its AdamW moments are shaped like
+    it) and a replica of the rest, on its batch rows and their targets'
+    genes, through :func:`make_sharded_step_fns`; the batch size must
+    divide by the ``data`` axis.  ``head_input_fn``: the model up to its
+    gene head, needed where ``model`` > 1 (:func:`make_sharded_step_fns`).
+    Every rank reads the same metrics and
+    takes the same early-stop decisions.  The best and final parameters
+    are gathered whole on every rank; ``save_fn``, ``log_fn``, the prints
+    and the resume file are rank 0's, and the resume state is saved whole
+    and cut to each rank's slice on load (the file does not depend on the
+    mesh).
+
+    The JAX loop's per-phase "step has compiled" gate on the prefetch
+    thread has no counterpart: it kept uploads from overlapping an XLA
+    compile, and eager PyTorch compiles nothing."""
     from sequoia_tpu_torch.train import checkpoint as ckpt_io
 
+    lead = True
     if mesh is not None:
-        raise _not_ported("train(mesh=...)")
-    dev = resolve_device(device)
-    params = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params)
-    opt = optimizer(params)
-    train_step, eval_step = make_step_fns(apply_fn, opt)
+        from sequoia_tpu_torch.parallel import multihost
+        from sequoia_tpu_torch.parallel import sharding as sh
+
+        if not isinstance(mesh, multihost.GlobalMesh):
+            raise TypeError("train(mesh=) takes a multihost.GlobalMesh (one rank per "
+                            f"device), got {type(mesh).__name__}")
+        if mesh.shape["model"] > 1 and not (isinstance(params, dict) and "head_w" in params):
+            raise ValueError("a model axis > 1 splits the gene head; these params have no "
+                             "head_w")
+        dev = mesh.device
+        lead = mesh.rank == 0
+        specs = sh.leaf_specs(params)
+        params = tree_map(lambda t: t.requires_grad_(True), sh.shard_params(mesh, params))
+        opt = optimizer(params)
+        train_step, eval_step = make_sharded_step_fns(apply_fn, opt, mesh, head_input_fn)
+
+        def whole(p):  # a collective: every rank calls it
+            return tree_map(_host, sh.gather_params(mesh, p))
+    else:
+        dev = resolve_device(device)
+        params = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params)
+        opt = optimizer(params)
+        train_step, eval_step = make_step_fns(apply_fn, opt)
+    verbose = verbose and lead
+    log_fn = log_fn if lead else None
 
     best_params = None
     best_loss = np.inf
@@ -305,6 +488,9 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
 
     if state_path and os.path.exists(state_path):
         packed, opt_state, meta = ckpt_io.load_train_state(state_path)
+        if mesh is not None:  # saved whole: cut to this rank's slices
+            opt_state = sh.shard_opt_state(mesh, opt_state, packed["params"])
+            packed["params"] = sh.shard_params(mesh, packed["params"])
         with torch.no_grad():
             for dst, src in zip(tree_leaves(params), tree_leaves(packed["params"]), strict=True):
                 dst.copy_(src)
@@ -323,7 +509,11 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
 
     def save(p, epoch):
         nonlocal best_params, best_epoch
-        if save_fn is None and state_path is None:
+        if mesh is not None:
+            best_params = whole(p)
+            if save_fn is not None and lead:
+                save_fn(best_params)
+        elif save_fn is None and state_path is None:
             # nothing reads the snapshot before training ends: keep it on the
             # device, the old one released first so the extra memory stays
             # one param set; a host copy where the device copy cannot be had
@@ -338,7 +528,7 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
                 save_fn(best_params)
         best_epoch = epoch
 
-    to_device = _uploader(dev, compute_dtype(h2d_dtype) if h2d_dtype else None)
+    to_device = _uploader(dev, compute_dtype(h2d_dtype) if h2d_dtype else None, mesh)
 
     for epoch in range(start_epoch, num_epochs):
         epoch_metrics: dict[str, dict[str, float]] = {}
@@ -423,8 +613,13 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
 
         # saved AFTER the stop decision: a resumed run sees the flags as set
         if state_path:
+            state_params, state_opt = params, opt.state_dict()
+            if mesh is not None:  # whole, so any mesh can resume it
+                state_params = whole(params)
+                state_opt = sh.gather_opt_state(mesh, state_opt, params, specs)
+        if state_path and lead:
             ckpt_io.save_train_state(
-                state_path, {"params": params, "best": best_params}, opt.state_dict(),
+                state_path, {"params": state_params, "best": best_params}, state_opt,
                 {"epoch": epoch, "best_loss": float(best_loss),
                  "best_score": float(best_score), "best_epoch": best_epoch,
                  "epoch_since_best": epoch_since_best,
@@ -433,10 +628,13 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
                  "early_stop_on_loss_triggered": early_stop_on_loss_triggered,
                  "stopped": int(stop_now), "history": history})
 
+        if state_path and mesh is not None:
+            multihost.barrier(mesh)  # no rank reads the file before rank 0 wrote it
+
         if stop_now:
             break
 
-    final_params = tree_map(_host, params)
+    final_params = whole(params) if mesh is not None else tree_map(_host, params)
     if best_epoch < 0:  # never saved (e.g. 0 epochs): the current params
         best_params = final_params
     else:  # a device snapshot comes down once, here

@@ -86,13 +86,13 @@ def _read(path):
                                                           for r in rows[1:]])
 
 
-def _both(files, monkeypatch, ckpt, *extra, jax_too=True):
+def _both(files, monkeypatch, ckpt, *extra, jax_too=True, common=COMMON):
     """Run the port's CLI (and the JAX CLI) on the two slides -> (port CSV,
     JAX CSV or None) as (header, names, values)."""
     monkeypatch.chdir(files)
     _shared_clustering(monkeypatch)
     args = ["--wsi", "slide1.tiff", "slide2.png", "--checkpoints", str(files / ckpt),
-            "--weights", "resnet50.pt", *COMMON, *extra]
+            "--weights", "resnet50.pt", *common, *extra]
     if jax_too:
         jcli.main([*args, "--out", "jax.csv"])
     got = tcli.main([*args, "--device", "cpu", "--out", "port.csv"])
@@ -116,6 +116,22 @@ def test_cli_matches_jax_from_pt_folds(files, monkeypatch):
     panel, _ = _both(files, monkeypatch, "exp", "--panel", "G3,G1", jax_too=False)
     assert panel[0] == ["wsi_file_name", "G3", "G1"] and panel[1] == port[1]
     np.testing.assert_allclose(panel[2], port[2][:, [3, 1]], rtol=1e-5, atol=1e-6)
+
+
+def test_cli_default_dtype_matches_jax(files, monkeypatch):
+    """At the default ``--compute_dtype`` (bfloat16) the port serves the ViS
+    folds in bf16 and the JAX CLI in f32 (it passes the flag to the
+    extractor only).  The two CSVs stay within the f32 runs' rtol, and each
+    slide's gene profile keeps a Pearson r with JAX's within the parity
+    budget, 1 - r <= 1e-3 (docs/PARITY_NOTES.md:4-5; two slides give no
+    per-gene r across slides)."""
+    common = [c for c in COMMON if c not in ("--compute_dtype", "float32")]
+    assert tcli.build_parser().parse_args(["--checkpoints", "x", "--weights", "random"]) \
+        .compute_dtype == "bfloat16"
+    port, jax_ = _both(files, monkeypatch, "exp", common=common)
+    _assert_same_csv(port, jax_)
+    for a, b in zip(port[2], jax_[2]):
+        assert 1.0 - np.corrcoef(a, b)[0, 1] <= 1e-3
 
 
 def test_cli_matches_jax_from_hf_dir_with_panel(files, monkeypatch):
@@ -215,18 +231,16 @@ def test_cli_profile_writes_trace(files, monkeypatch, tmp_path):
                                    "--data_parallel"],
                                   ["--model_type", "vit", "--multihost"],
                                   ["--model_type", "he2rna", "--data_parallel"]])
-def test_unported_flags_stop_at_parse_time(flag, capsys):
-    """The multi-GPU flags stop at parse time with every model type (the
-    ViT and HE2RNA model types themselves are served)."""
-    with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["--checkpoints", "x", "--weights", "random", *flag])
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md queue 1 item 8" in err
-    served = [f for f in flag if f not in ("--data_parallel", "--multihost")]
-    args = tcli.build_parser().parse_args(["--checkpoints", "x", "--weights", "random",
-                                           *served])
-    assert args.model_type == (served[served.index("--model_type") + 1]
-                               if "--model_type" in served else "vis")
+def test_unported_flags_stop_at_parse_time(flag):
+    """The multi-GPU flags, which once stopped at parse time, now parse with
+    every model type, as the JAX CLI's do (they run in
+    tests/test_torch_dp_extraction.py and tests/test_torch_fleet_cli.py)."""
+    argv = ["--checkpoints", "x", "--weights", "random", *flag]
+    args, jargs = tcli.build_parser().parse_args(argv), jcli.build_parser().parse_args(argv)
+    for dest in ("data_parallel", "multihost", "model_type", "feat_type"):
+        assert getattr(args, dest) == getattr(jargs, dest)
+    assert args.data_parallel == ("--data_parallel" in flag)
+    assert args.multihost == ("--multihost" in flag)
 
 
 def test_cli_needs_cuda_unless_asked_for_cpu(files, monkeypatch):
@@ -266,7 +280,7 @@ def test_serving_kernel_set():
 def test_load_extractor(files):
     """A torchvision state dict loads through ``resnet50_from_torch`` (as in
     JAX), ``random`` draws seed 0, the kernel options reach the config, and
-    the unported options raise with their ROADMAP item."""
+    ``data_parallel`` gives a mesh over this process's devices (one CPU)."""
     from sequoia_tpu_torch.cli.compute_features import load_extractor
     from sequoia_tpu_torch.models import resnet
 
@@ -282,8 +296,9 @@ def test_load_extractor(files):
         torch.Generator().manual_seed(0))["conv1"])
     with pytest.raises(ValueError, match="ResNet option"):
         load_extractor("uni", "random", 4, device="cpu", fused_stages=(1,))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        load_extractor("resnet", "random", 4, data_parallel=True, device="cpu")
+    dp = load_extractor("resnet", "random", 4, data_parallel=True, device="cpu")
+    assert dp.mesh.shape == {"data": 1, "model": 1} and dp.device.type == "cpu"
+    assert torch.equal(dp.params["conv1"], rnd.params["conv1"])
 
 
 def test_stage_timer_and_trace(tmp_path):

@@ -146,8 +146,13 @@ def test_cli_main_vit_default_and_resume(cohort, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--multihost"],
                                   ["--coordinator", "h:1"], ["--num_processes", "2"],
                                   ["--process_id", "0"]])
-def test_cli_main_refuses_multi_gpu_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        tmain.build_parser().parse_args(["--ref_file", "x.csv", *flag])
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md queue 1 item 8" in err
+def test_cli_main_refuses_multi_gpu_flags(flag):
+    """The mesh and fleet flags, once refused at parse time, now parse as
+    the JAX CLI's (``--mesh`` runs in tests/test_torch_mesh_cli.py)."""
+    from sequoia_tpu.cli import main as jmain
+
+    argv = ["--ref_file", "x.csv", *flag]
+    args, jargs = tmain.build_parser().parse_args(argv), jmain.build_parser().parse_args(argv)
+    for dest in ("mesh", "multihost", "coordinator", "num_processes", "process_id"):
+        assert getattr(args, dest) == getattr(jargs, dest)
+    assert tmain.parse_mesh(args.mesh) == ((2, 1) if args.mesh else (None, 1))

@@ -197,8 +197,8 @@ def test_cli_matches_jax(patch_root, extractors, tmp_path, monkeypatch, capsys):
 
 def test_cli_kernel_set_and_flags(patch_root, extractors, tmp_path, monkeypatch, capsys):
     """On CUDA the ResNet extracts through K4 in every stage unless
-    ``--kernels off``; UNI has no kernel; the refused flags stop at parse
-    time; without CUDA the CLI raises."""
+    ``--kernels off``; UNI has no kernel; the data-parallel and fleet flags
+    parse as JAX's; without CUDA the CLI raises."""
     seen = []
     _small_backbones(monkeypatch, extractors, seen)
     ref = tmp_path / "ref.csv"
@@ -214,14 +214,17 @@ def test_cli_kernel_set_and_flags(patch_root, extractors, tmp_path, monkeypatch,
     assert [s[2] for s in seen] == [(1, 2, 3, 4), (), ()]
     monkeypatch.undo()
 
-    for flag in (["--data_parallel"], ["--multihost"], ["--coordinator", "h:1"],
-                 ["--num_processes", "2"], ["--process_id", "1"]):
-        with pytest.raises(SystemExit):
-            tcli.build_parser().parse_args([*base, *flag])
-        assert "queue 1 item 8" in capsys.readouterr().err
+    for flag, dest, value in ((["--data_parallel"], "data_parallel", True),
+                              (["--multihost"], "multihost", True),
+                              (["--coordinator", "h:1"], "coordinator", "h:1"),
+                              (["--num_processes", "2"], "num_processes", 2),
+                              (["--process_id", "1"], "process_id", 1)):
+        args = tcli.build_parser().parse_args([*base, *flag])
+        assert getattr(args, dest) == value == getattr(
+            jcli.build_parser().parse_args([*base, *flag]), dest)
     jflags = {a.dest for a in jcli.build_parser()._actions}
     tflags = {a.dest for a in tcli.build_parser()._actions}
-    assert jflags - tflags == {"compilation_cache"} and tflags - jflags == {"device", "kernels"}
+    assert jflags - tflags == set() and tflags - jflags == {"device", "kernels"}
     defaults = tcli.build_parser().parse_args(base)
     assert (defaults.max_patch_number, defaults.seed, defaults.batch_size,
             defaults.compute_dtype, defaults.device) == (4000, 99, 256, "float32", "cuda")

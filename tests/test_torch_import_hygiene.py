@@ -49,6 +49,11 @@ TRAIN_MODULES = ("sequoia_tpu_torch/ops/stats.py", "sequoia_tpu_torch/data/split
                  "sequoia_tpu_torch/train/cv.py", "sequoia_tpu_torch/cli/main.py",
                  "sequoia_tpu_torch/cli/pretrain_gtex.py")
 
+# the multi-GPU slice: meshes, ranks, sharded checkpoints, the dry run
+PARALLEL_MODULES = ("sequoia_tpu_torch/parallel/__init__.py",
+                    "sequoia_tpu_torch/parallel/multihost.py",
+                    "sequoia_tpu_torch/parallel/sharding.py", "sequoia_tpu_torch/dryrun.py")
+
 
 def _port_files():
     return sorted((ROOT / "sequoia_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -86,7 +91,7 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
                  "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
                  "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES, *AGGREGATOR_MODULES,
-                 *STAGE_MODULES):
+                 *STAGE_MODULES, *PARALLEL_MODULES):
         assert want in names
 
 
@@ -126,6 +131,23 @@ def test_import_loads_no_jax_module():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_parallel_import_starts_nothing():
+    """Importing the multi-GPU modules (and the CLIs that take their flags)
+    initialises no CUDA context, starts no process group and spawns no
+    process."""
+    code = (
+        "import multiprocessing, torch, torch.distributed as dist\n"
+        "import sequoia_tpu_torch.parallel, sequoia_tpu_torch.parallel.multihost\n"
+        "import sequoia_tpu_torch.parallel.sharding, sequoia_tpu_torch.dryrun\n"
+        "import sequoia_tpu_torch.cli.main, sequoia_tpu_torch.cli.serve\n"
+        "import sequoia_tpu_torch.train.checkpoint\n"
+        "print(torch.cuda.is_initialized(), dist.is_initialized(),\n"
+        "      len(multiprocessing.active_children()))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.split() == ["False", "False", "0"], out.stdout + out.stderr
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -192,10 +214,15 @@ def test_unported_options_raise():
     from sequoia_tpu_torch.serve import SlidePredictor
 
     params = resnet.random_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the mesh options run since the multi-GPU slice; a mesh of the wrong kind
+    # is a TypeError, an uneven batch JAX's ValueError
+    from sequoia_tpu_torch.parallel.sharding import make_mesh
+
+    with pytest.raises(TypeError, match="sharding.Mesh"):
         FeatureExtractor("uni", params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FeatureExtractor("resnet", params, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by mesh data axis"):
+        FeatureExtractor("resnet", params, batch_size=3, device="cpu",
+                         mesh=make_mesh(2, devices=["cpu", "cpu"]))
     # ported since the stages slice: the host's sklearn where it imports
     assert kmeans.kmeans_cluster_features(np.arange(32, dtype=np.float32).reshape(8, 4),
                                           n_clusters=2, backend="sklearn").shape == (2, 4)
@@ -211,27 +238,27 @@ def test_unported_options_raise():
     from sequoia_tpu_torch.pipeline import spatial
     from sequoia_tpu_torch.train import cv, loop
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+    with pytest.raises(TypeError, match="GlobalMesh"):
         loop.train(lambda p, x: x, {"w": torch.zeros(2)}, loop.make_adamw, {}, mesh=object(),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+    with pytest.raises(TypeError, match="GlobalMesh"):
         cv.run_cross_validation(None, "features", "out", mesh=object(), device="cpu")
     assert pretrain_gtex.build_parser().parse_args(
         ["--path_csv", "x.csv", "--model", "he2rna"]).model == "he2rna"
     import pandas as pd
 
     df = pd.DataFrame({"xcoord_tf": np.arange(3), "ycoord_tf": np.zeros(3, int)})
-    for call in (lambda: spatial.sliding_window_predict_arrays(
-                     np.zeros((3, 4), np.float32), df, {}, [0], mesh=object()),
-                 lambda: spatial.make_vis_stacked_predict_fn(cfg, {}, mesh=object()),
+    with pytest.raises(ValueError, match="stacked predictor"):
+        spatial.sliding_window_predict_arrays(np.zeros((3, 4), np.float32), df, {}, [0],
+                                              mesh=object())
+    for call in (lambda: spatial.make_vis_stacked_predict_fn(cfg, {0: None}, mesh=object()),
                  lambda: spatial.run_visualize(None, None, [], {}, None, mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+        with pytest.raises(TypeError, match="sharding.Mesh"):
             call()
-    with pytest.raises(SystemExit):
-        visualize.build_parser().parse_args(
-            ["--study", "s", "--project", "p", "--wsi_file_name", "w", "--save_folder", "f",
-             "--model_type", "vis", "--feat_type", "resnet", "--weights", "random",
-             "--data_parallel"])
+    assert visualize.build_parser().parse_args(
+        ["--study", "s", "--project", "p", "--wsi_file_name", "w", "--save_folder", "f",
+         "--model_type", "vis", "--feat_type", "resnet", "--weights", "random",
+         "--data_parallel"]).data_parallel
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

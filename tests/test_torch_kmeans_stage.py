@@ -223,7 +223,7 @@ def test_cli_matches_jax(stores, tmp_path, backend, capsys):
 def test_cli_kernel_set_and_flags(stores, tmp_path, monkeypatch, capsys):
     """On CUDA the Lloyd steps run through K5 unless ``--kernels off`` or the
     sklearn backend; ``tpu`` is the JAX name of ``device``; the fleet flags
-    stop at parse time; without CUDA the CLI raises."""
+    parse; without CUDA the CLI raises."""
     ref = tmp_path / "ref.csv"
     DF.iloc[:1].to_csv(ref, index=False)
     seen = []
@@ -231,20 +231,23 @@ def test_cli_kernel_set_and_flags(stores, tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(tcli.kmeans_stage, "run_kmeans",
                         lambda df, path, **kw: seen.append((kw["backend"], kw["use_pallas"],
                                                             kw["seed"])) or 0)
-    for extra in ([], ["--kernels", "off"], ["--backend", "sklearn"], ["--backend", "hybrid"]):
+    for extra in ([], ["--kernels", "off"], ["--backend", "sklearn"], ["--backend", "hybrid"],
+                  ["--backend", "tpu"]):
         tcli.main(["--ref_file", str(ref), *extra])
     assert seen == [("device", True, 0), ("device", False, 0), ("sklearn", False, 0),
-                    ("hybrid", True, 0)]
+                    ("hybrid", True, 0), ("device", True, 0)]
     assert "kmean_features: cuda, backend device, kernels: lloyd_stats" in \
         capsys.readouterr().err
     monkeypatch.undo()
-    for flag in (["--multihost"], ["--coordinator", "h:1"], ["--num_processes", "2"],
-                 ["--process_id", "1"]):
-        with pytest.raises(SystemExit):
-            tcli.build_parser().parse_args(["--ref_file", "x", *flag])
-        assert "queue 1 item 8" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["--ref_file", "x", "--backend", "tpu"])
+    for flag, dest, value in ((["--multihost"], "multihost", True),
+                              (["--coordinator", "h:1"], "coordinator", "h:1"),
+                              (["--num_processes", "2"], "num_processes", 2),
+                              (["--process_id", "1"], "process_id", 1)):
+        assert getattr(tcli.build_parser().parse_args(["--ref_file", "x", *flag]),
+                       dest) == value
+    # the JAX CLI's default backend name is taken as the port's "device"
+    assert tcli.build_parser().parse_args(["--ref_file", "x", "--backend", "tpu"]).backend \
+        == "tpu"
     jflags = {a.dest for a in jcli.build_parser()._actions}
     tflags = {a.dest for a in tcli.build_parser()._actions}
     assert tflags - jflags == {"device", "kernels"} and jflags <= tflags

@@ -212,5 +212,11 @@ def test_accumulate_refusals(grid):
         spatial.sliding_window_predict_arrays(feats, df, fns, [0], accumulate="gpu")
     with pytest.raises(ValueError, match="_device_sums"):
         spatial.sliding_window_predict_arrays(feats, df, fns, [0], _device_sums=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # JAX's two mesh refusals (sequoia_tpu/pipeline/spatial.py:298-306)
+    with pytest.raises(ValueError, match="stacked predictor"):
         spatial.sliding_window_predict_arrays(feats, df, fns, [0], mesh=object())
+    stacked = lambda x: {0: np.zeros((x.shape[0], 3))}  # noqa: E731
+    stacked.raw_fwd = lambda x: None
+    with pytest.raises(ValueError, match="accumulate='device'"):
+        spatial.sliding_window_predict_arrays(feats, df, stacked, [0], accumulate="host",
+                                              mesh=object())

@@ -321,8 +321,16 @@ def test_resume_after_early_stop_does_not_continue(store, tmp_path):
 
 
 def test_mesh_is_not_ported(store):
+    """``train(mesh=)``, once refused, takes a ``multihost.GlobalMesh``
+    (tests/test_torch_multihost.py runs it over ranks); anything else is a
+    TypeError, and a model axis needs a gene head."""
     root, df = store
     _, _, _, tapply, jp0 = _models("vis")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+    with pytest.raises(TypeError, match="GlobalMesh"):
         tloop.train(tapply, _carry(jp0), tloop.make_adamw, _loaders(tds, root, df),
                     mesh=object(), device="cpu")
+    from sequoia_tpu_torch.parallel.multihost import GlobalMesh
+
+    mesh = GlobalMesh(np.arange(2).reshape(1, 2), 0, torch.device("cpu"), None, None)
+    with pytest.raises(ValueError, match="head_w"):
+        tloop.train(tapply, {"w": torch.zeros(2)}, tloop.make_adamw, {}, mesh=mesh)

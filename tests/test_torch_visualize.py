@@ -145,6 +145,60 @@ def test_cli_visualize_matches_jax(model_type, workspace, monkeypatch, capsys):
         _assert_same_map(dev, got)
 
 
+def test_cli_visualize_data_parallel_matches_jax(workspace, monkeypatch):
+    """``--data_parallel``: the windows split over a (2, 1) mesh of the
+    extractor's (two CPU "devices"; JAX's two virtual devices) with device
+    sums, the map equal to JAX's sharded map and to the port's unsharded
+    device map; JAX's refusals for other fold types and ``--accumulate
+    host``."""
+    from sequoia_tpu.parallel import sharding as jsh
+    from sequoia_tpu_torch.parallel import sharding as sh
+
+    class JMeshPool:
+        mesh = jsh.make_mesh(n_data=2, n_model=1, devices=jax.devices()[:2])
+
+        def __call__(self, tiles):
+            return pool_features(tiles)
+
+    class MeshPool(PoolExtractor):
+        mesh = sh.make_mesh(2, 1, devices=["cpu", "cpu"])
+
+    monkeypatch.chdir(workspace)
+    monkeypatch.setattr(jviz, "load_extractor", lambda *a, **kw: JMeshPool())
+    seen = []
+    monkeypatch.setattr(tserve, "load_extractor",
+                        lambda *a, **kw: seen.append(a[4]) or MeshPool())
+    args = ["--study", "syn", "--project", PROJECT, "--gene_names", "G1,G3",
+            "--wsi_file_name", WSI, "--model_type", "vis", "--feat_type", "resnet",
+            "--folds", "0,1", "--stride", "4", "--patch_size", "64", "--weights", "random",
+            "--batch_size", "32", "--data_parallel"]
+    jviz.main([*args, "--save_folder", "jax_dp"])
+    tviz.main([*args, "--save_folder", "port_dp", "--device", "cpu"])
+    assert seen == [True]
+    got = pd.read_csv(f"visualizations/{PROJECT}/port_dp/{WSI}/stride-4.csv", index_col=0)
+    _assert_same_map(got, pd.read_csv(f"visualizations/{PROJECT}/jax_dp/{WSI}/stride-4.csv",
+                                      index_col=0))
+    tviz.main([*args[:-1], "--save_folder", "port_one", "--device", "cpu", "--accumulate",
+               "device"])
+    _assert_same_map(got, pd.read_csv(f"visualizations/{PROJECT}/port_one/{WSI}/stride-4.csv",
+                                      index_col=0))
+    for extra, msg in ((["--accumulate", "host"], "device accumulation"),):
+        with pytest.raises(SystemExit, match=msg):
+            tviz.main([*args, *extra, "--save_folder", "x", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="vis fold"):
+        tviz.main([*[a if a != "vis" else "he2rna" for a in args], "--save_folder", "x",
+                   "--device", "cpu"])
+    mixed = workspace / "mixed"
+    for fold, heads in ((0, 2), (1, 1)):
+        cfg = jvis.ViSConfig(num_outputs=5, input_dim=DIM, depth=1, nheads=heads, dim_f=4,
+                             dim_s=4, dim_c=4, num_clusters=100)
+        checkpoint.save_torch_state_dict(jconvert.vis_to_torch(cfg, jvis.init(
+            cfg, jax.random.PRNGKey(fold))), str(mixed / f"model_best_{fold}.pt"))
+    with pytest.raises(SystemExit, match="homogeneous vis folds"):
+        tviz.load_fold_predictors(str(mixed), [0, 1], "vis", torch.device("cpu"),
+                                  mesh=MeshPool.mesh)
+
+
 def test_resolve_paths_layouts_match_jax(tmp_path):
     """spatial_GBM_pred (spot diameter -> manual resize) and Breast-ST
     (metadata magnification) resolve as in JAX."""
