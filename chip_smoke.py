@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only aggregators_path   # phases 1-2 and 9
     python3 chip_smoke.py --only stages_path   # phases 1-2 and 10
     python3 chip_smoke.py --only parallel_path # phases 1-2 and 11
+    python3 chip_smoke.py --only raw_planes_path   # phases 1-2 and 12
 
 Phases, each printing one JSON line:
 
@@ -192,10 +193,32 @@ Phases, each printing one JSON line:
    flag) and ``cli.compute_features --multihost --data_parallel`` (every
    row) in a gloo world of one through ``--coordinator file://...``;
    ``parallel_launches`` (every kernel must rise).  One card: no
-   multi-card number exists.
+   multi-card number exists;
+12. raw-plane serving (``raw_*`` lines; run after phase 6, on phase 5's
+   weights): phase 5's two slides as
+   :class:`PlanarSlide` stand-ins for JPEG-tiled slide files (per-tile
+   YCbCr planes encoded once on the card; their RGB decode rebuilt on the
+   CPU by ``ops/ycbcr.planar_to_rgb``, never libjpeg) in three layouts:
+   256-px tiles at 4:2:0 and 4:2:2 (``'ycbcr'``) and 240-px tiles at 4:2:0
+   (``'mosaic'``, edge tiles included), each through phase 5's kernel
+   predictor (K4, K5, K1) with ``predict_wsi`` and ``predict_slides``
+   against the same predictor in ``'rgb'`` on the same reader after a
+   warm-up of each (``raw_planes``: mode, candidates and kept, bytes
+   uploaded a slide and their ratio, s/slide, launches, the kept set equal,
+   max |Δ| and r of the prediction, within rtol 2e-4 / atol 1e-4 where the
+   batches are 'rgb''s; the mosaic batches in spatial order, where a bf16
+   row's rounding follows its place in the batch, so it is held at r
+   and, through an f32 predictor, at that tolerance, with a probe of the
+   bf16 backbone's place dependence); a
+   ``raw_recon`` line (one batch of 128 planes at 4:2:0 rebuilt on the card,
+   bit-equal to the CPU, ms against a bytes floor), a ``raw_retry`` line (a
+   slide whose raw read fails on one tile is served in ``'rgb'`` and equals
+   it), a ``raw_assemble`` line (one mosaic chunk's tile rebuild and one
+   batch's gather, bit-equal to the CPU, with their ms) and
+   ``raw_planes_launches`` with ``phase_seconds``.
 
 The last lines are the kernels table (``launches`` sums the counts of the
-kernel runs of phases 4-7 and 9-11, each read from 0), the script's run time, the
+kernel runs of phases 4-7 and 9-12, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -3812,6 +3835,379 @@ def parallel_path(torch, dev, folds=None) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: raw-plane serving ('ycbcr' and 'mosaic') through K4, K5 and K1
+# ---------------------------------------------------------------------------
+
+# (tile side, (sh, sv)) of each layout: patch-sized tiles at 4:2:0 and 4:2:2
+# ('ycbcr'), and Aperio's 240-px tiles at 4:2:0 ('mosaic'; 8192 is no
+# multiple of 240, so the last row and column of tiles are edge tiles)
+RAW_LAYOUTS = ((PATCH, (2, 2)), (PATCH, (2, 1)), (240, (2, 2)))
+# the raw modes against 'rgb' on the same reader: the prediction
+# (tests/test_mosaic.py's rtol and atol; for the mosaic in bf16, where a
+# patch's place in its batch moves its rounding (raw_position_probe),
+# Pearson r: 1 - 7.2e-9 measured on an H100, so 1 - 1e-6 leaves a margin of
+# about 140 and no more), the kept features (the same rows: max |diff| /
+# max |rgb|, 6.9e-4 measured in bf16, 0 in f32)
+RAW_RTOL, RAW_ATOL, RAW_BF16_R, RAW_FEAT_TOL = 2e-4, 1e-4, 1 - 1e-6, 1e-3
+
+
+class PlanarSlide:
+    """A stand-in for a slide file of JPEG tiles, never in the package: the
+    tiled level 0 of an ``ArrayReader`` slide encoded once into per-tile
+    planar Y ++ Cb ++ Cr (JFIF RGB -> YCbCr rounded, chroma averaged over
+    ``sh x sv``, edge tiles padded by repeating the last row and column, as
+    an encoder pads), on the card, held on the host.  It exposes the native
+    reader's raw-plane interface: ``tile_dims``, ``ycbcr_subsampling`` (the
+    subsampling only where ``size`` is the tile dims) and a strict
+    ``read_regions_ycbcr`` (``OSError`` on an unaligned or wrong-sized
+    request, and on ``fail_tile``, counted in ``failed_reads``).
+    ``read_region(s)`` at level 0 are what
+    libjpeg would decode: every tile rebuilt on the CPU by the port's
+    ``ops/ycbcr.planar_to_rgb`` (which the CPU tests hold against libjpeg
+    and against JAX), zero past the level's bounds; the card never runs
+    libjpeg.  Other levels (the slide mask's) are the wrapped slide's."""
+
+    def __init__(self, torch, dev, slide, tile: int, sub, fail_tile=None):
+        self._slide, self.tile, self.sub, self.fail_tile = slide, tile, tuple(sub), fail_tile
+        self.failed_reads = 0
+        self.level_dimensions = slide.level_dimensions
+        self.properties = {"aperio.AppMag": "20"}
+        lv0 = torch.as_tensor(slide.levels[0], device=dev)
+        h0, w0 = lv0.shape[:2]
+        self.ntx, self.nty = -(-w0 // tile), -(-h0 // tile)
+        rows = torch.arange(self.nty * tile, device=dev).clamp(max=h0 - 1)
+        cols = torch.arange(self.ntx * tile, device=dev).clamp(max=w0 - 1)
+        r, g, b = lv0[rows][:, cols].float().unbind(-1)
+        sh, sv = self.sub
+
+        def u8(p):
+            return p.round().clamp(0, 255)
+
+        def tiles(p, th, tw):  # (nty * th, ntx * tw) -> (nty, ntx, th * tw)
+            return p.reshape(self.nty, th, self.ntx, tw).permute(0, 2, 1, 3).reshape(
+                self.nty, self.ntx, th * tw)
+
+        def chroma(p):  # the sh x sv block means of a rounded full-resolution plane
+            p = u8(p)
+            return tiles(u8(p.reshape(p.shape[0] // sv, sv, p.shape[1] // sh, sh).mean((1, 3))),
+                         tile // sv, tile // sh)
+
+        y = tiles(u8(0.299 * r + 0.587 * g + 0.114 * b), tile, tile)
+        cb = chroma(-0.168736 * r - 0.331264 * g + 0.5 * b + 128)
+        cr = chroma(0.5 * r - 0.418688 * g - 0.081312 * b + 128)
+        self.planes = torch.cat([y, cb, cr], -1).to(torch.uint8).cpu().numpy()
+        self._decoded = None
+
+    def tile_dims(self, level: int):
+        return (self.tile, self.tile) if level == 0 else None
+
+    def ycbcr_subsampling(self, level: int, size):
+        return self.sub if level == 0 and tuple(size) == self.tile_dims(0) else None
+
+    def read_regions_ycbcr(self, locations, level, size, nthreads=None):
+        import numpy as np
+
+        if self.ycbcr_subsampling(level, size) is None:
+            raise OSError("raw YCbCr path unsupported for this level/size")
+        out = []
+        for x, y in locations:
+            tx, ty = x // self.tile, y // self.tile
+            if (tx, ty) == self.fail_tile:
+                self.failed_reads += 1
+                raise OSError(f"read_regions_ycbcr: corrupt tile at ({x}, {y})")
+            if x % self.tile or y % self.tile or not 0 <= tx < self.ntx or not 0 <= ty < self.nty:
+                raise OSError(f"read_regions_ycbcr: no whole tile at ({x}, {y})")
+            out.append(self.planes[ty, tx])
+        return np.stack(out)
+
+    def _level0(self):
+        """Level 0 as the tiles decode, built on the first RGB read."""
+        if self._decoded is None:
+            import torch
+            from sequoia_tpu_torch.data.wsi import ArrayReader
+            from sequoia_tpu_torch.ops import ycbcr
+
+            t, (w0, h0) = self.tile, self.level_dimensions[0]
+            flat = torch.from_numpy(self.planes.reshape(self.nty * self.ntx, -1))
+            rgb = torch.cat([ycbcr.planar_to_rgb(flat[s:s + 64], t, t, *self.sub)
+                             for s in range(0, len(flat), 64)])
+            lv0 = rgb.reshape(self.nty, self.ntx, t, t, 3).permute(0, 2, 1, 3, 4).reshape(
+                self.nty * t, self.ntx * t, 3)[:h0, :w0].numpy()
+            self._decoded = ArrayReader([lv0], properties=self.properties)
+        return self._decoded
+
+    def read_region(self, location, level, size):
+        if level == 0:
+            return self._level0().read_region(location, 0, size)
+        return self._slide.read_region(location, level, size)
+
+    def read_regions(self, locations, level, size, nthreads=None):
+        import numpy as np
+
+        return np.stack([self.read_region(loc, level, size) for loc in locations])
+
+
+def raw_recon_check(torch, dev, slide) -> dict:
+    """``planar_to_rgb`` + ``mask_to_valid`` on one batch of 128 candidates'
+    planes at 256 px and 4:2:0 on the card, bit-equal to the CPU, and its ms
+    against a bytes bound (planes read, RGB written: a floor, not a target,
+    for unfused elementwise ops)."""
+    import numpy as np
+    from sequoia_tpu_torch.ops import ycbcr
+
+    planes = slide.planes.reshape(-1, slide.planes.shape[-1])[:FEAT_BATCH]
+    wh = np.full((len(planes), 2), PATCH, np.int32)
+    wh[-3:] = ((PATCH, 17), (5, PATCH), (0, 0))  # edge and padding rows
+    pc, whc = torch.from_numpy(planes), torch.from_numpy(wh)
+    pd, whd = pc.to(dev), whc.to(dev)
+
+    def recon(p, w):
+        return ycbcr.mask_to_valid(ycbcr.planar_to_rgb(p, PATCH, PATCH, *slide.sub), w)
+
+    equal = bool(torch.equal(recon(pd, whd).cpu(), recon(pc, whc)))
+    if not equal:
+        raise AssertionError("raw_recon: the card's reconstruction differs from the CPU's")
+    ms = time_ms(torch, lambda: recon(pd, whd), 10)
+    nbytes_ = planes.nbytes + len(planes) * PATCH * PATCH * 3
+    bms, by = bound_ms(nbytes_, 0, "bfloat16")
+    return {"batch": len(planes), "sub": list(slide.sub), "bit_equal_cpu": equal, "ms": ms,
+            "bound_ms": bms, "bound_by": by, "bound_is": "a floor for unfused elementwise ops"}
+
+
+def raw_assemble_check(torch, dev, pred, slide) -> dict:
+    """One mosaic chunk's tile rebuild and one batch's patch gather on the
+    card, bit-equal to the CPU, with their ms."""
+    from sequoia_tpu_torch.ops import mosaic, ycbcr
+
+    cands = pred._candidates(slide)
+    layout = pred._mosaic_layout(slide, PATCH)
+    stack, idx, offs, wh, _, (ky, kx) = next(pred._decode_mosaic_chunks(cands, layout))
+    tw, th, sh, sv = layout
+    b = [torch.from_numpy(a[:FEAT_BATCH]) for a in (idx, offs, wh)]
+    bd = [a.to(dev) for a in b]
+    sd = torch.from_numpy(stack).to(dev)
+
+    def rebuild():
+        return ycbcr.planar_to_rgb(sd, th, tw, sh, sv)
+
+    tiles = rebuild()
+    got = mosaic.gather_patches(tiles, *bd, PATCH, ky, kx)
+    want = mosaic.make_assemble(PATCH, *layout, ky, kx)(torch.from_numpy(stack), *b)
+    equal = bool(torch.equal(got.cpu(), want))
+    if not equal:
+        raise AssertionError("raw_assemble: the card's patches differ from the CPU's")
+    return {"tiles_in_chunk": len(stack) - 1, "neighbourhood": [ky, kx],
+            "batch": len(b[0]), "bit_equal_cpu": equal,
+            "tiles_rebuild_ms": time_ms(torch, rebuild, 5),
+            "gather_ms_per_batch": time_ms(torch, lambda: mosaic.gather_patches(
+                tiles, *bd, PATCH, ky, kx), 5)}
+
+
+def raw_position_probe(torch, pred, slide) -> dict:
+    """Which layers of the bf16 backbone move a row's rounding with its place
+    in the batch.  On one batch of 128 candidates, each step of
+    ``resnet.forward_extract`` (the stem, each stage's stride-2 transition
+    block and its stride-1 chain, the pool) on the input the forward gives
+    it, against the same input with its rows rotated by 1 and by 64 and
+    restored: ``[max rel at 1, at 64]`` (max |diff| / max |out|), 0 where
+    the step is blind to a row's place; ``whole`` is the backbone so.  Once
+    with the chains through K4 (``fused_stages`` (1, 2, 3, 4), channels_last)
+    and once through cuDNN (``fused_stages`` (), NCHW); the steps composed
+    must equal ``forward_extract`` bit for bit."""
+    import functools
+
+    import torch.nn.functional as F
+    from sequoia_tpu_torch.models import resnet
+
+    params = pred.extractor.params
+    cands = pred._candidates(slide)
+    u8 = torch.as_tensor(next(pred._decode_chunks(cands, FEAT_BATCH)), device=pred.device)
+
+    def moved(fn, x):
+        a = fn(x)
+        d = [float((a.float() - fn(x.roll(k, 0)).roll(-k, 0).float()).abs().max()
+                   / a.float().abs().max()) for k in (1, 64)]
+        return a, d
+
+    def stem(x, layout):
+        x = resnet.stem_space_to_depth(x, params["conv1_s2d"]).permute(0, 3, 1, 2)
+        x = F.max_pool2d(torch.relu(resnet._bn(x, params["bn1"])), 3, 2, 1)
+        return x.contiguous(memory_format=layout)
+
+    out = {}
+    for name, fused in (("k4", (1, 2, 3, 4)), ("cudnn", ())):
+        cfg = resnet.ResNetConfig(compute_dtype=torch.bfloat16, fused_stages=fused)
+        layout = torch.channels_last if fused else torch.contiguous_format
+        steps = {}
+        x, steps["stem"] = moved(lambda v: stem(v, layout),
+                                 resnet.preprocess_uint8(u8).to(torch.bfloat16))
+        for s in range(4):
+            blocks = params[f"layer{s + 1}"]
+            if s > 0:
+                x, steps[f"layer{s + 1}_transition"] = moved(
+                    lambda v: resnet._bottleneck(v, blocks[0], 2), x)
+            start = int(s > 0)
+            x, steps[f"layer{s + 1}_chain"] = moved(
+                (lambda v: resnet._fused_chain(v, blocks, start)) if fused else
+                (lambda v: functools.reduce(lambda a, p: resnet._bottleneck(a, p, 1),
+                                            blocks[start:], v)), x)
+        x, steps["pool"] = moved(
+            lambda v: F.avg_pool2d(v.float(), 7, stride=cfg.pool_stride).reshape(len(v), -1)
+            if min(v.shape[2:]) >= 7 else v.float().mean((2, 3)), x)
+        whole, steps["whole"] = moved(lambda v: resnet.extract_from_uint8(cfg, params, v), u8)
+        if not torch.equal(x, whole):
+            raise AssertionError(f"raw_position_probe {name}: steps differ from the forward")
+        out[name] = steps
+    return out
+
+
+def raw_planes_path(torch, dev, rparams=None, folds=None) -> dict:
+    """Phase 12; returns the kernels' launch counts of its runs."""
+    import copy
+
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.serve import SlidePredictor
+
+    t0 = time.perf_counter()
+    if folds is None:
+        rparams, folds = models(torch, dev)
+
+    def predictor(dtype):
+        rcfg = resnet.ResNetConfig(compute_dtype=dtype, fused_stages=(1, 2, 3, 4))
+        ext = FeatureExtractor("resnet", rparams, batch_size=FEAT_BATCH, cfg=rcfg,
+                               patch_size=PATCH, device=dev)
+        return SlidePredictor(ext, folds, n_clusters=K, use_pallas_kmeans=True,
+                              use_fused_vis=True, patch_size=PATCH, device=dev)
+
+    pred = predictor(torch.bfloat16)
+    base = [make_slide(torch, dev, s) for s in (1, 2)]
+
+    def serve(p, slide, force_rgb=False) -> dict:
+        """One slide in its best mode or in 'rgb': seconds, io_stats deltas,
+        launches, the prediction and the kept features."""
+        seen, orig = [], p.predict_features
+        p.predict_features = lambda f: seen.append(f) or orig(f)
+        before, l0 = dict(p.io_stats), dict(_build.LAUNCHES)
+        t1 = time.perf_counter()
+        try:
+            y = p._consume_retrying(slide, p._start_producer(slide, force_rgb=force_rgb))
+            torch.cuda.synchronize()
+        finally:
+            del p.predict_features
+        return {"seconds": time.perf_counter() - t1, "y": y, "feats": seen[0],
+                "stats": {k: p.io_stats[k] - before[k] for k in before},
+                "launches": {k: _build.LAUNCHES[k] - l0[k] for k in l0}}
+
+    def agree(raw, rgb) -> dict:
+        """The kept set (the same rows: features within RAW_FEAT_TOL of the
+        largest) and the prediction's max |diff| and r against 'rgb'."""
+        fa, fb = raw["feats"], rgb["feats"]
+        same = fa.shape == fb.shape and raw["stats"]["kept"] == rgb["stats"]["kept"]
+        frel = float((fa - fb).abs().max() / fb.abs().max()) if same else None
+        return {"kept_set_equal_rgb": same and frel <= RAW_FEAT_TOL,
+                "kept_features_max_rel_diff": frel,
+                "max_abs_diff_vs_rgb": float(np.abs(raw["y"] - rgb["y"]).max()),
+                "pearson_r_vs_rgb": pearson(np, raw["y"], rgb["y"]),
+                "within_tol": bool(np.allclose(raw["y"], rgb["y"], rtol=RAW_RTOL,
+                                               atol=RAW_ATOL))}
+
+    def close(mode, y, y_rgb) -> bool:
+        """A bf16 raw prediction against 'rgb''s: within the tolerance for
+        'ycbcr' (the same batches), r >= RAW_BF16_R for the mosaic."""
+        if mode == "ycbcr":
+            return bool(np.allclose(y, y_rgb, rtol=RAW_RTOL, atol=RAW_ATOL))
+        return pearson(np, y, y_rgb) >= RAW_BF16_R
+
+    _build.reset_launches()
+    for tile, sub in RAW_LAYOUTS:
+        t1 = time.perf_counter()
+        slides = [PlanarSlide(torch, dev, s, tile, sub) for s in base]
+        setup_s = time.perf_counter() - t1
+        mode = pred._pick_mode(pred._candidates(slides[0]), False)[0]
+        want_mode = "ycbcr" if tile == PATCH else "mosaic"
+        if mode != want_mode:
+            raise AssertionError(f"raw planes {tile}@{sub}: mode {mode}, not {want_mode}")
+        serve(pred, slides[0])  # warm-ups: the mode's first batch, then 'rgb''s
+        serve(pred, slides[0], force_rgb=True)
+        raw, rgb = serve(pred, slides[0]), serve(pred, slides[0], force_rgb=True)
+        rgb2 = serve(pred, slides[1], force_rgb=True)["y"]
+        l0 = dict(_build.LAUNCHES)
+        t1 = time.perf_counter()
+        both = list(pred.predict_slides(slides))
+        torch.cuda.synchronize()
+        slides_s = time.perf_counter() - t1
+        lc = {k: raw["launches"][k] + _build.LAUNCHES[k] - l0[k] for k in l0}
+        check_launched(lc, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
+                       f"raw planes {mode}")
+        y = raw["y"]
+        if y.shape != (1, GENES) or not np.isfinite(y).all():
+            raise AssertionError(f"raw planes {mode}: prediction {y.shape} not finite (1, G)")
+        ag = agree(raw, rgb)
+        d_slides = float(np.abs(both[0][1] - y).max())
+        d_slide2 = float(np.abs(both[1][1] - rgb2).max())
+        ratio = raw["stats"]["bytes_uploaded"] / rgb["stats"]["bytes_uploaded"]
+        line = {"phase": "raw_planes", "tile": tile, "sub": list(sub), "mode": mode,
+                "dtype": "bfloat16", "setup_s": setup_s,
+                "candidates": raw["stats"]["candidates"], "kept": raw["stats"]["kept"],
+                "kept_rgb": rgb["stats"]["kept"],
+                "bytes_per_slide": raw["stats"]["bytes_uploaded"],
+                "rgb_bytes_per_slide": rgb["stats"]["bytes_uploaded"], "bytes_ratio": ratio,
+                "seconds": raw["seconds"], "rgb_seconds": rgb["seconds"],
+                "predict_slides_seconds_per_slide": slides_s / len(slides),
+                "launches": lc, **ag, "max_abs_diff_predict_slides_vs_wsi": d_slides,
+                "slide2_max_abs_diff_vs_rgb": d_slide2,
+                "slide2_pearson_r_vs_rgb": pearson(np, both[1][1], rgb2)}
+        if mode == "mosaic":
+            # the mosaic batches candidates in spatial order, so a kept patch
+            # sits elsewhere in its batch than in 'rgb'; in bf16 that moves
+            # its features by rounding (the probe), and k-means and the folds
+            # carry it to the prediction.  f32 holds the tolerance.
+            line["bf16_batch_position"] = raw_position_probe(torch, pred, slides[0])
+            p32 = predictor(torch.float32)
+            r32, g32 = serve(p32, slides[0]), serve(p32, slides[0], force_rgb=True)
+            line["float32"] = {"seconds": r32["seconds"], "rgb_seconds": g32["seconds"],
+                               "launches": r32["launches"], **agree(r32, g32)}
+            del p32
+        emit(line)
+        if not ag["kept_set_equal_rgb"]:
+            raise AssertionError(f"raw planes {mode}: kept set differs from 'rgb'")
+        # the mosaic is also held in f32, to the tolerance and the kept set
+        held = close(mode, y, rgb["y"]) and (mode == "ycbcr" or (
+            line["float32"]["within_tol"] and line["float32"]["kept_set_equal_rgb"]))
+        if not held or not np.allclose(both[0][1], y, rtol=RAW_RTOL, atol=RAW_ATOL):
+            raise AssertionError(f"raw planes {mode}: prediction differs from 'rgb' {line}")
+        if not np.isfinite(both[1][1]).all() or not close(mode, both[1][1], rgb2):
+            raise AssertionError(f"raw planes {mode}: predict_slides slide 2 differs from 'rgb'")
+        if mode == "ycbcr" and sub == (2, 2) and ratio > 0.55:
+            raise AssertionError(f"raw planes ycbcr 4:2:0: {ratio:.3f} of 'rgb''s bytes")
+        if tile == PATCH and sub == (2, 2):
+            emit({"phase": "raw_recon", **raw_recon_check(torch, dev, slides[0])})
+            # a strict raw read that fails on one tissue tile: served in 'rgb'
+            bad = copy.copy(slides[0])  # the same planes and decoded level 0
+            bad.fail_tile = (slides[0].ntx // 2, slides[0].nty // 2)
+            retry = serve(pred, bad)
+            r_diff = float(np.abs(retry["y"] - rgb["y"]).max())
+            emit({"phase": "raw_retry", "tile": tile, "sub": list(sub),
+                  "fail_tile": list(bad.fail_tile), "failed_reads": bad.failed_reads,
+                  "seconds": retry["seconds"], "max_abs_diff_vs_rgb": r_diff})
+            # a raw read failed, so the prediction can only be the retry's
+            if bad.failed_reads < 1:
+                raise AssertionError("raw_retry: the failing tile was never read")
+            if not np.allclose(retry["y"], rgb["y"], rtol=RAW_RTOL, atol=RAW_ATOL):
+                raise AssertionError(f"raw_retry: differs from 'rgb' ({r_diff})")
+        if mode == "mosaic":
+            emit({"phase": "raw_assemble", **raw_assemble_check(torch, dev, pred, slides[0])})
+        del slides
+    launches = dict(_build.LAUNCHES)
+    emit({"phase": "raw_planes_launches", **launches,
+          "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -3835,8 +4231,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
                     "for these alone) and/or uni_path (phase 7), train_path (phase 8), "
-                    "aggregators_path (phase 9), stages_path (phase 10); prints no result "
-                    "line")
+                    "aggregators_path (phase 9), stages_path (phase 10), parallel_path "
+                    "(phase 11), raw_planes_path (phase 12); prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -3867,7 +4263,8 @@ def main() -> int:
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
     known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
-                                      "aggregators_path", "stages_path", "parallel_path"]
+                                      "aggregators_path", "stages_path", "parallel_path",
+                                      "raw_planes_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -3900,6 +4297,8 @@ def main() -> int:
             stages_path(torch, dev, [None, None])
         if "parallel_path" in only:
             parallel_path(torch, dev)
+        if "raw_planes_path" in only:
+            raw_planes_path(torch, dev)
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
@@ -3915,6 +4314,8 @@ def main() -> int:
     wsi, kept = wsi_path(torch, dev, rparams, folds)
     torch.cuda.empty_cache()
     served = serve_cli_path(torch, dev, folds)
+    torch.cuda.empty_cache()
+    raw = raw_planes_path(torch, dev, rparams, folds)
     del rparams, folds
     torch.cuda.empty_cache()
     uni = uni_path(torch, dev, kept)
@@ -3929,7 +4330,7 @@ def main() -> int:
     stages = stages_path(torch, dev, kept, keep.pop("test_results"))
     torch.cuda.empty_cache()
     par = parallel_path(torch, dev)
-    launches = {k: main[k] + wsi[k] + served[k] + uni[k] + agg[k] + stages[k] + par[k]
+    launches = {k: main[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k] + stages[k] + par[k]
                 for k in results}
 
     emit({"kernels": [

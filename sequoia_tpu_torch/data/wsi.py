@@ -10,9 +10,9 @@ of the JAX package).  Readers are pluggable:
 * ``ArrayReader`` — an in-memory numpy pyramid (tests, synthetic slides).
 
 ``openslide``, ``PIL`` and the native library are loaded only when a reader
-needs them.  The JAX package's raw-plane serving modes read the same pixels
-as its RGB mode (bit-exact, ``sequoia_tpu/serve.py:415-421``), so a slide
-served by the port gives the same patches as there.
+needs them.  The native reader also returns raw YCbCr planes for the
+raw-plane serving modes (``serve.py``), which rebuild the same pixels as its
+RGB decode, bit for bit.
 
 Interface follows OpenSlide conventions: ``level_dimensions`` is a list of
 ``(width, height)``; ``read_region((x, y), level, (w, h))`` takes level-0

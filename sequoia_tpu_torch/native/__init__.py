@@ -241,8 +241,9 @@ class NativeTiffReader:
     def read_regions_ycbcr(self, locations, level, size, nthreads: int = 8) -> np.ndarray:
         """Batch raw-YCbCr whole-tile decode: [(x0, y0), ...] level-0 coords
         (each a tile-aligned full tile) -> (n, w*h + 2*(w/sh)*(h/sv)) uint8,
-        each row planar Y ++ Cb ++ Cr.  The raw-plane serving modes that read
-        it are not ported yet (ROADMAP.md)."""
+        each row planar Y ++ Cb ++ Cr, which the raw-plane serving modes
+        (``serve.SlidePredictor``, ``'ycbcr'`` and ``'mosaic'``) rebuild to RGB
+        on the device."""
         sub = self.ycbcr_subsampling(level, size)
         if sub is None:
             raise OSError("raw YCbCr path unsupported for this level/size")

@@ -7,8 +7,8 @@ to the full batch; the preprocessing runs on the device with the backbone
 (the ImageNet normalization, and for UNI first the bit-exact Pillow resize
 to 224). ``raw_fwd`` is the backbone as one ``(params, u8) -> (N, D)``
 function honouring ``cfg``, so a caller can run more device work on the same
-uploaded batch (serving's tissue screen,
-``serve.SlidePredictor._fused_program``).
+uploaded batch (serving's tissue screen and raw-plane reconstruction,
+``serve.SlidePredictor._fused_program`` and its siblings).
 
 With ``mesh`` (an in-process ``parallel.sharding.Mesh``) extraction is data
 parallel over the mesh's ``data`` rows: each row's first device holds a copy
@@ -106,19 +106,20 @@ class FeatureExtractor:
         """Host block -> the extractor's device."""
         return torch.as_tensor(block_u8).to(self.device, non_blocking=True)
 
-    def map_shards(self, fn, params, u8: torch.Tensor):
-        """``fn(params, rows)`` over the ``data`` row shards of ``u8`` (each
+    def map_shards(self, fn, params, *xs: torch.Tensor):
+        """``fn(params, *rows)`` over the ``data`` row shards of each of
+        ``xs`` (a batch and its per-row companions, split alike; each shard
         on its row's device, with its copy of the parameters; row 0 with
         ``params``), the results (a tensor or a tuple of them) concatenated
-        on the first device.  Without a mesh, ``fn(params, u8)``."""
+        on the first device.  Without a mesh, ``fn(params, *xs)``."""
         if self.mesh is None:
-            return fn(params, u8)
+            return fn(params, *xs)
         from sequoia_tpu_torch.parallel.sharding import dp_images
 
         outs = []
-        for i, rows in enumerate(dp_images(self.mesh, u8)):
-            with _on(rows.device):  # the kernels launch on the current device's stream
-                outs.append(fn(params if i == 0 else self._replicas[i - 1], rows))
+        for i, rows in enumerate(zip(*(dp_images(self.mesh, x) for x in xs))):
+            with _on(rows[0].device):  # the kernels launch on the current device's stream
+                outs.append(fn(params if i == 0 else self._replicas[i - 1], *rows))
         first = self.mesh.first
         if isinstance(outs[0], tuple):
             return tuple(torch.cat([o[k].to(first, non_blocking=True) for o in outs])

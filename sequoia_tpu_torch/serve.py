@@ -24,10 +24,31 @@ in.  The kept features stay on the device.  ``predict_slides`` starts slide
 i+1's decode before slide i's tail and quarantines a failing slide through
 ``on_error``.  Over a data-parallel extractor (``FeatureExtractor(mesh=)``)
 each batch's backbone and screen run per device shard, and k-means and the
-folds run on the mesh's first device, the predictor's.  The JAX package's
-raw-plane modes (``'ycbcr'``,
-``'mosaic'``, read through its native libtiff reader) are not ported yet;
-they give the same pixels as ``'rgb'`` there.
+folds run on the mesh's first device, the predictor's.
+
+Real slides store level 0 as chroma-subsampled JPEG tiles, and a reader
+that can return their raw YCbCr planes (``ycbcr_subsampling``, and
+``tile_dims`` for the mosaic: the port's ``native.NativeTiffReader``) gets
+two raw-plane modes at AppMag 20, which send 1.5 B/px at 4:2:0 where
+``'rgb'`` sends 3 and rebuild RGB on the device, bit-exact against the RGB
+decode (``ops/ycbcr.py``):
+
+* ``'ycbcr'``, tile dims equal to the patch size: each candidate's planes
+  and in-bounds extent go up, and the reconstruction, the edge mask, the
+  screen and the backbone run on the batch (``_fused_ycbcr_program``);
+* ``'mosaic'``, any other tile dims (Aperio's 240-px tiles under 256-px
+  patches): each tile is read and uploaded once, rebuilt once per chunk on
+  the device, and every patch gathered from its tile neighbourhood
+  (``ops/mosaic.py``, ``_fused_mosaic_program``).  Chunks come in spatial
+  order, so every candidate is screened and the kept rows are the
+  ``max_patches`` smallest shuffle positions, in order, selected with the
+  features on the device.
+
+Both keep the same patches as ``'rgb'``.  A raw-plane slide that fails
+with ``OSError`` (a strict raw read of a corrupt tile) is served once more
+in ``'rgb'``.  With OpenSlide, Pillow or an in-memory reader (the H100
+machine, where the native reader does not build, gets OpenSlide or Pillow
+from ``open_slide``) serving is ``'rgb'``/``'screened'``, as in JAX.
 
 The fold ensemble is the mean over folds of each fold's prediction (the
 reference's 5-fold averaging).  Each fold runs its model's ``apply``: HE2RNA
@@ -57,7 +78,7 @@ from sequoia_tpu_torch.data.wsi import open_slide, read_regions
 from sequoia_tpu_torch.models import he2rna, vis, vit
 from sequoia_tpu_torch.ops import cuda_vis
 from sequoia_tpu_torch.ops import kmeans as km
-from sequoia_tpu_torch.ops import masking
+from sequoia_tpu_torch.ops import masking, mosaic, ycbcr
 from sequoia_tpu_torch.ops.nn import compute_dtype, precision
 from sequoia_tpu_torch.pipeline import patch_gen
 from sequoia_tpu_torch.pipeline.features import FeatureExtractor
@@ -205,22 +226,164 @@ class SlidePredictor:
                              "use iter_patch_chunks")
         yield from self._decode_chunks(cands, decode_chunk, stop)
 
+    @staticmethod
+    def _ycbcr_sub(slide, psr: int):
+        """The chroma subsampling where the slide can stream raw YCbCr planes
+        per candidate (JPEG tiles whose dims equal the patch size), else
+        None."""
+        probe = getattr(slide, "ycbcr_subsampling", None)
+        if probe is None:
+            return None
+        try:
+            return probe(0, (psr, psr))
+        except Exception:
+            return None
+
+    @staticmethod
+    def _mosaic_layout(slide, psr: int):
+        """``(tw, th, sh, sv)`` where the slide's JPEG tiles can feed the tile
+        mosaic (tiled level 0, a supported subsampling, tile dims other than
+        the patch size: real Aperio slides), else None."""
+        dims = getattr(slide, "tile_dims", None)
+        probe = getattr(slide, "ycbcr_subsampling", None)
+        if dims is None or probe is None:
+            return None
+        try:
+            t = dims(0)
+            if t is None or tuple(t) == (psr, psr):
+                return None  # equal dims: the per-candidate 'ycbcr' mode
+            sub = probe(0, t)
+        except Exception:
+            return None
+        return (*t, *sub) if sub else None
+
+    @staticmethod
+    def _decode_ycbcr_chunks(candidates, decode_chunk: int = 64, stop=None):
+        """Generator of ``(planes (n, bytes) uint8, wh (n, 2) int32)``
+        candidate chunks, host only: each candidate's planar Y ++ Cb ++ Cr
+        and its in-bounds (width, height), so the device masks the encoder's
+        padding past the level's edge to the RGB decode's zeros."""
+        slide, coords, psr, _ = candidates
+        xmax, ymax = slide.level_dimensions[0]
+        for s in range(0, len(coords), decode_chunk):
+            if stop is not None and stop.is_set():
+                return
+            chunk = coords[s:s + decode_chunk]
+            planes = slide.read_regions_ycbcr(chunk, 0, (psr, psr))
+            wh = np.asarray([(min(psr, xmax - x), min(psr, ymax - y)) for x, y in chunk],
+                            np.int32)
+            yield planes, wh
+
+    @staticmethod
+    def _decode_mosaic_chunks(candidates, layout, stop=None):
+        """Generator of tile-mosaic chunks, host only: ``(stack, idx, offs, wh,
+        orig, (ky, kx))``, the chunk's distinct raw tiles and one neutral
+        (black) tile last, and each patch's plan (``ops/mosaic.plan_chunks``),
+        in spatial order.  JAX pads the stack to the static ``budget + 1``
+        rows its compiled program needs; here the stack holds the chunk's
+        tiles only and ``idx``'s neutral slot (the budget, past every real
+        slot) is moved to its last row, so the padding crosses to no
+        device."""
+        slide, coords, psr, _ = candidates
+        tw, th, sh, sv = layout
+        neutral = mosaic.neutral_planar(tw, th, sh, sv)
+        ky, kx = mosaic.neighborhood(coords, psr, tw, th)
+        for chunk in mosaic.plan_chunks(coords, psr, (tw, th), slide.level_dimensions[0]):
+            if stop is not None and stop.is_set():
+                return
+            locs = [(int(tx * tw), int(ty * th)) for tx, ty in chunk.tiles]
+            planes = slide.read_regions_ycbcr(locs, 0, (tw, th))
+            stack = np.concatenate([planes, neutral[None]])
+            idx = np.minimum(chunk.idx, len(planes)).astype(np.int32)
+            yield stack, idx, chunk.offs, chunk.wh, chunk.orig, (ky, kx)
+
+    def iter_raw_ycbcr_chunks(self, wsi_path, decode_chunk: int = 64, stop=None):
+        """Generator of unscreened raw-YCbCr candidate chunks, ``(planes,
+        wh)``, for slides whose JPEG tiles are patch-sized; honours
+        ``stop``."""
+        cands = self._candidates(wsi_path)
+        if cands[3] != 1.0 or self._ycbcr_sub(cands[0], cands[2]) is None:
+            raise ValueError("slide has no raw-YCbCr path; use iter_raw_chunks")
+        yield from self._decode_ycbcr_chunks(cands, decode_chunk, stop)
+
+    def iter_mosaic_chunks(self, wsi_path, stop=None):
+        """Generator of tile-mosaic chunks (:meth:`_decode_mosaic_chunks`)
+        for slides whose JPEG tile dims differ from the patch size."""
+        cands = self._candidates(wsi_path)
+        layout = self._mosaic_layout(cands[0], cands[2]) if cands[3] == 1.0 else None
+        if layout is None:
+            raise ValueError("slide has no tile-mosaic path; use iter_raw_chunks")
+        yield from self._decode_mosaic_chunks(cands, layout, stop)
+
+    def _shard_program(self, body):
+        """``body(raw, params, *rows) -> (features, keep_flags)`` as a
+        ``(params, *batch)`` program: per data shard under the extractor's
+        mesh (``map_shards``, every part of the batch split alike, ``raw`` the
+        one-device backbone), else on the whole batch with ``raw_fwd``."""
+        ext = self.extractor
+        if getattr(ext, "mesh", None) is None:
+            return lambda p, *xs: body(ext.raw_fwd, p, *xs)
+        return lambda p, *xs: ext.map_shards(lambda q, *rows: body(ext._one_fwd, q, *rows),
+                                             p, *xs)
+
+    @staticmethod
+    def _screened(raw, params, u8):
+        """The backbone and the tissue screen on one batch on the device."""
+        return raw(params, u8), masking.patch_keep_flags(
+            u8, background_threshold=patch_gen.BACKGROUND_THRESHOLD)
+
     def _fused_program(self):
         """``(params, u8 batch on the device) -> (features, keep_flags)``: the
         backbone and the tissue screen on one uploaded batch, so a candidate
         crosses to the device once."""
         if self._fused_fwd is None:
-            ext = self.extractor
-            sharded = getattr(ext, "mesh", None) is not None
-            raw = ext._one_fwd if sharded else ext.raw_fwd
-
-            def one(params, u8):
-                return raw(params, u8), masking.patch_keep_flags(
-                    u8, background_threshold=patch_gen.BACKGROUND_THRESHOLD)
-
-            # per data shard under the extractor's mesh
-            self._fused_fwd = (lambda p, u8: ext.map_shards(one, p, u8)) if sharded else one
+            self._fused_fwd = self._shard_program(self._screened)
         return self._fused_fwd
+
+    def _fused_ycbcr_program(self, sub: tuple[int, int]):
+        """``(params, planes, wh) -> (features, keep_flags)``: raw planes in,
+        then the RGB reconstruction, the edge mask (which also blackens the
+        zero padding rows), the screen and the backbone on the batch; planes
+        and ``wh`` shard with the batch under a mesh."""
+        ps = self.patch_size
+
+        def body(raw, params, planes, wh):
+            rgb = ycbcr.mask_to_valid(ycbcr.planar_to_rgb(planes, ps, ps, *sub), wh)
+            return self._screened(raw, params, rgb)
+
+        return self._shard_program(body)
+
+    def _fused_mosaic_program(self, ky: int, kx: int):
+        """``(params, tiles, idx, offs, wh) -> (features, keep_flags)``: a
+        batch's patches gathered from a chunk's rebuilt tiles
+        (``ops/mosaic.gather_patches``), then screened and featurised.  Under
+        a mesh ``idx``/``offs``/``wh`` shard with the batch and each shard
+        reads the tiles on its own device (``tiles`` maps a device to its
+        copy, :meth:`_upload_replicated`)."""
+        ps = self.patch_size
+
+        def run(params, tiles, idx, offs, wh):
+            def body(raw, p, i, o, w):
+                rgb = mosaic.gather_patches(tiles[i.device], i, o, w, ps, ky, kx)
+                return self._screened(raw, p, rgb)
+
+            return self._shard_program(body)(params, idx, offs, wh)
+
+        return run
+
+    def _upload_replicated(self, arr: np.ndarray) -> dict:
+        """One copy of ``arr`` on each data row's first device (the mosaic's
+        tile stack, which every patch of a batch may read), counted once
+        per copy; ``{device: tensor}``."""
+        mesh = self.extractor.mesh
+        devices = [row[0] for row in mesh.devices] if mesh is not None else [self.device]
+        copies = {}
+        for d in devices:
+            t = torch.as_tensor(arr).to(d, non_blocking=True)
+            if t.device not in copies:
+                copies[t.device] = t
+                self.io_stats["bytes_uploaded"] += arr.nbytes
+        return copies
 
     def extract_patches(self, wsi_path) -> np.ndarray:
         """Tissue-screened patches from a WSI (in memory, no HDF5)."""
@@ -273,25 +436,44 @@ class SlidePredictor:
 
     # -- streaming --------------------------------------------------------
 
-    def _start_producer(self, wsi_path):
-        """Start one slide's decode: the slide mask and candidate grid are
-        computed here, on the caller's thread and the device; a daemon
-        thread then decodes candidate chunks into a bounded queue of 4.  The
-        mode is ``'rgb'`` at AppMag 20 and ``'screened'`` otherwise.  A slide
-        that cannot be opened hands its error to the thread, which raises it
-        into :meth:`_consume` (per-slide quarantine).
+    def _pick_mode(self, cands, force_rgb: bool):
+        """``(mode, arg)`` of a slide's candidates, best first: ``'ycbcr'``
+        (arg: the subsampling), ``'mosaic'`` (arg: ``(tw, th, sh, sv)``),
+        ``'rgb'`` at AppMag 20, else ``'screened'`` (arg: the resize
+        factor).  ``force_rgb`` skips the raw-plane modes."""
+        slide, _, psr, rf = cands
+        if rf != 1.0:
+            return "screened", rf
+        if not force_rgb:
+            sub = self._ycbcr_sub(slide, psr)
+            if sub:
+                return "ycbcr", sub
+            layout = self._mosaic_layout(slide, psr)
+            if layout:
+                return "mosaic", layout
+        return "rgb", rf
 
-        Returns ``(queue, thread, err, stop, mode, resize_factor)``."""
+    def _start_producer(self, wsi_path, force_rgb: bool = False):
+        """Start one slide's decode: the slide mask and candidate grid are
+        computed here, on the caller's thread and the device, and the mode
+        picked (:meth:`_pick_mode`); a daemon thread then decodes candidate
+        chunks into a bounded queue of 4.  A slide that cannot be opened
+        hands its error to the thread, which raises it into :meth:`_consume`
+        (per-slide quarantine).
+
+        Returns ``(queue, thread, err, stop, mode, arg)``."""
         try:
             cands = self._candidates(wsi_path)
             failure = None
         except Exception as e:
             cands, failure = None, e
-        rf = cands[3] if cands else 1.0
-        mode = "rgb" if cands and rf == 1.0 else "screened"
+        mode, arg = self._pick_mode(cands, force_rgb) if cands else ("screened", 1.0)
         q: queue.Queue = queue.Queue(maxsize=4)
         err: list[BaseException] = []
         stop = threading.Event()  # consumer failed or satisfied: end the producer
+        chunks = {"ycbcr": lambda: self._decode_ycbcr_chunks(cands, stop=stop),
+                  "mosaic": lambda: self._decode_mosaic_chunks(cands, arg, stop=stop)
+                  }.get(mode, lambda: self._decode_chunks(cands, stop=stop))
 
         def put(item) -> bool:
             while not stop.is_set():
@@ -306,7 +488,7 @@ class SlidePredictor:
             try:
                 if failure is not None:
                     raise failure
-                for chunk in self._decode_chunks(cands, stop=stop):
+                for chunk in chunks():
                     if not put(chunk):
                         return
             except BaseException as e:  # propagate into the consumer
@@ -323,39 +505,82 @@ class SlidePredictor:
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()
-        return q, t, err, stop, mode, rf
+        return q, t, err, stop, mode, arg
+
+    @staticmethod
+    def _drain(q, t, err, stop, on_chunk) -> None:
+        """Feed each of a producer's chunks to ``on_chunk`` until its
+        sentinel or ``stop``; then stop and join the producer, whatever
+        happened, and raise its error (per-slide quarantine)."""
+        try:
+            while not stop.is_set():
+                # stop is only set on this thread (``on_chunk``, or the
+                # finally below), so checking it before q.get() never blocks
+                # on a producer that has already seen it and left
+                chunk = q.get()
+                if chunk is None or stop.is_set():
+                    break
+                on_chunk(chunk)
+        finally:
+            stop.set()  # a failure here must not strand the producer
+            t.join()
+        if err:
+            raise err[0]
+
+    def _batches(self, parts: tuple, fill: tuple | None = None):
+        """Whole extractor batches of the row-aligned arrays ``parts``:
+        yields ``(start, n real rows, pieces)``, the tail padded to the batch
+        with ``fill`` (one value per part, zeros by default)."""
+        bs = self.extractor.batch_size
+        fill = fill or (0,) * len(parts)
+        for s in range(0, len(parts[0]), bs):
+            pieces = [p[s:s + bs] for p in parts]
+            n = len(pieces[0])
+            if n < bs:
+                pieces = [np.concatenate([p, np.full((bs - n,) + p.shape[1:], v, p.dtype)])
+                          for p, v in zip(pieces, fill)]
+            yield s, n, pieces
+
+    def _run_fused(self, fused, pieces, n: int):
+        """One padded batch uploaded and run through a fused program:
+        ``(features of its first n rows that pass the screen, their (n,)
+        keep flags)``, on the device; counts the n candidates."""
+        f, fl = fused(self.extractor.params, *(self._upload_counted(p) for p in pieces))
+        self.io_stats["candidates"] += n
+        fl = fl[:n]
+        return f[:n][fl], fl
 
     @torch.no_grad()
-    def _consume(self, q, t, err, stop, mode: str, rf: float) -> np.ndarray:
+    def _consume(self, q, t, err, stop, mode: str, arg) -> np.ndarray:
         """Drain one slide's producer through the device and run the
         aggregation tail; returns the fold-averaged (1, G) prediction.
 
         Patches are featurised in whole extractor batches, the tail padded
-        with zero patches (they fail the tissue screen).  ``'rgb'`` batches
-        are unscreened candidates and go through :meth:`_fused_program`;
-        ``'screened'`` chunks are screened and resized as they arrive."""
-        fused = self._fused_program() if mode == "rgb" else None
+        with zero rows (zero patches, or zero planes with a zero extent,
+        which mask to black: either fails the tissue screen).  ``'rgb'``
+        batches are unscreened candidates and go through
+        :meth:`_fused_program`, ``'ycbcr'`` ``(planes, wh)`` batches through
+        :meth:`_fused_ycbcr_program`; ``'screened'`` chunks are screened and
+        resized as they arrive; ``'mosaic'`` selects its rows its own way
+        (:meth:`_consume_mosaic`)."""
+        if mode == "mosaic":
+            return self._consume_mosaic(q, t, err, stop, arg)
+        fused = (self._fused_ycbcr_program(arg) if mode == "ycbcr"
+                 else self._fused_program() if mode == "rgb" else None)
         bs = self.extractor.batch_size
         feats: list[torch.Tensor] = []
         kept = accepted = 0
-        pending: list[np.ndarray] = []
+        pending: list[tuple] = []  # per chunk, a tuple of its parts
         npending = 0
 
-        def featurise(block: np.ndarray) -> None:
+        def featurise(parts: tuple) -> None:
             nonlocal kept
-            for s in range(0, len(block), bs):
-                piece = block[s:s + bs]
-                n = len(piece)
-                if n < bs:
-                    piece = np.concatenate([piece, np.zeros((bs - n,) + piece.shape[1:],
-                                                            piece.dtype)])
-                u8 = self._upload_counted(piece)
-                if mode == "rgb":
-                    f, fl = fused(self.extractor.params, u8)
-                    self.io_stats["candidates"] += n
-                    take = f[fl][:self.max_patches - kept]
+            for _, n, pieces in self._batches(parts):
+                if fused is not None:
+                    take = self._run_fused(fused, pieces, n)[0][:self.max_patches - kept]
                 else:  # screened, resized and capped on arrival
-                    take = self.extractor.raw_fwd(self.extractor.params, u8)[:n]
+                    take = self.extractor.raw_fwd(self.extractor.params,
+                                                  self._upload_counted(pieces[0]))[:n]
                 kept += len(take)
                 self.io_stats["kept"] += len(take)
                 if len(take):
@@ -369,37 +594,71 @@ class SlidePredictor:
             take = npending if final else (npending // bs) * bs
             if not take:
                 return
-            block = np.concatenate(pending) if len(pending) > 1 else pending[0]
-            featurise(block[:take])
-            rest = block[take:]
-            pending, npending = ([rest] if len(rest) else []), len(rest)
+            parts = (tuple(np.concatenate(c) for c in zip(*pending)) if len(pending) > 1
+                     else pending[0])
+            featurise(tuple(p[:take] for p in parts))
+            rest = tuple(p[take:] for p in parts)
+            pending, npending = ([rest] if len(rest[0]) else []), len(rest[0])
 
-        try:
-            while not stop.is_set():
-                # stop is only set on this thread (the cap, or the finally
-                # below), so checking it before q.get() never blocks on a
-                # producer that has already seen it and left
-                chunk = q.get()
-                if chunk is None or stop.is_set():
-                    break
-                if mode == "screened":
-                    chunk = self._screen(chunk, rf)[:self.max_patches - accepted]
-                    accepted += len(chunk)
-                    if accepted >= self.max_patches:
-                        stop.set()  # every patch to keep is in: end the decode
-                pending.append(chunk)
-                npending += len(chunk)
-                drain(final=False)  # whole device batches only
-            if kept < self.max_patches:
-                drain(final=True)
-        finally:
-            stop.set()  # a failure here must not strand the producer
-            t.join()
-        if err:
-            raise err[0]
-        if not feats:
-            return self.predict_features(torch.zeros((0, self.extractor.feature_dim)))
-        return self.predict_features(torch.cat(feats))
+        def on_chunk(chunk) -> None:
+            nonlocal accepted, npending
+            if mode == "screened":
+                chunk = self._screen(chunk, arg)[:self.max_patches - accepted]
+                accepted += len(chunk)
+                if accepted >= self.max_patches:
+                    stop.set()  # every patch to keep is in: end the decode
+            parts = chunk if isinstance(chunk, tuple) else (chunk,)
+            pending.append(parts)
+            npending += len(parts[0])
+            drain(final=False)  # whole device batches only
+
+        self._drain(q, t, err, stop, on_chunk)
+        if kept < self.max_patches:
+            drain(final=True)
+        return self.predict_features(
+            torch.cat(feats) if feats else torch.zeros((0, self.extractor.feature_dim)))
+
+    @torch.no_grad()
+    def _consume_mosaic(self, q, t, err, stop, layout) -> np.ndarray:
+        """Drain a tile-mosaic producer.  Chunks come in spatial order (so
+        each tile is read and uploaded once), which the ``max_patches`` cap
+        cannot follow on the fly without changing which patches are kept:
+        every candidate is screened and featurised, the features of the
+        rows that pass stay on the device beside their shuffle positions
+        (``orig``, on the host), and whenever more than twice
+        ``max_patches`` are held only the ``max_patches`` smallest positions
+        are kept.  At the end they are taken in ascending order: the
+        reference's shuffle-order cap (``patch_gen_hdf5.py:100-123``), the
+        same rows and order as ``'rgb'``.  Memory stays O(max_patches) on
+        the host and the device."""
+        tw, th, sh, sv = layout
+        kfeat = torch.zeros((0, self.extractor.feature_dim), device=self.device)
+        korig = np.zeros((0,), np.int64)
+
+        def smallest(kfeat, korig, keep: int):
+            order = np.argsort(korig, kind="stable")[:keep]
+            return kfeat[torch.as_tensor(order, device=self.device)], korig[order]
+
+        def on_chunk(chunk) -> None:
+            nonlocal kfeat, korig
+            stack, idx, offs, wh, orig, (ky, kx) = chunk
+            prog = self._fused_mosaic_program(ky, kx)
+            # each tile rebuilt once a chunk, on each device that gathers
+            tiles = {d: ycbcr.planar_to_rgb(planes, th, tw, sh, sv)
+                     for d, planes in self._upload_replicated(stack).items()}
+            # padding rows assemble the neutral tile (last), masked black
+            fill = (stack.shape[0] - 1, 0, 0)
+            for s, n, pieces in self._batches((idx, offs, wh), fill):
+                f, fl = self._run_fused(lambda p, *xs: prog(p, tiles, *xs), pieces, n)
+                kfeat = torch.cat([kfeat, f])
+                korig = np.concatenate([korig, orig[s:s + n][fl.cpu().numpy()]])
+                if len(korig) > 2 * self.max_patches:
+                    kfeat, korig = smallest(kfeat, korig, self.max_patches)
+
+        self._drain(q, t, err, stop, on_chunk)
+        kfeat, korig = smallest(kfeat, korig, self.max_patches)
+        self.io_stats["kept"] += len(korig)
+        return self.predict_features(kfeat)
 
     def predict_wsi(self, wsi_path) -> np.ndarray:
         """Streaming slide inference: decode on a producer thread, screen and
@@ -407,10 +666,18 @@ class SlidePredictor:
         return self._consume_retrying(wsi_path, self._start_producer(wsi_path))
 
     def _consume_retrying(self, wsi_path, producer) -> np.ndarray:
-        """:meth:`_consume`.  The JAX package retries a failed raw-plane
-        slide (``'ycbcr'``/``'mosaic'``) once in ``'rgb'`` here; the port
-        streams ``'rgb'`` and ``'screened'`` only, which have no retry."""
-        return self._consume(*producer)
+        """:meth:`_consume`, with one retry in ``'rgb'`` when a raw-plane
+        slide (``'ycbcr'``/``'mosaic'``) fails with ``OSError``.  The raw
+        read is strict, so a corrupt tile fails loudly instead of feeding
+        wrong planes past the screen; the RGB decode of the same slide
+        still serves it (the native reader decodes a bad tile black and the
+        screen drops it, as the reference gets from OpenSlide)."""
+        try:
+            return self._consume(*producer)
+        except OSError:
+            if producer[4] not in ("ycbcr", "mosaic"):
+                raise
+            return self._consume(*self._start_producer(wsi_path, force_rgb=True))
 
     def predict_slides(self, wsi_paths, on_error=None):
         """Cross-slide pipelined serving: while the device works on slide i,

@@ -55,6 +55,11 @@ PARALLEL_MODULES = ("sequoia_tpu_torch/parallel/__init__.py",
                     "sequoia_tpu_torch/parallel/sharding.py", "sequoia_tpu_torch/dryrun.py")
 
 
+# the last slice: raw-plane serving's ops, the config, the GDC downloader
+LAST_MODULES = ("sequoia_tpu_torch/ops/ycbcr.py", "sequoia_tpu_torch/ops/mosaic.py",
+                "sequoia_tpu_torch/config.py", "sequoia_tpu_torch/cli/download_rnaseq.py")
+
+
 def _port_files():
     return sorted((ROOT / "sequoia_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -91,8 +96,19 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
                  "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
                  "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES, *AGGREGATOR_MODULES,
-                 *STAGE_MODULES, *PARALLEL_MODULES):
+                 *STAGE_MODULES, *PARALLEL_MODULES, *LAST_MODULES):
         assert want in names
+
+
+def test_only_the_pallas_modules_are_jax_only():
+    """Every module of the JAX package has a counterpart in the port but the
+    three Pallas kernel files, whose kernels are ``csrc/*.cu``."""
+    def modules(pkg):
+        root = ROOT / pkg
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+
+    assert modules("sequoia_tpu") - modules("sequoia_tpu_torch") == {
+        "ops/pallas_vis.py", "ops/pallas_resnet.py", "ops/pallas_kmeans.py"}
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
