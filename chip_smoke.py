@@ -38,22 +38,32 @@ Phases, each printing one JSON line:
    labels equal to the f64 fit's) and a ``lloyd_step`` line (one K5-mode
    Lloyd step: K5's device time against the rest of the step and the host
    sync).  K1 and K2 (bf16: the tensor-core kernels of
-   ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: the FMA kernels of
-   ``vis_blocks.cu`` and ``conv_gemm.cu``) also report their share of the
-   bound, GB/s and TFLOP/s, and in bf16 are checked at off-path edge shapes
+   ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: K1 the 3xTF32 tensor-core
+   kernel of ``vis_wgmma.cu``, K2 the FMA kernel of ``conv_gemm.cu``) also
+   report their share of the bound, GB/s and TFLOP/s, and in bf16 are
+   checked at off-path edge shapes
    (K1: 7 and 130 tokens at P = 512, depth 1; K2: one image, three images,
    a ragged H2 != W2 map); K1 is also checked and timed with 8 heads of
    width 128 (D = 2048) and 8 heads of width 96 (D = 1536, heads that
    straddle the 64-feature tiles), depth 6, 100 tokens (``wide_heads``, both
    types); K1 reports its launches per call and, from a
    ``torch.profiler`` trace of one call, the device gaps between them.  K3
-   and K4 (bf16: the tensor-core kernel of ``conv_wgmma.cu``; f32: the FMA
-   kernels of ``conv_gemm.cu``) are timed at
+   and K4 (bf16: the tensor-core kernel of ``conv_wgmma.cu``; f32: K4 the
+   3xTF32 tensor-core kernel of ``conv_wgmma.cu``, K3 the FMA kernel of
+   ``conv_gemm.cu``) are timed at
    layer1's shape and also checked and timed at the three stage tails
    (layers 2-4 after their stride-2 block) and, in bf16, checked at three
-   off-path edge shapes, each with its share of the bound and TFLOP/s; then
-   a ``chain_totals`` line (K3 and K4 per extractor batch, layer1 + tails,
-   kernel against library), a ``chain_weight_fold`` line (the per-batch cost
+   off-path edge shapes, each with its share of the bound and TFLOP/s.  The
+   3xTF32 rows (f32 K1 at every shape, f32 K4 at layer1 and the tails) are
+   held against the plain f32 version at ``TOL`` and report both their
+   error and the plain f32 version's against an f64 run of the plain
+   version (the tensor cores truncate as they accumulate), and their
+   bound as three TF32 products (with the f32 FMA bound beside it); then
+   ``chain_totals`` lines in f32 and bf16 (K3 and K4 per extractor batch,
+   layer1 + tails, kernel against library, and the stages where the kernel
+   is at or below the library, which ``cli.compute_features.K4_STAGES``
+   follows), a
+   ``chain_weight_fold`` line (the per-batch cost
    of folding and casting each stage's chain weights, as every forward
    does), and ResNet ``early_pallas`` + ``cp_stages=(2, 3, 4)`` on one batch
    against the plain extractor;
@@ -87,9 +97,12 @@ Phases, each printing one JSON line:
    columns, rows against ``predict_wsi`` on the in-memory slides, seconds
    per slide and slides/hour, kernels against plain), then by the HTTP
    server (GET /healthz and /genes, a POST of both slides, two POSTs queued
-   behind a held run that must merge into one run); with no way to write a
-   slide file, ``predict_slides`` on the in-memory slides and a POST of a
-   path that cannot be opened (502);
+   behind a held run that must merge into one run), and once with
+   ``--compute_dtype float32`` (K4, K5 and K1 in f32, the 3xTF32 kernels)
+   on the first slide against ``--kernels off`` at phase 12's f32
+   tolerance (``float32``: the counts of both runs, the plain one's 0);
+   with no way to write a slide file, ``predict_slides`` on the in-memory
+   slides and a POST of a path that cannot be opened (502);
 7. the UNI path (``uni_*`` lines): random UNI ViT-L/16 weights from a seed
    (LayerScale gammas 0.1, so that the blocks move each patch's CLS token)
    at full width in bf16, extractor batch 128, and five ViS folds of input
@@ -209,7 +222,8 @@ Phases, each printing one JSON line:
    batches are 'rgb''s; the mosaic batches in spatial order, where a bf16
    row's rounding follows its place in the batch, so it is held at r
    and, through an f32 predictor, at that tolerance, with a probe of the
-   bf16 backbone's place dependence); a
+   backbone's place dependence in bf16 and in f32, where K4's chains must
+   show 0); a
    ``raw_recon`` line (one batch of 128 planes at 4:2:0 rebuilt on the card,
    bit-equal to the CPU, ms against a bytes floor), a ``raw_retry`` line (a
    slide whose raw read fails on one tile is served in ``'rgb'`` and equals
@@ -300,8 +314,9 @@ LLOYD_TC_SUMS_TOL = 1e-6
 # squared spread of D sigma^2 ~ 0.05)
 NEAR_TIE_SIGMA = 0.005
 
-# the kernels line reports each kernel's bf16 row: K1-K4 the tensor-core
-# kernels (f32 runs the FMA kernels of vis_blocks.cu and conv_gemm.cu)
+# the kernels line reports each kernel's bf16 row (the main path's type):
+# K1-K4 the bf16 tensor-core kernels (f32 runs the 3xTF32 kernels of the
+# same sources for K1 and K4, the FMA kernels of conv_gemm.cu for K2 and K3)
 SOURCES = {
     "vis_blocks_fused": ("sequoia_tpu_torch/csrc/vis_wgmma.cu",
                          "sequoia_tpu/ops/pallas_vis.py:255"),
@@ -444,6 +459,31 @@ def compare(torch, name, dtype, got, want) -> dict:
     return {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
 
 
+def f64_errors(torch, got, plain32, plain64) -> dict:
+    """A 3xTF32 kernel's error against an f64 run of its plain version,
+    beside the f32 plain version's own (max |diff| / max |f64|): the tensor
+    cores truncate as they accumulate, and this shows what that costs."""
+    scale = max(float(plain64.abs().max()), 1e-300)
+    return {"max_rel_err_vs_f64": float((got.double() - plain64).abs().max()) / scale,
+            "plain_max_rel_err_vs_f64": float((plain32.double() - plain64).abs().max()) / scale}
+
+
+def kernel_bounds(moved: float, flops: float, dtype: str, ms: float, tf32: bool) -> dict:
+    """bound_ms / bound_by / bound_share of a kernel row.  A 3xTF32 kernel
+    (``tf32``) is bound by its three TF32 products on the tensor cores (as
+    K5's row); its f32 FMA bound on the CUDA cores is given beside it."""
+    if not tf32:
+        b, by = bound_ms(moved, flops, dtype)
+        return {"bound_ms": b, "bound_by": by, "bound_share": b / ms}
+    b, by = bound_ms(moved, 3 * flops, "tfloat32")
+    bc, bcby = bound_ms(moved, flops, "float32")
+    return {"bound_ms": b, "bound_by": by, "bound_share": b / ms,
+            "bound_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bound_bytes_share": moved / HBM_BYTES_PER_S * 1e3 / ms,
+            "bound_cuda_cores_ms": bc, "bound_cuda_cores_by": bcby,
+            "bound_cuda_cores_share": bc / ms}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -519,7 +559,12 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
         run = lambda: kernel(xk, flat, meta=meta, H=H, W=W)  # noqa: E731
         plain = lambda: plain_fn(xk, flat, meta=meta, H=H, W=W)  # noqa: E731
         out = run()
-        r = compare(torch, kname, dtype, out, plain())
+        want = plain()
+        r = compare(torch, kname, dtype, out, want)
+        if pc and dtype == "float32":  # K4's 3xTF32 and the plain f32 against f64
+            r.update(f64_errors(torch, out, want, plain_fn(
+                xk.double(), tuple(t.double() for t in flat), meta=meta, H=H, W=W)))
+        del want
         # yardstick: cuDNN's conv + BN + ReLU chain of the same blocks (the
         # plain extractor's own loop), in the layout the kernel's path uses
         x4 = x.reshape(batch, -1, H, W).contiguous(
@@ -532,9 +577,10 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
 
         flops = 2 * batch * H * W * sum(ci * w + 9 * w * w + w * co + (ci * co if ds else 0)
                                         for ci, w, co, ds in meta)
-        r["bound_ms"], r["bound_by"] = bound_ms(nbytes(x, out, *flat), flops, dtype)
         r.update(ms=time_ms(torch, run, 10), library_ms=time_ms(torch, lib, 10))
-        r.update(bound_share=r["bound_ms"] / r["ms"], tflops=flops / r["ms"] / 1e9)
+        r.update(kernel_bounds(nbytes(x, out, *flat), flops, dtype, r["ms"],
+                               tf32=pc and dtype == "float32"))
+        r["tflops"] = flops / r["ms"] / 1e9
         if (batch, stage, start, H) == (FEAT_BATCH, *CHAIN_LAYER1):
             r["plain_ms"] = time_ms(torch, plain, 2)
             res = r
@@ -549,13 +595,20 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
 
 def chain_totals(results: dict) -> dict:
     """K3's and K4's per-extractor-batch time (layer1 + the three tails),
-    kernel against library, from their bf16 rows."""
+    kernel against library, from their rows of one type, and per ResNet
+    stage (layer1's chain from block 0, each tail from block 1) whether the
+    kernel is at or below the library (``cli.compute_features.K4_STAGES``
+    follows the f32 and bf16 K4 lines)."""
     out = {}
     for kname in ("bottleneck_chain", "bottleneck_chain_cp"):
+        if kname not in results:
+            continue
         rows = [results[kname], *results[kname]["tails"]]
         out[kname] = {key: sum(r[key] for r in rows)
                       for key in ("ms", "library_ms", "bound_ms")}
         out[kname]["kernel_over_library"] = out[kname]["ms"] / out[kname]["library_ms"]
+        out[kname]["stages_at_or_below_library"] = [
+            s for s, r in zip((1, 2, 3, 4), rows) if r["ms"] <= r["library_ms"]]
     return out
 
 
@@ -858,7 +911,11 @@ def check_vis(torch, dev, dtype: str) -> dict:
     run = lambda: cuda_vis.vis_blocks_fused(x, pos, chunks, smalls, **kw)  # noqa: E731
     plain = lambda: cuda_vis.vis_blocks_plain(x, pos, chunks, smalls, **kw)  # noqa: E731
     out = run()
-    res = compare(torch, "vis_blocks_fused", dtype, out, plain())
+    want = plain()
+    res = compare(torch, "vis_blocks_fused", dtype, out, want)
+    if dtype == "float32":  # the 3xTF32 kernel and the plain f32 against f64
+        res.update(f64_errors(torch, out, want, cuda_vis.vis_blocks_plain(
+            x.double(), pos.double(), chunks.double(), smalls.double(), **kw)))
     # yardstick: the plain ViS block loop (pos-emb add and the blocks of
     # vis.apply, cuBLAS GEMMs) on the same tokens
     # with its weight matrices already in the compute type, as K1's are
@@ -881,7 +938,7 @@ def check_vis(torch, dev, dtype: str) -> dict:
     # combine (p * hw per block) meets only the one token-mean row
     flops = 2 * K * weights - 2 * (K - 1) * cfg.depth * p * hw
     moved = weights * item + nbytes(smalls, x, pos, out)
-    res["bound_ms"], res["bound_by"] = bound_ms(moved, flops, dtype)
+    res.update(kernel_bounds(moved, flops, dtype, res["ms"], tf32=dtype == "float32"))
     res.update(rates(res, moved, flops))
     from sequoia_tpu_torch import _build
 
@@ -932,7 +989,11 @@ def check_vis_wide_heads(torch, dev, g, dtype: str, heads: int, hw: int) -> dict
     launches = _build.LAUNCHES["vis_blocks_fused"] - before
     plain = (cuda_vis.vis_blocks_split_plain if dtype == "bfloat16"
              else cuda_vis.vis_blocks_plain)
-    res = compare(torch, "vis_blocks_fused", dtype, out, plain(x, pos, chunks, smalls, **kw))
+    want = plain(x, pos, chunks, smalls, **kw)
+    res = compare(torch, "vis_blocks_fused", dtype, out, want)
+    if dtype == "float32":
+        res.update(f64_errors(torch, out, want, cuda_vis.vis_blocks_plain(
+            x.double(), pos.double(), chunks.double(), smalls.double(), **kw)))
     return {"heads": heads, "head_width": hw, "P": d // 2, "depth": cfg.depth, "tokens": K,
             **res, "launches_per_call": launches, "ms": time_ms(torch, run, 10)}
 
@@ -1522,12 +1583,52 @@ def serve_cli_path(torch, dev, folds) -> dict:
             slide_file_host_work=decode,
             http=http_checks(torch, np, fast, genes, paths,
                              {p: full[i] for i, p in enumerate(paths)}))
+        res["float32"] = serve_cli_f32(torch, np, cli, exp, paths[0], tmp)
+        launches = {k: launches[k] + v for k, v in res["float32"]["launches"].items()}
         emit(res)
         check_launched(launches, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
                        "serve_cli path")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_cli_f32(torch, np, cli, exp: str, path: str, tmp: str) -> dict:
+    """One slide file through ``cli.serve --compute_dtype float32`` (the JAX
+    CLI's f32 fold numerics): K4 and K1 as 3xTF32 tensor-core kernels and
+    K5, against ``--kernels off`` on the same file, held at phase 12's f32
+    tolerance; the kernel run must launch all three, the plain one none."""
+    from sequoia_tpu_torch import _build
+
+    args = ["--wsi", path, "--checkpoints", exp, "--weights", "random", "--batch_size",
+            str(FEAT_BATCH), "--num_clusters", str(K), "--patch_size", str(PATCH),
+            "--compute_dtype", "float32", "--device", "cuda"]
+    runs = {}
+    for name, extra in (("kernels", []), ("plain", ["--kernels", "off"])):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = cli.main([*args, *extra, "--out", os.path.join(tmp, f"f32_{name}.csv")])
+        torch.cuda.synchronize()
+        runs[name] = {"main_seconds": time.perf_counter() - t0,
+                      "seconds_per_slide": out["serve_seconds"] / out["slides"],
+                      "y": read_csv(out["out"])[2], "launches": dict(_build.LAUNCHES)}
+    y, want = runs["kernels"]["y"], runs["plain"]["y"]
+    res = {"kernels_launches": runs["kernels"]["launches"],
+           "plain_launches": runs["plain"]["launches"],
+           "seconds_per_slide": runs["kernels"]["seconds_per_slide"],
+           "plain_seconds_per_slide": runs["plain"]["seconds_per_slide"],
+           "main_seconds": {k: r["main_seconds"] for k, r in runs.items()},
+           "max_abs_diff_vs_plain": float(np.abs(y - want).max()),
+           "pearson_r_vs_plain": pearson(np, y, want), "rtol": RAW_RTOL, "atol": RAW_ATOL,
+           "launches": runs["kernels"]["launches"]}
+    check_launched(res["kernels_launches"], ("bottleneck_chain", "lloyd_stats",
+                                             "vis_blocks_fused"), "serve_cli f32")
+    if any(res["plain_launches"].values()):
+        raise AssertionError(f"serve_cli f32: --kernels off launched {res['plain_launches']}")
+    if y.shape != want.shape or not np.isfinite(y).all() or not np.allclose(
+            y, want, rtol=RAW_RTOL, atol=RAW_ATOL):
+        raise AssertionError(f"serve_cli f32: kernels differ from plain: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3057,7 +3158,7 @@ def stage_features(torch, dev, root: str, tiled: list) -> tuple[dict, dict]:
     warm = torch.randint(0, 256, (STAGE_BATCH, PATCH, PATCH, 3), device=dev,
                          dtype=torch.uint8, generator=g)
     for dtype in ("float32", "bfloat16"):
-        for stages in ((1, 2, 3, 4), ()):
+        for stages in (cli.K4_STAGES, ()):
             ext = cli.load_extractor("resnet", "random", STAGE_BATCH, dtype, device=dev,
                                      fused_stages=stages)
             ext.features(warm)
@@ -4004,9 +4105,9 @@ def raw_assemble_check(torch, dev, pred, slide) -> dict:
                 tiles, *bd, PATCH, ky, kx), 5)}
 
 
-def raw_position_probe(torch, pred, slide) -> dict:
-    """Which layers of the bf16 backbone move a row's rounding with its place
-    in the batch.  On one batch of 128 candidates, each step of
+def raw_position_probe(torch, pred, slide, dtype=None) -> dict:
+    """Which layers of the backbone (bf16, or ``dtype``) move a row's
+    rounding with its place in the batch.  On one batch of 128 candidates, each step of
     ``resnet.forward_extract`` (the stem, each stage's stride-2 transition
     block and its stride-1 chain, the pool) on the input the forward gives
     it, against the same input with its rows rotated by 1 and by 64 and
@@ -4020,6 +4121,7 @@ def raw_position_probe(torch, pred, slide) -> dict:
     import torch.nn.functional as F
     from sequoia_tpu_torch.models import resnet
 
+    dtype = dtype or torch.bfloat16
     params = pred.extractor.params
     cands = pred._candidates(slide)
     u8 = torch.as_tensor(next(pred._decode_chunks(cands, FEAT_BATCH)), device=pred.device)
@@ -4037,11 +4139,11 @@ def raw_position_probe(torch, pred, slide) -> dict:
 
     out = {}
     for name, fused in (("k4", (1, 2, 3, 4)), ("cudnn", ())):
-        cfg = resnet.ResNetConfig(compute_dtype=torch.bfloat16, fused_stages=fused)
+        cfg = resnet.ResNetConfig(compute_dtype=dtype, fused_stages=fused)
         layout = torch.channels_last if fused else torch.contiguous_format
         steps = {}
         x, steps["stem"] = moved(lambda v: stem(v, layout),
-                                 resnet.preprocess_uint8(u8).to(torch.bfloat16))
+                                 resnet.preprocess_uint8(u8).to(dtype))
         for s in range(4):
             blocks = params[f"layer{s + 1}"]
             if s > 0:
@@ -4169,9 +4271,18 @@ def raw_planes_path(torch, dev, rparams=None, folds=None) -> dict:
             line["bf16_batch_position"] = raw_position_probe(torch, pred, slides[0])
             p32 = predictor(torch.float32)
             r32, g32 = serve(p32, slides[0]), serve(p32, slides[0], force_rgb=True)
+            # the f32 backbone, its chains through the 3xTF32 K4: K4 must be
+            # blind to a row's place (each output row one fixed-order K sum)
+            probe32 = raw_position_probe(torch, p32, slides[0], torch.float32)
+            moved_k4 = {k: v for k, v in probe32["k4"].items()
+                        if k.endswith("_chain") and any(v)}
             line["float32"] = {"seconds": r32["seconds"], "rgb_seconds": g32["seconds"],
-                               "launches": r32["launches"], **agree(r32, g32)}
+                               "launches": r32["launches"], **agree(r32, g32),
+                               "batch_position": probe32}
             del p32
+            if moved_k4:
+                raise AssertionError(f"raw planes f32: K4's chains move with a row's place "
+                                     f"in the batch: {moved_k4}")
         emit(line)
         if not ag["kept_set_equal_rgb"]:
             raise AssertionError(f"raw planes {mode}: kept set differs from 'rgb'")
@@ -4268,13 +4379,19 @@ def main() -> int:
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
+    by_dtype: dict = {"float32": {}, "bfloat16": {}}
     for dtype in ("float32", "bfloat16"):
         for kname, fn in checks:
             if only and kname not in only:
                 continue
             r = fn(torch, dev, dtype)
             emit({"phase": "kernel", "name": kname, "dtype": dtype, **r})
+            by_dtype[dtype][kname] = r
             results[kname] = r  # the bf16 row (the main path's type) is kept
+    for dtype, rows in by_dtype.items():
+        if "bottleneck_chain" in rows:
+            emit({"phase": "chain_totals", "dtype": dtype, "per": "extractor batch",
+                  **chain_totals(rows)})
     if not only or "lloyd_stats" in only:
         from sequoia_tpu_torch.ops import kmeans as km
 
@@ -4301,8 +4418,6 @@ def main() -> int:
             raw_planes_path(torch, dev)
         print(smi, flush=True)
         return 0
-    emit({"phase": "chain_totals", "dtype": "bfloat16", "per": "extractor batch",
-          **chain_totals(results)})
     emit({"phase": "chain_weight_fold", "dtype": "bfloat16", "per": "extractor batch",
           **time_weight_folds(torch, dev)})
     emit({"phase": "extractor_cp_stages", **check_cp_stages(torch, dev)})

@@ -41,10 +41,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "sq_conv_gemm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _I, _P],
-    "sq_pc_gemm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _L, _L, _L, _L, _P],
     "sq_pc_wgmma": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P],
+    "sq_pc_tf32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sq_lloyd_prepare": [_P, _P, _I, _I, _P, _P, _P, _P],
     "sq_lloyd_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P],

@@ -16,10 +16,11 @@ A UNI state dict gives its own config (``uni_vit.uni_from_torch``), with
 
 The CLI runs on CUDA unless ``--device cpu`` is given, and raises without
 CUDA.  On CUDA with ``--feat_type resnet`` it extracts through the K4 kernel
-in every ResNet stage (``fused_stages=(1, 2, 3, 4)``, as serving does) and
-names the kernel set on stderr; ``--kernels off`` or ``--device cpu`` runs
-the plain PyTorch versions.  Where it differs from the JAX CLI: ``--device``
-and ``--kernels`` are new; ``--compilation_cache`` is accepted and unused.
+in every ResNet stage (:data:`K4_STAGES`, as serving does), in f32 and
+bf16, and names the kernel set and the stages on stderr; ``--kernels off``
+or ``--device cpu`` runs the plain PyTorch versions.  Where it differs from
+the JAX CLI: ``--device`` and ``--kernels`` are new; ``--compilation_cache``
+is accepted and unused.
 
 ``--data_parallel`` splits each patch batch over this process's devices
 (every CUDA device; the CPU is one device), ``batch_size`` dividing by
@@ -43,6 +44,21 @@ from sequoia_tpu_torch.pipeline.features import FeatureExtractor, compute_featur
 from sequoia_tpu_torch.train import checkpoint
 from sequoia_tpu_torch.utils.device import resolve_device
 from sequoia_tpu_torch.utils.profiling import StageTimer
+
+
+#: the ResNet stages the CLIs run through K4 on CUDA: every one, in f32 and
+#: bf16 alike, since K4's chain beats cuDNN's in each (``chip_smoke.py``'s
+#: ``chain_totals`` lines, ``PERF.md`` §6)
+K4_STAGES = (1, 2, 3, 4)
+
+
+def kernels_line(kernels: list[str]) -> str:
+    """The kernel set as the offline CLIs name it on stderr, with K4's stages."""
+    if not kernels:
+        return "none (plain PyTorch)"
+    stages = f" (stages {', '.join(map(str, K4_STAGES))})" if "bottleneck_chain" in kernels \
+        else ""
+    return ", ".join(kernels) + stages
 
 
 def load_extractor(feat_type: str, weights: str, batch_size: int,
@@ -137,9 +153,8 @@ def main(argv=None) -> dict:
                and args.feat_type == "resnet" else [])
     extractor = load_extractor(args.feat_type, args.weights, args.batch_size,
                                args.compute_dtype, args.data_parallel, device=dev,
-                               fused_stages=(1, 2, 3, 4) if kernels else ())
-    print(f"compute_features: {dev.type}, kernels: "
-          + (", ".join(kernels) or "none (plain PyTorch)"), file=sys.stderr)
+                               fused_stages=K4_STAGES if kernels else ())
+    print(f"compute_features: {dev.type}, kernels: {kernels_line(kernels)}", file=sys.stderr)
     timer = StageTimer()
     done = compute_features(df, args.patch_data_path, args.feature_path, extractor,
                             max_patch_number=args.max_patch_number, seed=args.seed,

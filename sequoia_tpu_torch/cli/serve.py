@@ -46,7 +46,7 @@ import time
 import numpy as np
 
 from sequoia_tpu_torch.cli import add_compile_cache_arg, add_fleet_args
-from sequoia_tpu_torch.cli.compute_features import load_extractor
+from sequoia_tpu_torch.cli.compute_features import K4_STAGES, load_extractor
 from sequoia_tpu_torch.models import convert, he2rna, vis, vit
 from sequoia_tpu_torch.ops import cuda_vis
 from sequoia_tpu_torch.ops.nn import compute_dtype as to_dtype
@@ -176,7 +176,7 @@ def build_extractor(feat_type: str, weights: str, on: list[str], *, device,
         on.remove("bottleneck_chain")
     kw = {"devices": devices} if devices is not None else {}
     return load_extractor(feat_type, weights, batch_size, compute_dtype, data_parallel,
-                          device=device, fused_stages=(1, 2, 3, 4) if "bottleneck_chain" in on
+                          device=device, fused_stages=K4_STAGES if "bottleneck_chain" in on
                           else (), **kw)
 
 

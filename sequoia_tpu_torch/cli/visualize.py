@@ -18,8 +18,9 @@ run as one stacked predictor.
 
 It runs on CUDA unless ``--device cpu`` is given, and raises without CUDA.
 Where it differs from the JAX CLI: on CUDA the ResNet tile features go
-through K4 in every stage (``cli.serve``'s kernel choice; ``--kernels off``
-runs the plain PyTorch versions, and a stderr line names the set);
+through K4 in every stage, in f32 and bf16 (``cli.serve``'s kernel choice;
+``--kernels off`` runs the plain PyTorch versions, and a stderr line names
+the set and the stages);
 ``--device``, ``--kernels`` and ``--compute_dtype`` (the backbone's; float32
 by default, as the JAX CLI) are new.  The window stage runs ``vis.apply``
 batched over windows, as JAX does: K1 takes one slide at a time and is not
@@ -41,6 +42,7 @@ import sys
 
 import numpy as np
 
+from sequoia_tpu_torch.cli.compute_features import kernels_line
 from sequoia_tpu_torch.cli.serve import build_extractor, serving_kernels
 from sequoia_tpu_torch.data.wsi import open_slide
 from sequoia_tpu_torch.models import convert
@@ -190,7 +192,7 @@ def main(argv=None):
                          "host (or --data_parallel)")
     print(f"visualize: {device.type}"
           + (f" x{mesh.shape['data']} (data parallel)" if mesh else "")
-          + ", kernels: " + (", ".join(on) or "none (plain PyTorch)"), file=sys.stderr)
+          + ", kernels: " + kernels_line(on), file=sys.stderr)
 
     folds = [int(i) for i in args.folds.split(",")]
     fold_models, num_tokens = load_fold_predictors(ckpt_dir, folds, args.model_type,

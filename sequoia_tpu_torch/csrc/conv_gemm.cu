@@ -1,14 +1,13 @@
-// K2 stem16 and K3 bottleneck_chain_cp: convolutions as GEMMs in the (C, P)
-// layout (channels x pixels, one image per grid z); K4 bottleneck_chain: the
-// same convolutions in the (P, C) layout (pixels x channels, NHWC flattened).
+// K2 stem16 and K3 bottleneck_chain_cp in f32: convolutions as GEMMs in the
+// (C, P) layout (channels x pixels, one image per grid z).
 //
-// Replaces sequoia_tpu/ops/pallas_resnet.py:stem16 (_stem16_kernel),
-// :bottleneck_chain_cp (_chain_cp_kernel) and :bottleneck_chain
-// (_chain_kernel) in f32 only: bf16 runs the tensor-core kernels of
-// stem_wgmma.cu (K2) and conv_wgmma.cu (K3, K4), and the C entries here
-// refuse it.
+// Replaces sequoia_tpu/ops/pallas_resnet.py:stem16 (_stem16_kernel) and
+// :bottleneck_chain_cp (_chain_cp_kernel) in f32 only: bf16 runs the
+// tensor-core kernels of stem_wgmma.cu (K2) and conv_wgmma.cu (K3), and the
+// C entry here refuses it.  (K4, the (P, C) chain, runs conv_wgmma.cu in
+// both types.)
 //
-// (C, P) kernel, conv_gemm_kernel:
+// conv_gemm_kernel:
 // Every launch computes out[b] = epilogue(A . Bop(X[b])) with A the folded
 // (M, K) weights and Bop one of four views of the activations:
 //   PLAIN   X[b] itself, (K, P)                          (1x1 conv)
@@ -25,32 +24,12 @@
 //
 // What bounds it on the H100: at the extractor batch these are large GEMMs
 // (layer1: 1.75 GFLOP per image), so arithmetic.  This first kernel runs them
-// on the CUDA cores in f32 FMA (tensor cores, wgmma and a halo-fused
-// single-kernel bottleneck are later work); its design point is that no tap
-// stack is ever written to device memory: the tap-gather loader builds each
-// K-slab of the (9*width, P) or (256, P) stack in shared memory from the
-// activation itself.  y1/y2 between the three GEMMs of a block do go through
-// device memory in this slice.
-//
-// (P, C) kernel, pc_gemm_kernel (K4): the same core with the roles swapped.
-// out[b] (P, N) = epilogue(Aop(X[b]) (P, K) . Wt (K, N)), M = pixels, N =
-// output channels, K = the stack's columns, Wt the folded (K, C_out) weights
-// of pallas_resnet.py:fold_block_weights.  Aop is one of three views:
-//   A_PLAIN    X[b] itself, (P, K)                        (1x1 conv)
-//   A_TAPS3    row p of the (P, 9*C) tap stack: column k = (tap, c) reads
-//              X[b][p + dy*W + dx, c], zero where the tap leaves the image
-//              (the JAX kernel's column-shifted triple buffer, read in place)
-//   A_CONCAT   [X[b] | X2[b]] side by side on K: columns < K1 from y2, the
-//              rest from the block input (conv3 and the projection shortcut
-//              as one GEMM, pallas_resnet.py:139-140)
-// The epilogue adds the per-column bias, optionally the (P, N) residual,
-// applies ReLU and rounds.  Rows of X are contiguous in the channel, so the
-// A loader walks k fastest and its reads coalesce; Wt rows are contiguous in
-// the output channel, so the B loader walks n fastest.  It is bounded by
-// arithmetic as the (C, P) kernel is (layer1 + the stage tails: about 7.4
-// GFLOP per image), runs on the CUDA cores in f32 FMA like it, and writes no
-// tap stack to device memory; y1/y2 go through device memory between the
-// three launches of a block.
+// on the CUDA cores in f32 FMA (a 3xTF32 tensor-core route, as K4's in
+// conv_wgmma.cu, is later work); its design point is that no tap stack is
+// ever written to device memory: the tap-gather loader builds each K-slab of
+// the (9*width, P) or (256, P) stack in shared memory from the activation
+// itself.  y1/y2 between the three GEMMs of a block do go through device
+// memory.
 #include "common.cuh"
 
 using namespace sq;
@@ -146,95 +125,7 @@ void launch(int mode, const ConvArgs& a, int B, cudaStream_t s) {
   }
 }
 
-enum AMode { A_PLAIN = 4, A_TAPS3 = 5, A_CONCAT = 6 };
-
-struct PcArgs {
-  const void* X;      // (P, K) per image (TAPS3: (P, C); CONCAT: (P, K1)), stride xs
-  const void* X2;     // CONCAT: columns K1.. of the stack, (P, K - K1), stride x2s
-  const void* Wt;     // (K, N) weights, compute type
-  const float* bias;  // (N,) f32
-  const void* R;      // residual (P, N) per image, stride rs, or null
-  void* out;          // (P, N) per image, stride os
-  int P, K, K1, N, W, C;
-  long long xs, x2s, rs, os;
-};
-
-template <class T, int MODE>
-__global__ void __launch_bounds__(NTHREADS) pc_gemm_kernel(PcArgs a) {
-  __shared__ float As[TileSmem<BM, BN, BK>::A];
-  __shared__ float Bs[TileSmem<BM, BN, BK>::B];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const T* X = static_cast<const T*>(a.X) + b * a.xs;
-  const T* X2 = static_cast<const T*>(a.X2) + (a.X2 ? b * a.x2s : 0);
-  const T* Wt = static_cast<const T*>(a.Wt);
-  const int P = a.P, K = a.K, N = a.N, W = a.W;
-
-  auto la = [&](int m, int k) -> float {
-    if (m >= P) return 0.f;
-    if constexpr (MODE == A_PLAIN) {
-      return to_f(X[(size_t)m * K + k]);
-    } else if constexpr (MODE == A_CONCAT) {
-      return k < a.K1 ? to_f(X[(size_t)m * a.K1 + k])
-                      : to_f(X2[(size_t)m * (K - a.K1) + (k - a.K1)]);
-    } else {  // A_TAPS3
-      const int C = a.C;
-      const int t = k / C, c = k - t * C;
-      const int dy = t / 3 - 1, dx = t % 3 - 1;
-      const int col = m % W + dx;
-      const int s = m + dy * W + dx;
-      if (col < 0 || col >= W || s < 0 || s >= P) return 0.f;
-      return to_f(X[(size_t)s * C + c]);
-    }
-  };
-  auto lb = [&](int k, int n) -> float {
-    return n < N ? to_f(Wt[(size_t)k * N + n]) : 0.f;
-  };
-
-  float acc[TM][TN] = {};
-  gemm_tile<BM, BN, BK, TM, TN, true, false>(acc, m0, n0, 0, K, la, lb, As, Bs);
-
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  T* out = static_cast<T*>(a.out) + b * a.os;
-  const T* R = a.R ? static_cast<const T*>(a.R) + b * a.rs : nullptr;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= P) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      float v = acc[i][j] + a.bias[n];
-      if (R) v += to_f(R[(size_t)m * N + n]);
-      out[(size_t)m * N + n] = from_f<T>(fmaxf(v, 0.f));
-    }
-  }
-}
-
-template <class T>
-void launch_pc(int mode, const PcArgs& a, int B, cudaStream_t s) {
-  dim3 grid((a.N + BN - 1) / BN, (a.P + BM - 1) / BM, B);
-  switch (mode) {
-    case A_PLAIN: pc_gemm_kernel<T, A_PLAIN><<<grid, NTHREADS, 0, s>>>(a); break;
-    case A_TAPS3: pc_gemm_kernel<T, A_TAPS3><<<grid, NTHREADS, 0, s>>>(a); break;
-    case A_CONCAT: pc_gemm_kernel<T, A_CONCAT><<<grid, NTHREADS, 0, s>>>(a); break;
-  }
-}
-
 }  // namespace
-
-extern "C" int sq_pc_gemm(int dtype, int mode, const void* X, const void* X2,
-                          const void* Wt, const float* bias, const void* R, void* out,
-                          int B, int P, int K, int K1, int N, int W, int C,
-                          long long xs, long long x2s, long long rs, long long os,
-                          void* stream) {
-  if (dtype != F32 || mode < A_PLAIN || mode > A_CONCAT) return (int)cudaErrorInvalidValue;
-  if (mode == A_TAPS3 && (C <= 0 || K != 9 * C)) return (int)cudaErrorInvalidValue;
-  PcArgs a{X, X2, Wt, bias, R, out, P, K, K1, N, W, C, xs, x2s, rs, os};
-  launch_pc<float>(mode, a, B, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
-}
 
 extern "C" int sq_conv_gemm(int dtype, int mode, const void* A, const float* bias,
                             const void* X, const void* X2, const void* R, void* out,

@@ -6,8 +6,11 @@
 //   - the wgmma shared-memory matrix descriptor for the 128-byte swizzle;
 //   - wgmma.mma_async m64nNk16, bf16 operands from shared memory, f32
 //     accumulators in registers, with its fence, commit and wait; m64n104k16
-//     also with an MN-major (transposed) A; m64n128k8 with TF32 operands,
-//     and the TF32 rounding (cvt.rna.tf32.f32) that makes them;
+//     also with an MN-major (transposed) A; m64nNk8 with TF32 operands (N =
+//     64, 104, 128), the TF32 rounding (cvt.rna.tf32.f32) that makes them,
+//     the 3xTF32 split of an f32 into TF32 hi and lo stored to shared
+//     memory, and a loader that transposes a row-major f32 slab into the
+//     K-major tile TF32 wgmma needs;
 //   - programmatic dependent launch (griddepcontrol) and thread-block
 //     clusters: the cluster barrier, a CTA's rank, and loads from another
 //     CTA's shared memory (distributed shared memory).
@@ -194,21 +197,57 @@ template <int TRANS_A, int TRANS_B> struct Wgmma104 {
   }
 };
 
-// d (64 x 128 f32) += A (64 x 8) . B (8 x 128), TF32, both K-major (the only
+// d (64 x N f32) += A (64 x 8) . B (8 x N), TF32, both K-major (the only
 // layout wgmma takes for 32-bit operands) from shared memory: a k8 step of
 // TF32 is 32 bytes deep, as a k16 step of bf16, so the 128-byte-swizzled
 // tiles and descriptors above serve unchanged, with 32 f32 per row.  The
 // tensor cores read the top 19 bits of each f32; the fragment of d is the
-// bf16 one above.
-struct WgmmaTf32 {
-  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+// bf16 one above.  N = 64 (K4's 64-channel tiles), 104 (K1's token tile),
+// 128 (K4, K5).  scale_d = 0 ignores d's old value: d = A . B.
+template <int N> struct WgmmaTf32;
+
+template <> struct WgmmaTf32<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTf32<104> {
+  __device__ static __forceinline__ void mma(float (&d)[52], uint64_t a, uint64_t b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " "%48, %49, %50, %51"
+        "}, %52, %53, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTf32<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
         "}, %64, %65, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -218,7 +257,7 @@ struct WgmmaTf32 {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
@@ -279,6 +318,54 @@ __device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, float v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(__float_as_uint(v)) : "memory");
+}
+
+// 3xTF32 operands: v = hi + lo + (~2^-22 |v|), hi = rna(v), lo = rna(v - hi);
+// hi goes to shared address `hi`, lo to `lo`
+__device__ __forceinline__ void st_split_v4(uint32_t hi, uint32_t lo, float4 v) {
+  const float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+  st_shared_v4(hi, make_uint4(__float_as_uint(h.x), __float_as_uint(h.y),
+                              __float_as_uint(h.z), __float_as_uint(h.w)));
+  st_shared_v4(lo, make_uint4(__float_as_uint(tf32_rna(v.x - h.x)),
+                              __float_as_uint(tf32_rna(v.y - h.y)),
+                              __float_as_uint(tf32_rna(v.z - h.z)),
+                              __float_as_uint(tf32_rna(v.w - h.w))));
+}
+
+__device__ __forceinline__ void st_split_b32(uint32_t hi, uint32_t lo, float v) {
+  const float h = tf32_rna(v);
+  st_shared_b32(hi, h);
+  st_shared_b32(lo, tf32_rna(v - h));
+}
+
+// The transposing TF32 loader: a slab of 32 K rows x NC columns of a
+// row-major (K, ld) f32 matrix (columns contiguous, as K4's (K, C_out)
+// weights and K1's weight slabs are stored) goes to a K-major tile of NC
+// rows of 32 K values, which TF32 wgmma needs.  Item i (0 <= i < 8 NC) is
+// the float4 of columns 4 grp .. 4 grp + 3 of slab row k; a warp's 32 items
+// read 16 slab rows x 32 contiguous bytes (whole sectors) and store each of
+// their 4 values to a different tile row at column k: lanes 0-15 and 16-31
+// land in tile rows 4 apart, whose swizzles send them to complementary
+// halves of the 128-byte row, so every store of the warp hits 32 banks.
+__device__ __forceinline__ void krows_item(int i, int& k, int& grp) {
+  const int l = i & 31, w = i >> 5;
+  k = (l & 15) + 16 * (w & 1);
+  grp = 2 * (w >> 1) + (l >> 4);
+}
+
+// store the hi and lo of item (k, grp) into the K-major tiles at `hi`, `lo`
+__device__ __forceinline__ void st_split_krows(uint32_t hi, uint32_t lo, int k, int grp,
+                                               float4 v) {
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t off = sw128_offset(4 * grp + j, k >> 2) + (k & 3) * 4;
+    st_split_b32(hi + off, lo + off, e[j]);
+  }
 }
 
 // a barrier of the 128 threads of warpgroup `wg` only (named barrier 1 + wg)

@@ -258,9 +258,9 @@ lloyd_assign(const float* __restrict__ xc, const float* __restrict__ x2,
       const uint64_t al = sw128_desc(a + TILE + ks * 32, 16, 1024);
       const uint64_t bh = sw128_desc(st + 2 * TILE + ks * 32, 16, 1024);
       const uint64_t bl = sw128_desc(st + 3 * TILE + ks * 32, 16, 1024);
-      WgmmaTf32::mma(acc, ah, bh);
-      WgmmaTf32::mma(acc, ah, bl);
-      WgmmaTf32::mma(acc, al, bh);
+      WgmmaTf32<BN>::mma(acc, ah, bh);
+      WgmmaTf32<BN>::mma(acc, ah, bl);
+      WgmmaTf32<BN>::mma(acc, al, bh);
     }
     wgmma_commit();
     fence_regs(acc);

@@ -1,8 +1,8 @@
-// Pieces shared by the two K1 kernels, vis_blocks.cu (f32, CUDA cores) and
-// vis_wgmma.cu (bf16, tensor cores): the GEMM epilogue kinds, the head-width
-// rules and the small kernels between the GEMMs.  Each small kernel waits on the launch
-// before it and lets the next one start (griddepcontrol, hopper.cuh); both
-// are no-ops unless the kernel is launched with programmatic stream
+// Pieces shared by K1's two routes in vis_wgmma.cu (bf16 and 3xTF32 f32
+// GEMMs on the tensor cores): the GEMM epilogue kinds, the head-width rules
+// and the small kernels between the GEMMs.  Each small kernel waits on the
+// launch before it and lets the next one start (griddepcontrol, hopper.cuh);
+// both are no-ops unless the kernel is launched with programmatic stream
 // serialization, as vis_wgmma.cu launches it.
 #pragma once
 
@@ -28,9 +28,10 @@ __global__ void vis_init(const float* __restrict__ x, const float* __restrict__ 
 
 // The K1 kernels take every head width hw that divides P (P % 64 == 0).  Where
 // hw divides 64 a 64-feature tile holds whole heads and the f GEMM runs the
-// per-head LN in its epilogue (the bf16 epilogue, two features a lane, also
-// needs an even hw); for every other width the f GEMM stores f32 and
-// vis_head_ln normalises whole heads, one launch more per block.
+// per-head LN in its epilogue (two features a lane: bf16 also needs an even
+// hw, f32 takes hw = 1 as a head per feature); for every other width the f
+// GEMM stores f32 and vis_head_ln normalises whole heads, one launch more
+// per block.
 __host__ __device__ inline bool ln_in_epilogue(int hw, bool bf16) {
   return 64 % hw == 0 && (!bf16 || hw % 2 == 0);
 }

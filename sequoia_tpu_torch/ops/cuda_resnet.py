@@ -12,17 +12,21 @@ row-padded space-to-depth input ``(B, 16, (H2+3)*W2)`` and returns
 weights.
 
 On CUDA tensors all three run CUDA kernels (each source says what bounds
-it on the H100 and what its design does about it): in f32 the CUDA-core
-kernels of ``csrc/conv_gemm.cu``; in bf16 the tensor-core (``wgmma``)
-kernels, ``stem16`` that of ``csrc/stem_wgmma.cu`` and the chains, K3 and K4
-alike, that of ``csrc/conv_wgmma.cu`` in the (P, C) layout, K3 after a
-transpose in (its last launch writes the (C, P) layout).  On CPU tensors
-they run the plain PyTorch versions beside them.  All round to the compute
-type where the Pallas kernels do: after each ReLU of y1, y2 and the block
-output.
+it on the H100 and what its design does about it).  K4 runs on the tensor
+cores (``wgmma``) in both types, in the (P, C) layout of
+``csrc/conv_wgmma.cu``: bf16 operands, or in f32 3xTF32 products (each
+operand split into TF32 hi and lo in the kernel, hi.hi + hi.lo + lo.hi into
+an f32 accumulator).  In bf16 K2 runs the tensor-core stem of
+``csrc/stem_wgmma.cu`` and K3 K4's kernel after a transpose in (its last
+launch writes the (C, P) layout); in f32 K2 and K3 run the CUDA-core
+kernels of ``csrc/conv_gemm.cu``.  On CPU tensors they run the plain
+PyTorch versions beside them.  All round to the compute type where the
+Pallas kernels do: after each ReLU of y1, y2 and the block output.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +37,8 @@ from sequoia_tpu_torch import _build
 # permuted to (O, kh, kw, I) and flattened
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
-# conv_gemm.cu's operand modes: (C, P) kernels K2/K3, then (P, C) kernel K4
+# operand modes: conv_gemm.cu's (C, P) kernels K2/K3, then conv_wgmma.cu's
+# (P, C) kernels
 _PLAIN, _TAPS3, _STEM, _CONCAT = 0, 1, 2, 3
 _PC_PLAIN, _PC_TAPS3, _PC_CONCAT = 4, 5, 6
 
@@ -312,33 +317,23 @@ def bottleneck_chain_cp(x: torch.Tensor, flat_weights: tuple, *, meta: tuple,
     return x
 
 
-def _launch_pc(mode, X, Wt, bias, out, *, K, N, W=1, C=0, X2=None, R=None, K1=0):
-    """One (P, C) GEMM per image: out[b] (P, N) = epilogue(Aop(X[b]) . Wt)."""
-    lib = _build.library()
-    B, P = out.shape[0], out.shape[1]
-    rc = lib.sq_pc_gemm(
-        1 if X.dtype == torch.bfloat16 else 0, mode, X.data_ptr(),
-        None if X2 is None else X2.data_ptr(), Wt.data_ptr(), bias.data_ptr(),
-        None if R is None else R.data_ptr(), out.data_ptr(), B, P, K, K1, N, W, C,
-        X.stride(0), 0 if X2 is None else X2.stride(0),
-        0 if R is None else R.stride(0), out.stride(0), _build.stream_ptr(X))
-    _build.check(rc, "pc_gemm")
-
-
 def bottleneck_chain_plain(x, flat_weights, *, meta, H: int, W: int) -> torch.Tensor:
     """Plain PyTorch (P, C) chain: per block the 1x1 GEMM, the (P, 9*width)
     tap stack GEMM, then the (merged projection or residual) 1x1, each
-    followed by ReLU."""
+    followed by ReLU.  f32 and bf16 accumulate in f32; an f64 ``x`` (with
+    f64 weights) runs the whole chain in f64, the reference the 3xTF32
+    kernel is held against."""
     cd = x.dtype
+    acc = torch.promote_types(cd, torch.float32)
     for i, (_, _, _, has_ds) in enumerate(meta):
         w1, b1, w2s, b2, w3, b3 = flat_weights[6 * i:6 * i + 6]
-        y1 = torch.relu(torch.matmul(x.float(), w1.float()) + b1).to(cd)
+        y1 = torch.relu(torch.matmul(x.to(acc), w1.to(acc)) + b1).to(cd)
         stack = torch.cat([_shifted(y1, W, dy, dx, dim=-2) for dy, dx in TAPS], dim=-1)
-        y2 = torch.relu(torch.matmul(stack.float(), w2s.float()) + b2).to(cd)
+        y2 = torch.relu(torch.matmul(stack.to(acc), w2s.to(acc)) + b2).to(cd)
         if has_ds:
-            y3 = torch.matmul(torch.cat([y2, x], dim=-1).float(), w3.float()) + b3
+            y3 = torch.matmul(torch.cat([y2, x], dim=-1).to(acc), w3.to(acc)) + b3
         else:
-            y3 = torch.matmul(y2.float(), w3.float()) + b3 + x.float()
+            y3 = torch.matmul(y2.to(acc), w3.to(acc)) + b3 + x.to(acc)
         x = torch.relu(y3).to(cd)
     return x
 
@@ -350,8 +345,10 @@ def bottleneck_chain(x: torch.Tensor, flat_weights: tuple, *, meta: tuple, H: in
 
     ``row_chunk`` keeps the JAX checks (whole image rows, dividing H*W); the
     Pallas kernel chunks rows only to bound its VMEM, and the result does not
-    depend on it, so the CUDA kernel tiles the pixels its own way."""
-    B, P, cin = x.shape
+    depend on it, so the CUDA kernel tiles the pixels its own way.  On the
+    card bf16 runs the bf16 tensor-core kernel and f32 the 3xTF32 one (or
+    either raises on what it does not take)."""
+    _, P, cin = x.shape
     if P != H * W:
         raise ValueError(f"bottleneck_chain: P={P} != H*W={H}*{W}")
     R = min(row_chunk, P)
@@ -367,32 +364,13 @@ def bottleneck_chain(x: torch.Tensor, flat_weights: tuple, *, meta: tuple, H: in
     _check("bottleneck_chain", x, *flat_weights)
     if not x.is_cuda:
         return bottleneck_chain_plain(x, flat_weights, meta=meta, H=H, W=W)
-    if x.dtype == torch.bfloat16:
-        return _tc_chain(x.contiguous(), flat_weights, meta=meta, W=W, kmajor=False,
-                         counter="bottleneck_chain")
-    cd = x.dtype
-    x = x.contiguous()
-    for i, (ci, width, cout, has_ds) in enumerate(meta):
-        w1, b1, w2s, b2, w3, b3 = (t.contiguous() for t in flat_weights[6 * i:6 * i + 6])
-        w1, w2s, w3 = w1.to(cd), w2s.to(cd), w3.to(cd)
-        y1 = torch.empty((B, P, width), dtype=cd, device=x.device)
-        _launch_pc(_PC_PLAIN, x, w1, b1, y1, K=ci, N=width)
-        y2 = torch.empty_like(y1)
-        _launch_pc(_PC_TAPS3, y1, w2s, b2, y2, K=9 * width, N=width, W=W, C=width)
-        out = torch.empty((B, P, cout), dtype=cd, device=x.device)
-        if has_ds:
-            _launch_pc(_PC_CONCAT, y2, w3, b3, out, K=width + ci, K1=width, N=cout, X2=x)
-        else:
-            if ci != cout:
-                raise ValueError("bottleneck_chain: identity block needs cin == cout")
-            _launch_pc(_PC_PLAIN, y2, w3, b3, out, K=width, N=cout, R=x)
-        _build.count_launch("bottleneck_chain", 3)
-        x = out
-    return x
+    return _tc_chain(x.contiguous(), flat_weights, meta=meta, W=W, kmajor=False,
+                     counter="bottleneck_chain")
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core route (csrc/conv_wgmma.cu), shared by K3 and K4
+# the tensor-core routes (csrc/conv_wgmma.cu): bf16, shared by K3 and K4, and
+# K4's 3xTF32 f32
 # ---------------------------------------------------------------------------
 
 def _wg_check(mode, X, Wop, bias, *, K, N, C=0, K1=0, X2=None, R=None) -> None:
@@ -456,26 +434,80 @@ def _wg_gemm(mode, X, Wop, bias, *, K, N, kmajor, counter, W=1, C=0, X2=None, R=
     return out
 
 
+def _tf32_check(mode, X, Wop, bias, *, K, N, C=0, K1=0, X2=None, R=None) -> None:
+    """Raise on what the 3xTF32 kernel does not take: f32 in 16-byte chunks
+    of 4 channels (the epilogue's rows in 8) from contiguous, 16-byte
+    aligned tensors, the weights stored (K, N)."""
+    ops = [t for t in (X, Wop, X2, R) if t is not None]
+    for t in ops:
+        if t.dtype != torch.float32:
+            raise TypeError(f"pc_tf32: the 3xTF32 route takes f32, got {t.dtype}")
+    for t in (*ops, bias):
+        if t.device != X.device:
+            raise ValueError("pc_tf32: operands on different devices")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("pc_tf32: operands must be contiguous and 16-byte aligned")
+    if mode == _PC_TAPS3 and (C % 4 or K != 9 * C):
+        raise ValueError(f"pc_tf32: the 3x3 taps need C % 4 == 0 and K == 9*C, "
+                         f"got C={C}, K={K}")
+    if K % 4 or N % 8:
+        raise ValueError(f"pc_tf32: K={K} must be a multiple of 4 and N={N} of 8")
+    if mode == _PC_CONCAT and (K1 % 4 or not 0 < K1 < K):
+        raise ValueError(f"pc_tf32: the concat split K1={K1} must be a multiple of 4 "
+                         f"inside K={K}")
+    if Wop.shape != (K, N):
+        raise ValueError(f"pc_tf32: weights must be stored (K, N) = ({K}, {N}), got "
+                         f"{tuple(Wop.shape)}")
+    if bias.numel() != N or bias.dtype != torch.float32:
+        raise ValueError(f"pc_tf32: bias must be {N} f32 values")
+
+
+def _tf32_gemm(mode, X, Wop, bias, *, K, N, counter, W=1, C=0, X2=None, R=None,
+               K1=0) -> torch.Tensor:
+    """One f32 GEMM per image on the tensor cores as 3xTF32: (B, P, N) =
+    relu(Aop(X[b]) . Wop + bias [+ R[b]]), Wop stored (K, N)."""
+    _tf32_check(mode, X, Wop, bias, K=K, N=N, C=C, K1=K1, X2=X2, R=R)
+    if not X.is_cuda:
+        return _wg_gemm_plain(mode, X, Wop, bias, K=K, N=N, kmajor=False, W=W, C=C,
+                              X2=X2, R=R, K1=K1)
+    B, P = X.shape[0], X.shape[1]
+    out = torch.empty((B, P, N), dtype=X.dtype, device=X.device)
+    rc = _build.library().sq_pc_tf32(
+        mode, X.data_ptr(), None if X2 is None else X2.data_ptr(), Wop.data_ptr(),
+        bias.data_ptr(), None if R is None else R.data_ptr(), out.data_ptr(), B * P, P, K,
+        K1, N, W, C, _build.stream_ptr(X))
+    _build.check(rc, "pc_tf32")
+    _build.count_launch(counter)
+    return out
+
+
 def _tc_chain(x, flat_weights, *, meta, W: int, kmajor: bool, counter: str,
               out_cp: bool = False):
-    """The bf16 chain in the (P, C) layout, three tensor-core launches per
-    block: (B, H*W, Cin) -> (B, H*W, Cout), or (B, Cout, H*W) with
-    ``out_cp`` (the last launch writes K3's layout).  ``kmajor`` says the
-    weights are K3's (C_out, K) orientation instead of K4's (K, C_out); both
-    are read as they are."""
+    """The chain in the (P, C) layout, three tensor-core launches per block:
+    (B, H*W, Cin) -> (B, H*W, Cout), or (B, Cout, H*W) with ``out_cp`` (the
+    last launch writes K3's layout).  bf16 ``x`` runs the bf16 kernel, where
+    ``kmajor`` says the weights are K3's (C_out, K) orientation instead of
+    K4's (K, C_out), both read as they are; f32 ``x`` runs the 3xTF32 kernel
+    on K4's (K, C_out) weights (no ``kmajor``, no ``out_cp``)."""
     cd = x.dtype
+    if cd == torch.bfloat16:
+        gemm = functools.partial(_wg_gemm, kmajor=kmajor, counter=counter)
+    elif kmajor or out_cp:
+        raise ValueError("bottleneck_chain: the f32 route takes K4's (K, C_out) weights "
+                         "and writes the (P, C) layout")
+    else:
+        gemm = functools.partial(_tf32_gemm, counter=counter)
     for i, (ci, width, cout, has_ds) in enumerate(meta):
         w1, b1, w2, b2, w3, b3 = (t.contiguous() for t in flat_weights[6 * i:6 * i + 6])
         w1, w2, w3 = w1.to(cd), w2.to(cd), w3.to(cd)
         b1, b2, b3 = b1.float(), b2.float(), b3.float()
-        kw = dict(kmajor=kmajor, counter=counter)
-        y1 = _wg_gemm(_PC_PLAIN, x, w1, b1, K=ci, N=width, **kw)
-        y2 = _wg_gemm(_PC_TAPS3, y1, w2, b2, K=9 * width, N=width, W=W, C=width, **kw)
-        kw["out_cp"] = out_cp and i == len(meta) - 1
+        kw = {"out_cp": out_cp and i == len(meta) - 1} if cd == torch.bfloat16 else {}
+        y1 = gemm(_PC_PLAIN, x, w1, b1, K=ci, N=width)
+        y2 = gemm(_PC_TAPS3, y1, w2, b2, K=9 * width, N=width, W=W, C=width)
         if has_ds:
-            x = _wg_gemm(_PC_CONCAT, y2, w3, b3, K=width + ci, K1=width, N=cout, X2=x, **kw)
+            x = gemm(_PC_CONCAT, y2, w3, b3, K=width + ci, K1=width, N=cout, X2=x, **kw)
         else:
             if ci != cout:
                 raise ValueError("bottleneck_chain: identity block needs cin == cout")
-            x = _wg_gemm(_PC_PLAIN, y2, w3, b3, K=width, N=cout, R=x, **kw)
+            x = gemm(_PC_PLAIN, y2, w3, b3, K=width, N=cout, R=x, **kw)
     return x

@@ -7,13 +7,14 @@ in that module's docstring), :func:`vis_blocks_fused` runs the pos-emb add
 and every block, and :func:`vis_apply_fused` adds the token mean, head
 LayerNorm and (D, G) gene head outside the kernel, as ``vis.apply`` does.
 
-On a CUDA tensor :func:`vis_blocks_fused` launches the CUDA kernels: bf16
-the tensor-core kernel of ``csrc/vis_wgmma.cu`` (swapped, split-K GEMMs in
-thread-block clusters; :func:`vis_blocks_split_plain` is its decomposition
-in plain PyTorch), f32 the CUDA-core kernel of ``csrc/vis_blocks.cu`` (each
-source says what bounds it on the H100 and what its design does about it).
-On a CPU tensor it runs :func:`vis_blocks_plain`, the same math in plain
-PyTorch.  The kernel rounds where the Pallas kernel rounds: the
+On a CUDA tensor :func:`vis_blocks_fused` launches the tensor-core kernels
+of ``csrc/vis_wgmma.cu`` (swapped, split-K GEMMs in thread-block clusters;
+:func:`vis_blocks_split_plain` is their decomposition in plain PyTorch; the
+source says what bounds them on the H100 and what the design does about
+it): bf16 operands, or, in f32, 3xTF32 products (each operand split into
+TF32 hi and lo in the kernel, hi.hi + hi.lo + lo.hi into an f32
+accumulator).  On a CPU tensor it runs :func:`vis_blocks_plain`, the same
+math in plain PyTorch.  The kernel rounds where the Pallas kernel rounds: the
 residual stream is stored in the compute type between blocks and the last
 block's output is f32.  GELU is exact erf (the Pallas kernel's
 Abramowitz-Stegun polynomial was only a Mosaic workaround).
@@ -49,10 +50,9 @@ def supported(cfg: vis.ViSConfig) -> bool:
 
 
 def kernel_takes(cfg: vis.ViSConfig, dtype) -> tuple[bool, str]:
-    """``(True, "")`` when the CUDA kernel of ``dtype`` (bf16: the
-    tensor-core kernel, f32: the FMA kernel) takes this config, else
-    ``(False, reason)``: both take every config of JAX's gate
-    (``supported``), any head width."""
+    """``(True, "")`` when the CUDA kernel of ``dtype`` (bf16 or 3xTF32 f32
+    tensor-core GEMMs) takes this config, else ``(False, reason)``: both
+    take every config of JAX's gate (``supported``), any head width."""
     compute_dtype(dtype)  # a dtype the kernels have
     if not supported(cfg):
         return False, ("ViS config does not fit the packed layout (nheads * dim_f = "
@@ -123,14 +123,16 @@ def _group_ln(v: torch.Tensor, nheads: int, scale, bias) -> torch.Tensor:
 
 def vis_blocks_plain(x, pos, chunks, smalls, *, depth: int, nheads: int) -> torch.Tensor:
     """Plain PyTorch version of the fused block stack, the Pallas kernel's
-    math step by step: ``(N, D)`` f32 -> ``(N, D)`` f32."""
+    math step by step: ``(N, D)`` f32 -> ``(N, D)`` f32.  f64 operands run
+    it in f64 (the reference the 3xTF32 kernel is held against)."""
     p = x.shape[1] // 2
     cd = chunks.dtype
+    acc = torch.promote_types(cd, torch.float32)
 
-    def dot(a, w):  # operands in the compute type, f32 accumulation
-        return torch.matmul(a.to(cd).float(), w.float())
+    def dot(a, w):  # operands in the compute type, f32 (f64) accumulation
+        return torch.matmul(a.to(cd).to(acc), w.to(acc))
 
-    xs = (x + pos.float()).to(cd)
+    xs = (x + pos.to(acc)).to(cd)
     for i in range(depth):
         def row(name):
             r, k = _SM[name]
@@ -145,7 +147,7 @@ def vis_blocks_plain(x, pos, chunks, smalls, *, depth: int, nheads: int) -> torc
         summ = gelu(_group_ln(sv, nheads, row("ln_s_scale"), row("ln_s_bias")))
         c = gelu(dot(local, w(4)) + dot(summ, w(5)) + row("bc"))
 
-        x32 = xs.float()
+        x32 = xs.to(acc)
         x_lo = x32[:, :p] + dot(c, w(6)) + row("bp_lo")
         x_hi = x32[:, p:] + dot(c, w(7)) + row("bp_hi")
         mean = (x_lo.sum(-1, keepdim=True) + x_hi.sum(-1, keepdim=True)) / (2 * p)
@@ -243,16 +245,22 @@ def vis_blocks_split_plain(x, pos, chunks, smalls, *, depth: int,
     return out[:n]
 
 
-def _wgmma_check(x, pos, chunks, smalls) -> None:
-    """Raise on what the tensor-core kernel does not take: bf16 chunks,
-    contiguous 16-byte aligned operands."""
-    if chunks.dtype != torch.bfloat16:
-        raise TypeError(f"vis_blocks_fused: the tensor-core route takes bf16 chunks, "
-                        f"got {chunks.dtype}")
+def _aligned_check(x, pos, chunks, smalls) -> None:
+    """Raise unless every operand is contiguous and 16-byte aligned, as the
+    tensor-core kernels read them in 16-byte chunks."""
     for t in (x, pos, chunks, smalls):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("vis_blocks_fused: the tensor-core route needs contiguous, "
                              "16-byte aligned operands")
+
+
+def _wgmma_check(x, pos, chunks, smalls) -> None:
+    """Raise on what the bf16 tensor-core kernel does not take: bf16 chunks,
+    contiguous 16-byte aligned operands."""
+    if chunks.dtype != torch.bfloat16:
+        raise TypeError(f"vis_blocks_fused: the tensor-core route takes bf16 chunks, "
+                        f"got {chunks.dtype}")
+    _aligned_check(x, pos, chunks, smalls)
 
 
 def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.Tensor:
@@ -291,6 +299,7 @@ def _vis_blocks_cuda(x, pos, chunks, smalls, depth: int, nheads: int) -> torch.T
         _wgmma_check(x, pos, chunks, smalls)
         rc = lib.sq_vis_wgmma(*args)
     else:
+        _aligned_check(x, pos, chunks, smalls)
         rc = lib.sq_vis_blocks(0, *args)
     _build.check(rc, "vis_blocks_fused")
     _build.count_launch("vis_blocks_fused", launches_per_call(depth, hw, cd))
