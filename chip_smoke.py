@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only stem16,vis_blocks_fused   # phases 1-3 for these
+    python3 chip_smoke.py --only stem16,bottleneck_chain_cp   # the f32 K2, K3 rows too
     python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
     python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
     python3 chip_smoke.py --only train_path    # phases 1-2 and 8
@@ -38,23 +39,22 @@ Phases, each printing one JSON line:
    labels equal to the f64 fit's) and a ``lloyd_step`` line (one K5-mode
    Lloyd step: K5's device time against the rest of the step and the host
    sync).  K1 and K2 (bf16: the tensor-core kernels of
-   ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: K1 the 3xTF32 tensor-core
-   kernel of ``vis_wgmma.cu``, K2 the FMA kernel of ``conv_gemm.cu``) also
-   report their share of the bound, GB/s and TFLOP/s, and in bf16 are
-   checked at off-path edge shapes
-   (K1: 7 and 130 tokens at P = 512, depth 1; K2: one image, three images,
-   a ragged H2 != W2 map); K1 is also checked and timed with 8 heads of
+   ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: their 3xTF32 tensor-core
+   kernels in the same sources) also report their share of the bound, GB/s
+   and TFLOP/s, and are checked at off-path edge shapes (K1 in bf16: 7 and
+   130 tokens at P = 512, depth 1; K2 in both types: one image, three
+   images, a ragged H2 != W2 map); K1 is also checked and timed with 8 heads of
    width 128 (D = 2048) and 8 heads of width 96 (D = 1536, heads that
    straddle the 64-feature tiles), depth 6, 100 tokens (``wide_heads``, both
    types); K1 reports its launches per call and, from a
    ``torch.profiler`` trace of one call, the device gaps between them.  K3
-   and K4 (bf16: the tensor-core kernel of ``conv_wgmma.cu``; f32: K4 the
-   3xTF32 tensor-core kernel of ``conv_wgmma.cu``, K3 the FMA kernel of
-   ``conv_gemm.cu``) are timed at
+   and K4 (bf16: the tensor-core kernel of ``conv_wgmma.cu``; f32: its
+   3xTF32 kernel, K3's weights read K-major and its last launch writing the
+   (C, P) layout) are timed at
    layer1's shape and also checked and timed at the three stage tails
-   (layers 2-4 after their stride-2 block) and, in bf16, checked at three
-   off-path edge shapes, each with its share of the bound and TFLOP/s.  The
-   3xTF32 rows (f32 K1 at every shape, f32 K4 at layer1 and the tails) are
+   (layers 2-4 after their stride-2 block) and at three off-path edge
+   shapes, each with its share of the bound and TFLOP/s.  The
+   3xTF32 rows (every f32 row of K1-K4) are
    held against the plain f32 version at ``TOL`` and report both their
    error and the plain f32 version's against an f64 run of the plain
    version (the tensor cores truncate as they accumulate), and their
@@ -66,7 +66,7 @@ Phases, each printing one JSON line:
    ``chain_weight_fold`` line (the per-batch cost
    of folding and casting each stage's chain weights, as every forward
    does), and ResNet ``early_pallas`` + ``cp_stages=(2, 3, 4)`` on one batch
-   against the plain extractor;
+   against the plain extractor, in bf16 (0.05) and f32 (1e-4);
 4. main path: a ``SlidePredictor`` with random ResNet-50 and 5-fold ViS
    weights at full width (D=2048, depth 6, 16 heads, 20,820 genes, bf16),
    ResNet ``early_pallas``, k-means ``use_pallas`` and the fused ViS, runs
@@ -76,7 +76,14 @@ Phases, each printing one JSON line:
    then a ``torch.profiler`` trace of one extractor batch of each predictor
    (device ms by kernel, idle share) and each stage's time, with the Lloyd
    steps of ``kmeans_fit`` and, from one seeding, of K5, plain f32 and plain
-   f64 with their labels' agreement with f64;
+   f64 with their labels' agreement with f64.  Then the f32 leg
+   (``main_path_f32``): ``pipeline.fused.make_slide_program`` with
+   ``compute_dtype`` f32, ``kernels=True`` against ``kernels=False``, and a
+   ``SlidePredictor`` at ``ResNetConfig(f32, early_pallas=True)`` with f32
+   ViS folds, on the same 4096-patch slide: K2, K3, K5 and K1 (all on the
+   tensor cores in f32) must launch, the features within 1e-4 of the plain
+   f32 extractor, r >= 0.999 on shared clusters and >= 0.99 end to end,
+   seconds a slide both ways, and a trace of one f32 extractor batch;
 5. WSI path: two synthetic AppMag-20 slides (8192 x 8192 level 0 with a
    textured tissue ellipse over about 75% of it, a 4x-down level 1) served
    from the slide with ``predict_wsi`` one by one and ``predict_slides``
@@ -316,7 +323,7 @@ NEAR_TIE_SIGMA = 0.005
 
 # the kernels line reports each kernel's bf16 row (the main path's type):
 # K1-K4 the bf16 tensor-core kernels (f32 runs the 3xTF32 kernels of the
-# same sources for K1 and K4, the FMA kernels of conv_gemm.cu for K2 and K3)
+# same sources)
 SOURCES = {
     "vis_blocks_fused": ("sequoia_tpu_torch/csrc/vis_wgmma.cu",
                          "sequoia_tpu/ops/pallas_vis.py:255"),
@@ -504,7 +511,8 @@ def check_stem16(torch, dev, dtype: str) -> dict:
     run = lambda: cuda_resnet.stem16(x16, a, b, H2=h2, W2=w2)  # noqa: E731
     plain = lambda: cuda_resnet.stem16_plain(x16, a, b, H2=h2, W2=w2)  # noqa: E731
     out = run()
-    res = compare(torch, "stem16", dtype, out, plain())
+    want = plain()
+    res = compare(torch, "stem16", dtype, out, want)
     # yardstick: cuDNN's 7x7/s2 conv + BN + ReLU on the same image batch
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
     w = params["conv1"].to(dt)
@@ -512,28 +520,32 @@ def check_stem16(torch, dev, dtype: str) -> dict:
     bb = params["bn1"]["bias"].to(dt)[:, None, None]
     lib = lambda: torch.relu(F.conv2d(img_nchw, w, stride=2, padding=3) * s + bb)  # noqa: E731
     p_out = h2 * w2
+    if dtype == "float32":  # the 3xTF32 kernel and the plain f32 against f64
+        res.update(f64_errors(torch, out, want, cuda_resnet.stem16_plain(
+            x16.double(), a.double(), b.double(), H2=h2, W2=w2)))
+    del want
     res.update(ms=time_ms(torch, run, 10), plain_ms=time_ms(torch, plain, 2),
                library_ms=time_ms(torch, lib, 10))
     flops = 2 * FEAT_BATCH * 64 * 256 * p_out
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes(x16, a, b, out), flops, dtype)
-    res.update(rates(res, nbytes(x16, a, b, out), flops))
-    if dtype == "bfloat16":
-        res["edges"] = []
-        for batch, eh, ew in STEM_EDGES:
-            e16 = torch.randn((batch, 16, (eh + 3) * ew), generator=g, device=dev).to(dt)
-            e16[:, 12:] = 0  # the 4 padding channels, as the extractor's input
-            got = cuda_resnet.stem16(e16, a, b, H2=eh, W2=ew)
-            res["edges"].append({"batch": batch, "map": [eh, ew], **compare(
-                torch, "stem16", dtype, got, cuda_resnet.stem16_plain(e16, a, b, H2=eh, W2=ew))})
+    moved = nbytes(x16, a, b, out)
+    res.update(kernel_bounds(moved, flops, dtype, res["ms"], tf32=dtype == "float32"))
+    res.update(rates(res, moved, flops))
+    res["edges"] = []
+    for batch, eh, ew in STEM_EDGES:
+        e16 = torch.randn((batch, 16, (eh + 3) * ew), generator=g, device=dev).to(dt)
+        e16[:, 12:] = 0  # the 4 padding channels, as the extractor's input
+        got = cuda_resnet.stem16(e16, a, b, H2=eh, W2=ew)
+        res["edges"].append({"batch": batch, "map": [eh, ew], **compare(
+            torch, "stem16", dtype, got, cuda_resnet.stem16_plain(e16, a, b, H2=eh, W2=ew))})
     return res
 
 
 def check_chain(torch, dev, dtype: str, kname: str) -> dict:
     """K3 (``bottleneck_chain_cp``, (C, P)) or K4 (``bottleneck_chain``,
-    (P, C)) against its plain version at layer1 and the three stage tails
-    and, in bf16 (the tensor-core route), at the off-path edge shapes; the
-    row's numbers are layer1's, the tails' go under ``tails``, the edges'
-    under ``edges``."""
+    (P, C)) against its plain version at layer1, the three stage tails and
+    the off-path edge shapes; the row's numbers are layer1's, the tails' go
+    under ``tails``, the edges' under ``edges``.  In f32 (3xTF32) every
+    shape also gives its error against an f64 run of the plain version."""
     from sequoia_tpu_torch.models import resnet
     from sequoia_tpu_torch.ops import cuda_resnet as cr
 
@@ -547,8 +559,7 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
     params = resnet.random_params(g)
     shapes = [(FEAT_BATCH, stage, start, H, H) for stage, start, H in (CHAIN_LAYER1,
                                                                        *CHAIN_TAILS)]
-    if dtype == "bfloat16":
-        shapes += CHAIN_EDGES
+    shapes += CHAIN_EDGES
     res, tails, edges = None, [], []
     for batch, stage, start, H, W in shapes:
         blocks = params[f"layer{stage}"]
@@ -561,7 +572,7 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
         out = run()
         want = plain()
         r = compare(torch, kname, dtype, out, want)
-        if pc and dtype == "float32":  # K4's 3xTF32 and the plain f32 against f64
+        if dtype == "float32":  # the 3xTF32 kernel and the plain f32 against f64
             r.update(f64_errors(torch, out, want, plain_fn(
                 xk.double(), tuple(t.double() for t in flat), meta=meta, H=H, W=W)))
         del want
@@ -579,7 +590,7 @@ def check_chain(torch, dev, dtype: str, kname: str) -> dict:
                                         for ci, w, co, ds in meta)
         r.update(ms=time_ms(torch, run, 10), library_ms=time_ms(torch, lib, 10))
         r.update(kernel_bounds(nbytes(x, out, *flat), flops, dtype, r["ms"],
-                               tf32=pc and dtype == "float32"))
+                               tf32=dtype == "float32"))
         r["tflops"] = flops / r["ms"] / 1e9
         if (batch, stage, start, H) == (FEAT_BATCH, *CHAIN_LAYER1):
             r["plain_ms"] = time_ms(torch, plain, 2)
@@ -612,6 +623,38 @@ def chain_totals(results: dict) -> dict:
     return out
 
 
+# launches a call: K3 over layer1 (3 blocks, 3 a block) from patches; K4 over
+# a batch's four chains (layer1 from block 0, the tails from block 1: 3 + 3 +
+# 5 + 2 blocks) from the WSI
+K3_LAYER1_LAUNCHES, K4_BATCH_LAUNCHES = 3 * 3, 3 * (3 + 3 + 5 + 2)
+
+
+def slide_costs(rows: dict, totals: dict, launches: dict) -> dict:
+    """Per kernel of one slide's run: its calls (from the run's launch
+    counts) times its row's ms minus its bound, the device time the slide
+    loses to the kernel's distance from its bound (ROADMAP's order of kernel
+    work).  ``rows``: the kernel rows of the run's type, K5's included;
+    ``totals``: that type's chain_totals (K4 is timed per batch's chains)."""
+    out = {}
+    for k, n in launches.items():
+        if not n:
+            continue
+        r = rows[k]
+        ms, bound = r["ms"], r["bound_ms"]
+        if k == "bottleneck_chain":
+            calls = n / K4_BATCH_LAUNCHES
+            ms, bound = totals[k]["ms"], totals[k]["bound_ms"]
+        elif k == "bottleneck_chain_cp":
+            calls = n / K3_LAYER1_LAUNCHES
+        elif k == "lloyd_stats":  # one fit a slide: its plan, then the Lloyd steps
+            calls = (n - r["launches_per_fit"]) / r["launches_per_call"]
+        else:
+            calls = n / r.get("launches_per_call", 1)
+        out[k] = {"calls": calls, "ms": ms, "bound_ms": bound,
+                  "lost_ms": calls * (ms - bound)}
+    return out
+
+
 def time_weight_folds(torch, dev) -> dict:
     """The per-batch cost of folding and casting the chain weights, which
     models/resnet.py does on every forward (stage_chain_weights* per chained
@@ -631,23 +674,26 @@ def time_weight_folds(torch, dev) -> dict:
     return out
 
 
-def check_cp_stages(torch, dev) -> dict:
+def check_cp_stages(torch, dev, dtype: str) -> dict:
     """ResNet-50 ``early_pallas`` + ``cp_stages=(2, 3, 4)`` (K2 + K3 over
-    every stride-1 run) on one batch against the plain extractor."""
+    every stride-1 run) on one batch against the plain extractor, at the
+    stages' feature tolerance for the type (``STAGE_FEAT_TOL``)."""
     from sequoia_tpu_torch.models import resnet
 
     g = torch.Generator(device=dev).manual_seed(5)
     params = resnet.random_params(g)
     u8 = torch.randint(0, 256, (FEAT_BATCH, PATCH, PATCH, 3), generator=g, device=dev,
                        dtype=torch.uint8)
-    cfg = dict(compute_dtype=torch.bfloat16)
+    cfg = dict(compute_dtype=getattr(torch, dtype))
     got = resnet.extract_from_uint8(
         resnet.ResNetConfig(early_pallas=True, cp_stages=(2, 3, 4), **cfg), params, u8)
     want = resnet.extract_from_uint8(resnet.ResNetConfig(**cfg), params, u8)
     rel = float((got - want).abs().max() / want.abs().max())
-    if not bool(torch.isfinite(got).all()) or rel > 0.05:
-        raise AssertionError(f"cp_stages extractor: max rel diff {rel:.3g} > 0.05")
-    return {"shape": list(got.shape), "max_rel_diff_vs_plain": rel, "tol": 0.05}
+    tol = STAGE_FEAT_TOL[dtype]
+    if not bool(torch.isfinite(got).all()) or rel > tol:
+        raise AssertionError(f"cp_stages extractor {dtype}: max rel diff {rel:.3g} > {tol:g}")
+    return {"dtype": dtype, "shape": list(got.shape), "max_rel_diff_vs_plain": rel,
+            "tol": tol}
 
 
 def check_lloyd(torch, dev) -> dict:
@@ -1024,8 +1070,9 @@ def check_launched(launches: dict, kernels, path: str) -> None:
         raise AssertionError(f"{path} did not launch {missing}")
 
 
-def main_path(torch, dev, rparams, folds) -> dict:
-    """Phase 4; returns the kernels' launch counts of the kernel path's run."""
+def main_path(torch, dev, rparams, folds) -> tuple[dict, dict]:
+    """Phase 4; returns the kernels' launch counts of the kernel path's run
+    and those of its 4096-patch slide."""
     import numpy as np
     from sequoia_tpu_torch import _build
     from sequoia_tpu_torch.models import resnet
@@ -1125,7 +1172,92 @@ def main_path(torch, dev, rparams, folds) -> dict:
               "lloyd_steps_by_backend": {k: r["steps"] for k, r in runs.items()},
               "labels_equal_f64_by_backend": {k: r["labels_equal_f64"]
                                               for k, r in runs.items()}})
-    return launches
+    return launches, per_slide[PATCHES]
+
+
+def main_path_f32(torch, dev, rparams, folds) -> tuple[dict, dict]:
+    """Phase 4's f32 leg, on phase 4's 4096-patch slide: the slide program
+    (``make_slide_program``, compute_dtype f32, fold 0) with the kernels
+    against without, then ``SlidePredictor`` at ``ResNetConfig(f32,
+    early_pallas=True)`` with the five folds in f32 against the plain
+    predictor, stage by stage; returns the kernels' launch counts of both
+    kernel runs, and those of ``predict_patches`` alone."""
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.pipeline.fused import make_slide_program
+    from sequoia_tpu_torch.serve import SlidePredictor
+
+    f32, kernels = torch.float32, ("stem16", "bottleneck_chain_cp", "lloyd_stats",
+                                   "vis_blocks_fused")
+    ffolds = [(dataclasses.replace(cfg, compute_dtype="float32"), p) for cfg, p in folds]
+    g = torch.Generator(device=dev).manual_seed(6)  # main_path's first slide
+    u8 = torch.randint(0, 256, (PATCHES, PATCH, PATCH, 3), generator=g, device=dev,
+                       dtype=torch.uint8)
+    batches = u8.reshape(PATCHES // FEAT_BATCH, FEAT_BATCH, PATCH, PATCH, 3)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+
+    def timed(fn, *args):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    progs = {on: make_slide_program(rparams, *ffolds[0], n_clusters=K, compute_dtype=f32,
+                                    kernels=on, device=dev) for on in (True, False)}
+    for prog in progs.values():  # warm-up: cuDNN plans, allocator
+        prog(batches[:1], gen())
+    (y, secs, counts), (ref, plain_s, plain_counts) = (timed(progs[on], batches, gen())
+                                                      for on in (True, False))
+    check_launched(counts, kernels, "f32 slide program")
+    if any(plain_counts.values()):
+        raise AssertionError(f"the plain f32 slide program launched {plain_counts}")
+    y, ref = y.cpu().numpy(), ref.cpu().numpy()
+    r = pearson(np, y, ref)
+    emit({"phase": "main_path_f32", "entry": "make_slide_program", "patches": PATCHES,
+          "shape": list(y.shape), "finite": bool(np.isfinite(y).all()), "seconds": secs,
+          "plain_seconds": plain_s, "launches": counts, "pearson_r_vs_plain": r,
+          "max_rel_diff_vs_plain": float(np.abs(y - ref).max() / np.abs(ref).max())})
+    if y.shape != (GENES,) or not np.isfinite(y).all() or r < 0.99:
+        raise AssertionError("the f32 slide program disagrees with the plain program")
+    total = {k: total[k] + counts[k] for k in total}
+
+    def predictor(on: bool) -> SlidePredictor:
+        rcfg = resnet.ResNetConfig(compute_dtype=f32, early_pallas=on)
+        ext = FeatureExtractor("resnet", rparams, batch_size=FEAT_BATCH, cfg=rcfg, device=dev)
+        return SlidePredictor(ext, ffolds, n_clusters=K, use_pallas_kmeans=on,
+                              use_fused_vis=on, device=dev)
+
+    fast, plain = predictor(True), predictor(False)
+    for p in (fast, plain):
+        p.predict_patches(u8[:SMALL_SLIDE])
+    (y, secs, counts), (ref, plain_s, _) = (timed(p.predict_patches, u8)
+                                            for p in (fast, plain))
+    check_launched(counts, kernels, "f32 predict_patches")
+    f_fast, f_plain = fast.extractor.features(u8), plain.extractor.features(u8)
+    feat_rel = float((f_fast - f_plain).abs().max() / f_plain.abs().max())
+    cf = plain.cluster(f_plain)
+    vis_r = pearson(np, fast.predict_cluster_features(cf), plain.predict_cluster_features(cf))
+    r = pearson(np, y, ref)
+    emit({"phase": "main_path_f32", "entry": "predict_patches", "patches": PATCHES,
+          "shape": list(y.shape), "finite": bool(np.isfinite(y).all()), "seconds": secs,
+          "plain_seconds": plain_s, "launches": counts, "pearson_r_vs_plain": r,
+          "max_rel_diff_vs_plain": float(np.abs(y - ref).max() / np.abs(ref).max()),
+          "features_max_rel_diff": feat_rel, "features_tol": STAGE_FEAT_TOL["float32"],
+          "vis_pearson_r_same_clusters": vis_r})
+    if (y.shape != (1, GENES) or not np.isfinite(y).all() or vis_r < 0.999
+            or feat_rel > STAGE_FEAT_TOL["float32"] or r < 0.99):
+        raise AssertionError("the f32 4096-patch slide disagrees with the plain path")
+    total = {k: total[k] + counts[k] for k in total}
+    del f_fast, f_plain
+    for label, p in (("kernels", fast), ("plain", plain)):
+        emit({"phase": "profile", "path": "from_patches", "dtype": "float32", "predictor": label,
+              "batch": FEAT_BATCH, **profile_batch(torch, lambda p=p: p.extractor.raw_fwd(
+                  p.extractor.params, u8[:FEAT_BATCH]))})
+    return total, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1153,9 +1285,9 @@ def make_slide(torch, dev, seed: int, side: int = WSI_SIDE):
     return ArrayReader(levels, properties={"aperio.AppMag": "20"})
 
 
-def wsi_path(torch, dev, rparams, folds) -> tuple[dict, list]:
-    """Phase 5; returns the kernels' launch counts of the kernel path's run
-    and each slide's kept patch count."""
+def wsi_path(torch, dev, rparams, folds) -> tuple[dict, list, dict]:
+    """Phase 5; returns the kernels' launch counts of the kernel path's run,
+    each slide's kept patch count and the first slide's launch counts."""
     import numpy as np
     from sequoia_tpu_torch import _build
     from sequoia_tpu_torch.models import resnet
@@ -1279,7 +1411,7 @@ def wsi_path(torch, dev, rparams, folds) -> tuple[dict, list]:
           "capped_run": {"max_patches": WSI_CAP, "kept": capped.io_stats["kept"],
                          "decoded": sum(decoded), "candidates": n_cands[0],
                          "finite": bool(np.isfinite(y).all())}})
-    return launches, got["kept"]
+    return launches, got["kept"], got["launches"][0]
 
 
 # ---------------------------------------------------------------------------
@@ -4388,10 +4520,11 @@ def main() -> int:
             emit({"phase": "kernel", "name": kname, "dtype": dtype, **r})
             by_dtype[dtype][kname] = r
             results[kname] = r  # the bf16 row (the main path's type) is kept
+    totals = {dtype: chain_totals(rows) for dtype, rows in by_dtype.items()}
     for dtype, rows in by_dtype.items():
-        if "bottleneck_chain" in rows:
+        if "bottleneck_chain" in rows or "bottleneck_chain_cp" in rows:
             emit({"phase": "chain_totals", "dtype": dtype, "per": "extractor batch",
-                  **chain_totals(rows)})
+                  **totals[dtype]})
     if not only or "lloyd_stats" in only:
         from sequoia_tpu_torch.ops import kmeans as km
 
@@ -4420,13 +4553,16 @@ def main() -> int:
         return 0
     emit({"phase": "chain_weight_fold", "dtype": "bfloat16", "per": "extractor batch",
           **time_weight_folds(torch, dev)})
-    emit({"phase": "extractor_cp_stages", **check_cp_stages(torch, dev)})
+    for dtype in ("bfloat16", "float32"):
+        emit({"phase": "extractor_cp_stages", **check_cp_stages(torch, dev, dtype)})
     torch.cuda.empty_cache()
 
     rparams, folds = models(torch, dev)
-    main = main_path(torch, dev, rparams, folds)
+    main, main_slide = main_path(torch, dev, rparams, folds)
     torch.cuda.empty_cache()
-    wsi, kept = wsi_path(torch, dev, rparams, folds)
+    main32, main32_slide = main_path_f32(torch, dev, rparams, folds)
+    torch.cuda.empty_cache()
+    wsi, kept, wsi_slide = wsi_path(torch, dev, rparams, folds)
     torch.cuda.empty_cache()
     served = serve_cli_path(torch, dev, folds)
     torch.cuda.empty_cache()
@@ -4445,9 +4581,14 @@ def main() -> int:
     stages = stages_path(torch, dev, kept, keep.pop("test_results"))
     torch.cuda.empty_cache()
     par = parallel_path(torch, dev)
-    launches = {k: main[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k] + stages[k] + par[k]
-                for k in results}
+    launches = {k: main[k] + main32[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k]
+                + stages[k] + par[k] for k in results}
 
+    rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"]} for dt, r in by_dtype.items()}
+    emit({"phase": "slide_cost", "per": "slide",
+          "from_patches": slide_costs(rows["bfloat16"], totals["bfloat16"], main_slide),
+          "from_patches_f32": slide_costs(rows["float32"], totals["float32"], main32_slide),
+          "wsi": slide_costs(rows["bfloat16"], totals["bfloat16"], wsi_slide)})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

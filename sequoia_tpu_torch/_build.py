@@ -37,13 +37,12 @@ LAUNCHES: dict[str, int] = {"vis_blocks_fused": 0, "stem16": 0,
                             "bottleneck_chain_cp": 0, "bottleneck_chain": 0,
                             "lloyd_stats": 0}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sq_conv_gemm": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _L, _L, _L, _L, _L, _I, _P],
     "sq_pc_wgmma": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P],
-    "sq_pc_tf32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sq_pc_tf32": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
     "sq_lloyd_prepare": [_P, _P, _I, _I, _P, _P, _P, _P],
     "sq_lloyd_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P],
@@ -52,6 +51,7 @@ _SIGNATURES = {
     "sq_vis_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P],
     "sq_stem_wgmma": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "sq_stem_tf32": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

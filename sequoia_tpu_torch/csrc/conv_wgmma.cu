@@ -1,10 +1,10 @@
-// K4 bottleneck_chain in bf16 and f32, and K3 bottleneck_chain_cp in bf16:
-// the (P, C) convolution GEMMs of a stride-1 bottleneck chain on Hopper's
-// tensor cores.
+// K4 bottleneck_chain and K3 bottleneck_chain_cp, in bf16 and f32: the (P, C)
+// convolution GEMMs of a stride-1 bottleneck chain on Hopper's tensor cores.
 //
 // Replaces sequoia_tpu/ops/pallas_resnet.py:bottleneck_chain (_chain_kernel)
-// in bf16 and f32 and :bottleneck_chain_cp (_chain_cp_kernel) in bf16; K3 in
-// f32 keeps the CUDA-core kernel of conv_gemm.cu.
+// and :bottleneck_chain_cp (_chain_cp_kernel) in both types.  K3 runs K4's
+// GEMMs after one transpose of its input to (P, C): its (C_out, K) weights
+// are read as a K-major B and its last launch writes the (C, P) layout.
 //
 // Function, per launch, over the B images of P pixels stacked as M = B*P rows:
 //   out (M, N) = relu(Aop(X) (M, K) . B (K, N) + bias [+ R]),
@@ -63,7 +63,8 @@
 // registers: every thread loads its chunks of slab kt + 2 while the tensor
 // cores multiply slab kt, then, while they multiply slab kt + 1, splits them
 // and stores hi and lo to the swizzled tiles of a two-slot ring (32 K values,
-// one 128-byte row of f32, per slab).  The activations are K-major as stored; the (K, C_out)
+// one 128-byte row of f32, per slab).  The activations are K-major as stored,
+// and so are K3's (C_out, K) weights, which load as A does; K4's (K, C_out)
 // weights are transposed on the way (krows_item in hopper.cuh).  Neither lo
 // nor a transposed weight reaches device memory; the weights are split by
 // every CTA that reads them (from L2), which costs the SM a few instructions
@@ -71,7 +72,8 @@
 // (two CTAs an SM).  Each output row is one K reduction in a fixed order
 // (slab by slab, k8 step by step, hi.hi then hi.lo then lo.hi), whatever its
 // M tile: no split K, so a row's value does not depend on its place in the
-// batch.
+// batch.  The epilogue is the bf16 kernel's, on f32: (M, N) rows or, for
+// the last launch of K3's chain, the (images, N, P) layout.
 #include "hopper.cuh"
 
 using namespace sq::hopper;
@@ -213,16 +215,22 @@ __device__ __forceinline__ void store_pc(const WgArgs<T>& a, const float* st, in
 
 // the (images, N, P) output (K3's layout, so its chain needs no transpose
 // out), in two passes.  stage_cp: relu(acc + bias + residual) from the wgmma
-// fragment, rounded to bf16, into the tile transposed in shared memory (sT,
-// one row of BM pixels per output channel).  copy_cp: 16-byte chunks of 8
-// pixels, a half warp per 256-byte channel row; 8 rows from a multiple of 8
-// lie in one image where P % 8 == 0, else each pixel is stored alone.
-constexpr int LDT = BM + 8;  // bf16 per row of sT (padded)
+// fragment, rounded to T, into the tile transposed in shared memory (sT, one
+// padded row of BM pixels per output channel; the 16-byte pad puts the
+// fragment's 32 stores of a warp in 32 banks in f32).  copy_cp: 16-byte
+// chunks of VEC pixels (8 bf16, 4 f32) along a channel row; VEC rows from a
+// multiple of VEC lie in one image where P % VEC == 0, else each pixel is
+// stored alone.
+template <class T> struct Cp {
+  static constexpr int VEC = 16 / sizeof(T);  // pixels per 16-byte chunk
+  static constexpr int LDT = BM + VEC;        // T per row of sT (padded)
+};
 
-template <int BN>
-__device__ __forceinline__ void stage_cp(const WgArgs<bf16>& a, const float (&acc)[BN / 2],
-                                         bf16* sT, int m0, int n0) {
-  static_assert(BN * LDT * 2 <= Smem<BN>::EPI, "sT fits where the f32 tile goes");
+template <int BN, class T>
+__device__ __forceinline__ void stage_cp(const WgArgs<T>& a, const float (&acc)[BN / 2],
+                                         T* sT, int m0, int n0) {
+  constexpr int LDT = Cp<T>::LDT;
+  static_assert(BN * LDT * sizeof(T) <= Smem<BN>::EPI, "sT fits where the f32 tile goes");
   const int tid = threadIdx.x, lane = tid & 31;
   const int r0 = (tid / 128) * 64 + ((tid & 127) >> 5) * 16 + lane / 4;
 #pragma unroll
@@ -235,34 +243,46 @@ __device__ __forceinline__ void stage_cp(const WgArgs<bf16>& a, const float (&ac
       const int r = r0 + 8 * h, m = m0 + r;
       float v0 = acc[4 * j + 2 * h] + bb.x, v1 = acc[4 * j + 2 * h + 1] + bb.y;
       if (a.R && m < a.M) {
-        const __nv_bfloat162 rr =
-            __ldg(reinterpret_cast<const __nv_bfloat162*>(a.R + (size_t)m * a.N + n));
-        v0 += __low2float(rr);
-        v1 += __high2float(rr);
+        if constexpr (sizeof(T) == 4) {
+          const float2 rr = __ldg(reinterpret_cast<const float2*>(a.R + (size_t)m * a.N + n));
+          v0 += rr.x;
+          v1 += rr.y;
+        } else {
+          const __nv_bfloat162 rr =
+              __ldg(reinterpret_cast<const __nv_bfloat162*>(a.R + (size_t)m * a.N + n));
+          v0 += __low2float(rr);
+          v1 += __high2float(rr);
+        }
       }
-      sT[col * LDT + r] = __float2bfloat16_rn(fmaxf(v0, 0.f));
-      sT[(col + 1) * LDT + r] = __float2bfloat16_rn(fmaxf(v1, 0.f));
+      if constexpr (sizeof(T) == 4) {
+        sT[col * LDT + r] = fmaxf(v0, 0.f);
+        sT[(col + 1) * LDT + r] = fmaxf(v1, 0.f);
+      } else {
+        sT[col * LDT + r] = __float2bfloat16_rn(fmaxf(v0, 0.f));
+        sT[(col + 1) * LDT + r] = __float2bfloat16_rn(fmaxf(v1, 0.f));
+      }
     }
   }
 }
 
-template <int BN>
-__device__ __forceinline__ void copy_cp(const WgArgs<bf16>& a, const bf16* sT, int m0, int n0) {
-  constexpr int CH = BM / 8;  // 16-byte chunks per channel row
-  const bool vec = a.P % 8 == 0;
+template <int BN, class T>
+__device__ __forceinline__ void copy_cp(const WgArgs<T>& a, const T* sT, int m0, int n0) {
+  constexpr int VEC = Cp<T>::VEC, LDT = Cp<T>::LDT;
+  constexpr int CH = BM / VEC;  // 16-byte chunks per channel row
+  const bool vec = a.P % VEC == 0;
 #pragma unroll
   for (int i = threadIdx.x; i < BN * CH; i += NT) {
-    const int nl = i / CH, m = m0 + (i % CH) * 8, n = n0 + nl;
+    const int nl = i / CH, m = m0 + (i % CH) * VEC, n = n0 + nl;
     if (n >= a.N || m >= a.M) continue;
-    const uint4 v = *reinterpret_cast<const uint4*>(sT + nl * LDT + (i % CH) * 8);
+    const uint4 v = *reinterpret_cast<const uint4*>(sT + nl * LDT + (i % CH) * VEC);
     if (vec) {
       const int b = m / a.P, p = m - b * a.P;
       *reinterpret_cast<uint4*>(a.out + ((size_t)b * a.N + n) * a.P + p) = v;
     } else {
-      const bf16* vb = reinterpret_cast<const bf16*>(&v);
-      for (int k = 0; k < 8 && m + k < a.M; ++k) {
+      const T* vt = reinterpret_cast<const T*>(&v);
+      for (int k = 0; k < VEC && m + k < a.M; ++k) {
         const int b = (m + k) / a.P, p = m + k - b * a.P;
-        a.out[((size_t)b * a.N + n) * a.P + p] = vb[k];
+        a.out[((size_t)b * a.N + n) * a.P + p] = vt[k];
       }
     }
   }
@@ -366,9 +386,9 @@ __global__ void __launch_bounds__(NT, Cfg<BN>::MIN_CTAS) pc_wgmma_kernel(const W
   fence_regs(acc);
   __syncthreads();  // the ring is free: reuse it for the output tile
   if (a.out_cp) {
-    stage_cp<BN>(a, acc, reinterpret_cast<bf16*>(smem), m0, n0);
+    stage_cp<BN, bf16>(a, acc, reinterpret_cast<bf16*>(smem), m0, n0);
     __syncthreads();
-    copy_cp<BN>(a, reinterpret_cast<const bf16*>(smem), m0, n0);
+    copy_cp<BN, bf16>(a, reinterpret_cast<const bf16*>(smem), m0, n0);
   } else {
     stage_pc<BN>(acc, reinterpret_cast<float*>(smem));
     __syncthreads();
@@ -419,7 +439,7 @@ template <int BN> struct Tf32Smem {
   static_assert(A % 1024 == 0 && B % 1024 == 0, "every tile starts on a swizzle atom");
 };
 
-template <int BN>
+template <int BN, bool B_KMAJOR>
 __global__ void __launch_bounds__(NT, Tf32Cfg<BN>::MIN_CTAS) pc_tf32_kernel(const WgArgs<float> a) {
   constexpr int ROWS = NT / 8;               // A rows one pass of the threads loads
   constexpr int A_PER = BM / ROWS;           // A float4 chunks a thread loads per slab
@@ -451,7 +471,9 @@ __global__ void __launch_bounds__(NT, Tf32Cfg<BN>::MIN_CTAS) pc_tf32_kernel(cons
 
   struct Regs {
     float4 a[A_PER];  // A chunks
-    float4 b[B_PER];  // B items: 4 output channels of one stack row (krows_item)
+    float4 b[B_PER];  // B items: 4 K values of one output channel (K-major, chunk
+                      // i % 8 of slab row i / 8), or 4 output channels of one
+                      // stack row (krows_item)
   };
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   // slab kt of both operands into registers
@@ -465,12 +487,19 @@ __global__ void __launch_bounds__(NT, Tf32Cfg<BN>::MIN_CTAS) pc_tf32_kernel(cons
     }
 #pragma unroll
     for (int u = 0; u < B_PER; ++u) {
-      int kk, grp;
-      krows_item(tid + u * NT, kk, grp);
-      const int kr = kt * BK32 + kk, n = n0 + 4 * grp;
-      r.b[u] = kr < K && n < N
-                   ? __ldg(reinterpret_cast<const float4*>(a.Wt + (size_t)kr * N + n))
-                   : zero;
+      if constexpr (B_KMAJOR) {
+        const int i = tid + u * NT, kk = kt * BK32 + (i % 8) * 4, n = n0 + i / 8;
+        r.b[u] = kk < K && n < N
+                     ? __ldg(reinterpret_cast<const float4*>(a.Wt + (size_t)n * K + kk))
+                     : zero;
+      } else {
+        int kk, grp;
+        krows_item(tid + u * NT, kk, grp);
+        const int kr = kt * BK32 + kk, n = n0 + 4 * grp;
+        r.b[u] = kr < K && n < N
+                     ? __ldg(reinterpret_cast<const float4*>(a.Wt + (size_t)kr * N + n))
+                     : zero;
+      }
     }
   };
   // ... split into hi and lo, stored to ring slot `slot`: A hi, A lo, B hi, B lo
@@ -483,9 +512,15 @@ __global__ void __launch_bounds__(NT, Tf32Cfg<BN>::MIN_CTAS) pc_tf32_kernel(cons
     }
 #pragma unroll
     for (int u = 0; u < B_PER; ++u) {
-      int kk, grp;
-      krows_item(tid + u * NT, kk, grp);
-      st_split_krows(sb, sb + S::B, kk, grp, r.b[u]);
+      if constexpr (B_KMAJOR) {
+        const int i = tid + u * NT;
+        const uint32_t off = sw128_offset(i / 8, i % 8);
+        st_split_v4(sb + off, sb + S::B + off, r.b[u]);
+      } else {
+        int kk, grp;
+        krows_item(tid + u * NT, kk, grp);
+        st_split_krows(sb, sb + S::B, kk, grp, r.b[u]);
+      }
     }
   };
 
@@ -541,15 +576,21 @@ __global__ void __launch_bounds__(NT, Tf32Cfg<BN>::MIN_CTAS) pc_tf32_kernel(cons
     for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
   }
   __syncthreads();  // the ring is free: reuse it for the output tile
-  stage_pc<BN>(acc, reinterpret_cast<float*>(smem));
-  __syncthreads();
-  store_pc<BN>(a, reinterpret_cast<const float*>(smem), m0, n0);
+  if (a.out_cp) {
+    stage_cp<BN, float>(a, acc, reinterpret_cast<float*>(smem), m0, n0);
+    __syncthreads();
+    copy_cp<BN, float>(a, reinterpret_cast<const float*>(smem), m0, n0);
+  } else {
+    stage_pc<BN>(acc, reinterpret_cast<float*>(smem));
+    __syncthreads();
+    store_pc<BN>(a, reinterpret_cast<const float*>(smem), m0, n0);
+  }
 }
 
-template <int BN>
+template <int BN, bool B_KMAJOR>
 int launch_tf32(const WgArgs<float>& a, cudaStream_t s) {
   constexpr int bytes = Tf32Smem<BN>::BYTES;
-  auto kernel = pc_tf32_kernel<BN>;
+  auto kernel = pc_tf32_kernel<BN, B_KMAJOR>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        bytes);
   if (e != cudaSuccess) return (int)e;
@@ -581,15 +622,19 @@ extern "C" int sq_pc_wgmma(int mode, int b_kmajor, const void* X, const void* X2
 
 // f32, every operand contiguous: the 3xTF32 kernel.  K, C, K1 multiples of 4
 // and N of 8 (16-byte chunks, 32-byte epilogue rows); every pointer 16-byte
-// aligned; Wt stored (K, N).  M = images * P rows.
-extern "C" int sq_pc_tf32(int mode, const float* X, const float* X2, const float* Wt,
-                          const float* bias, const float* R, float* out, int M, int P,
-                          int K, int K1, int N, int W, int C, void* stream) {
+// aligned; b_kmajor = 1 when Wt is stored (N, K), else (K, N); out_cp = 1
+// writes out as (images, N, P).  M = images * P rows.
+extern "C" int sq_pc_tf32(int mode, int b_kmajor, const float* X, const float* X2,
+                          const float* Wt, const float* bias, const float* R, float* out,
+                          int M, int P, int K, int K1, int N, int W, int C, int out_cp,
+                          void* stream) {
   if (mode < A_PLAIN || mode > A_CONCAT || K % 4 || N % 8 || W <= 0 || P <= 0 || M % P)
     return (int)cudaErrorInvalidValue;
   if (mode == A_TAPS3 && (C <= 0 || C % 4 || K != 9 * C)) return (int)cudaErrorInvalidValue;
   if (mode == A_CONCAT && (K1 <= 0 || K1 >= K || K1 % 4)) return (int)cudaErrorInvalidValue;
-  WgArgs<float> a{X, X2, Wt, bias, R, out, mode, M, P, K, K1, N, W, C, 0};
+  WgArgs<float> a{X, X2, Wt, bias, R, out, mode, M, P, K, K1, N, W, C, out_cp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return N % 128 == 0 ? launch_tf32<128>(a, s) : launch_tf32<64>(a, s);
+  if (N % 128 == 0)
+    return b_kmajor ? launch_tf32<128, true>(a, s) : launch_tf32<128, false>(a, s);
+  return b_kmajor ? launch_tf32<64, true>(a, s) : launch_tf32<64, false>(a, s);
 }

@@ -11,17 +11,17 @@ row-padded space-to-depth input ``(B, 16, (H2+3)*W2)`` and returns
 (NHWC flattened).  The weight folding functions take the port's OIHW conv
 weights.
 
-On CUDA tensors all three run CUDA kernels (each source says what bounds
-it on the H100 and what its design does about it).  K4 runs on the tensor
-cores (``wgmma``) in both types, in the (P, C) layout of
-``csrc/conv_wgmma.cu``: bf16 operands, or in f32 3xTF32 products (each
-operand split into TF32 hi and lo in the kernel, hi.hi + hi.lo + lo.hi into
-an f32 accumulator).  In bf16 K2 runs the tensor-core stem of
-``csrc/stem_wgmma.cu`` and K3 K4's kernel after a transpose in (its last
-launch writes the (C, P) layout); in f32 K2 and K3 run the CUDA-core
-kernels of ``csrc/conv_gemm.cu``.  On CPU tensors they run the plain
-PyTorch versions beside them.  All round to the compute type where the
-Pallas kernels do: after each ReLU of y1, y2 and the block output.
+On CUDA tensors all three run CUDA kernels on the tensor cores
+(``wgmma``), in both types (each source says what bounds it on the H100 and
+what its design does about it): bf16 operands, or in f32 3xTF32 products
+(each operand split into TF32 hi and lo in the kernel, hi.hi + hi.lo +
+lo.hi into an f32 accumulator).  K4 runs the (P, C) GEMMs of
+``csrc/conv_wgmma.cu``; K3 runs K4's kernel after a transpose in (its
+(C_out, K) weights read as a K-major B, its last launch writing the (C, P)
+layout); K2 runs the stem of ``csrc/stem_wgmma.cu``.  On CPU tensors they
+run the plain PyTorch versions beside them.  All round to the compute type
+where the Pallas kernels do: after each ReLU of y1, y2 and the block
+output.
 """
 
 from __future__ import annotations
@@ -37,15 +37,16 @@ from sequoia_tpu_torch import _build
 # permuted to (O, kh, kw, I) and flattened
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
-# operand modes: conv_gemm.cu's (C, P) kernels K2/K3, then conv_wgmma.cu's
-# (P, C) kernels
-_PLAIN, _TAPS3, _STEM, _CONCAT = 0, 1, 2, 3
+# operand modes of conv_wgmma.cu's (P, C) kernels
 _PC_PLAIN, _PC_TAPS3, _PC_CONCAT = 4, 5, 6
 
 
 def _mm(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(M, K) . (B, K, P) -> (B, M, P) f32 from compute-type operands."""
-    return torch.matmul(w.float(), x.float())
+    """(M, K) . (B, K, P) -> (B, M, P) from compute-type operands, in f32 for
+    f32 and bf16 and in f64 for f64 (the reference the 3xTF32 kernels are
+    held against)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return torch.matmul(w.to(acc), x.to(acc))
 
 
 def _shifted(y: torch.Tensor, W: int, dy: int, dx: int, dim: int = -1) -> torch.Tensor:
@@ -144,17 +145,6 @@ def stage_chain_weights_cp(blocks: list[dict], start: int, dtype):
 # kernels
 # ---------------------------------------------------------------------------
 
-def _launch(mode, A, bias, X, out, *, M, K, N, W=1, X2=None, R=None, K1=0,
-            xc, xs, x2s=0, rs=0, relu=True):
-    lib = _build.library()
-    rc = lib.sq_conv_gemm(
-        1 if X.dtype == torch.bfloat16 else 0, mode, A.data_ptr(), bias.data_ptr(),
-        X.data_ptr(), None if X2 is None else X2.data_ptr(),
-        None if R is None else R.data_ptr(), out.data_ptr(), X.shape[0], M, K, K1, N,
-        W, xc, xs, x2s, rs, out.shape[1] * out.shape[2], int(relu), _build.stream_ptr(X))
-    _build.check(rc, "conv_gemm")
-
-
 def _check(name, x, *others):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: activations must be f32 or bf16, got {x.dtype}")
@@ -165,7 +155,8 @@ def _check(name, x, *others):
 
 def stem16_plain(x16, a, b, *, H2: int, W2: int) -> torch.Tensor:
     """Plain PyTorch stem16: the 16-tap stack built with rolls and masks,
-    then one (64, 256) GEMM + bias + ReLU."""
+    then one (64, 256) GEMM + bias + ReLU, accumulated as :func:`_mm` does
+    (an f64 ``x16`` with f64 weights runs in f64)."""
     P = H2 * W2
     taps = []
     for ky in range(4):
@@ -208,12 +199,16 @@ def stem16_tiles_plain(x16, a, b, *, H2: int, W2: int) -> torch.Tensor:
     return torch.relu(y + b.float().reshape(64, 1)).to(x16.dtype)
 
 
-def _stem_wgmma_check(x16, a, b, *, W2: int) -> None:
-    """Raise on what the tensor-core stem does not take: bf16 operands,
-    contiguous and 16-byte aligned, whole 16-byte chunks of a pixel row."""
+def _stem_wgmma_check(x16, a, b, *, W2: int, dtype=torch.bfloat16) -> None:
+    """Raise on what the tensor-core stems do not take: operands of
+    ``dtype`` (bf16 for ``sq_stem_wgmma``, f32 for the 3xTF32
+    ``sq_stem_tf32``), contiguous and 16-byte aligned, whole 16-byte bf16
+    chunks of a pixel row (W2 % 8 == 0, kept by the f32 stem too)."""
+    route = "tensor-core route takes bf16" if dtype == torch.bfloat16 else \
+        "3xTF32 route takes f32"
     for t in (x16, a):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"stem16: the tensor-core route takes bf16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"stem16: the {route}, got {t.dtype}")
     for t in (x16, a, b):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("stem16: the tensor-core route needs contiguous, 16-byte "
@@ -225,23 +220,17 @@ def _stem_wgmma_check(x16, a, b, *, W2: int) -> None:
 
 
 def _stem16_cuda(x16, a, b, *, H2: int, W2: int) -> torch.Tensor:
-    """One kernel launch: bf16 the tensor-core stem (``sq_stem_wgmma``), f32
-    the CUDA-core tap-gather GEMM (``sq_conv_gemm``)."""
-    B, _, P_in = x16.shape
-    P = H2 * W2
+    """One kernel launch on the tensor cores: bf16 ``sq_stem_wgmma``, f32
+    the 3xTF32 ``sq_stem_tf32``."""
+    dt = x16.dtype
+    a, b = a.to(dt).contiguous(), b.float().contiguous()
+    _stem_wgmma_check(x16, a, b, W2=W2, dtype=dt)
+    out = torch.empty((x16.shape[0], 64, H2 * W2), dtype=dt, device=x16.device)
     lib = _build.library()
-    if x16.dtype == torch.bfloat16:
-        a, b = a.to(torch.bfloat16).contiguous(), b.float().contiguous()
-        _stem_wgmma_check(x16, a, b, W2=W2)
-        out = torch.empty((B, 64, P), dtype=x16.dtype, device=x16.device)
-        rc = lib.sq_stem_wgmma(x16.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               B, H2, W2, _build.stream_ptr(x16))
-        _build.check(rc, "stem16")
-    else:
-        x16 = x16.contiguous()
-        out = torch.empty((B, 64, P), dtype=x16.dtype, device=x16.device)
-        _launch(_STEM, a.to(x16.dtype).contiguous(), b.float().contiguous(), x16, out,
-                M=64, K=256, N=P, W=W2, xc=P_in, xs=16 * P_in)
+    entry = lib.sq_stem_tf32 if dt == torch.float32 else lib.sq_stem_wgmma
+    rc = entry(x16.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), x16.shape[0],
+               H2, W2, _build.stream_ptr(x16))
+    _build.check(rc, "stem16")
     _build.count_launch("stem16")
     return out
 
@@ -251,8 +240,8 @@ def stem16(x16: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, H2: int,
     """(B, 16, (H2+3)*W2) -> (B, 64, H2*W2) stem activations (conv + BN +
     ReLU).  The 16 channels are the 12 space-to-depth channels and 4 zero
     ones; the rows carry 2 zero rows on top and 1 below.  On the card bf16
-    takes the tensor-core kernel (W2 % 8 == 0, x16 contiguous and 16-byte
-    aligned, or it raises), f32 the CUDA-core one."""
+    takes the bf16 tensor-core kernel and f32 the 3xTF32 one (W2 % 8 == 0,
+    x16 contiguous and 16-byte aligned, or it raises)."""
     B, c16, P_in = x16.shape
     if c16 != 16 or P_in != (H2 + 3) * W2 or a.shape != (64, 256):
         raise ValueError(f"stem16: bad shapes x16 {tuple(x16.shape)}, A {tuple(a.shape)}")
@@ -264,7 +253,9 @@ def stem16(x16: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, H2: int,
 
 def bottleneck_chain_cp_plain(x, flat_weights, *, meta, H: int, W: int) -> torch.Tensor:
     """Plain PyTorch chain: per block 1x1, the 9-tap stack GEMM, then the
-    (merged projection or residual) 1x1, each followed by ReLU."""
+    (merged projection or residual) 1x1, each followed by ReLU.  f32 and
+    bf16 accumulate in f32; an f64 ``x`` (with f64 weights) runs the whole
+    chain in f64, the reference the 3xTF32 kernel is held against."""
     cd = x.dtype
     for i, (_, _, _, has_ds) in enumerate(meta):
         w1, b1, w2, b2, w3, b3 = flat_weights[6 * i:6 * i + 6]
@@ -274,7 +265,8 @@ def bottleneck_chain_cp_plain(x, flat_weights, *, meta, H: int, W: int) -> torch
         if has_ds:
             y3 = _mm(w3, torch.cat([y2, x], dim=1)) + b3
         else:
-            y3 = _mm(w3, y2) + b3 + x.float()
+            y3 = _mm(w3, y2) + b3
+            y3 = y3 + x.to(y3.dtype)
         x = torch.relu(y3).to(cd)
     return x
 
@@ -282,39 +274,19 @@ def bottleneck_chain_cp_plain(x, flat_weights, *, meta, H: int, W: int) -> torch
 def bottleneck_chain_cp(x: torch.Tensor, flat_weights: tuple, *, meta: tuple,
                         H: int, W: int) -> torch.Tensor:
     """(B, Cin, H*W) -> (B, Cout, H*W) through stride-1 bottleneck blocks
-    (weights from :func:`stage_chain_weights_cp`)."""
-    B, cin, P = x.shape
+    (weights from :func:`stage_chain_weights_cp`).  On the card both types
+    run K4's tensor-core GEMMs (bf16, or f32 as 3xTF32) after one transpose
+    of ``x`` to (B, H*W, Cin): the (C_out, K) weights are read as a K-major
+    B, and the last launch writes the (C, P) layout."""
+    _, cin, P = x.shape
     if P != H * W or cin != meta[0][0]:
         raise ValueError(f"bottleneck_chain_cp: x {tuple(x.shape)} vs H={H}, W={W}, "
                          f"cin={meta[0][0]}")
     _check("bottleneck_chain_cp", x, *flat_weights)
     if not x.is_cuda:
         return bottleneck_chain_cp_plain(x, flat_weights, meta=meta, H=H, W=W)
-    if x.dtype == torch.bfloat16:  # the (C_out, K) weights are a K-major B
-        return _tc_chain(x.transpose(1, 2).contiguous(), flat_weights, meta=meta, W=W,
-                         kmajor=True, out_cp=True, counter="bottleneck_chain_cp")
-    cd = x.dtype
-    x = x.contiguous()
-    for i, (ci, width, cout, has_ds) in enumerate(meta):
-        w1, b1, w2, b2, w3, b3 = (t.contiguous() for t in flat_weights[6 * i:6 * i + 6])
-        w1, w2, w3 = w1.to(cd), w2.to(cd), w3.to(cd)
-        y1 = torch.empty((B, width, P), dtype=cd, device=x.device)
-        _launch(_PLAIN, w1, b1, x, y1, M=width, K=ci, N=P, xc=P, xs=ci * P)
-        y2 = torch.empty_like(y1)
-        _launch(_TAPS3, w2, b2, y1, y2, M=width, K=9 * width, N=P, W=W, xc=P,
-                xs=width * P)
-        out = torch.empty((B, cout, P), dtype=cd, device=x.device)
-        if has_ds:
-            _launch(_CONCAT, w3, b3, y2, out, M=cout, K=width + ci, K1=width, N=P,
-                    X2=x, xc=P, xs=width * P, x2s=ci * P)
-        else:
-            if ci != cout:
-                raise ValueError("bottleneck_chain_cp: identity block needs cin == cout")
-            _launch(_PLAIN, w3, b3, y2, out, M=cout, K=width, N=P, R=x, xc=P,
-                    xs=width * P, rs=cout * P)
-        _build.count_launch("bottleneck_chain_cp", 3)
-        x = out
-    return x
+    return _tc_chain(x.transpose(1, 2).contiguous(), flat_weights, meta=meta, W=W,
+                     kmajor=True, out_cp=True, counter="bottleneck_chain_cp")
 
 
 def bottleneck_chain_plain(x, flat_weights, *, meta, H: int, W: int) -> torch.Tensor:
@@ -369,8 +341,8 @@ def bottleneck_chain(x: torch.Tensor, flat_weights: tuple, *, meta: tuple, H: in
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core routes (csrc/conv_wgmma.cu): bf16, shared by K3 and K4, and
-# K4's 3xTF32 f32
+# the tensor-core routes (csrc/conv_wgmma.cu), shared by K3 and K4: bf16 and
+# 3xTF32 f32
 # ---------------------------------------------------------------------------
 
 def _wg_check(mode, X, Wop, bias, *, K, N, C=0, K1=0, X2=None, R=None) -> None:
@@ -434,10 +406,11 @@ def _wg_gemm(mode, X, Wop, bias, *, K, N, kmajor, counter, W=1, C=0, X2=None, R=
     return out
 
 
-def _tf32_check(mode, X, Wop, bias, *, K, N, C=0, K1=0, X2=None, R=None) -> None:
+def _tf32_check(mode, X, Wop, bias, *, K, N, kmajor=False, C=0, K1=0, X2=None,
+                R=None) -> None:
     """Raise on what the 3xTF32 kernel does not take: f32 in 16-byte chunks
     of 4 channels (the epilogue's rows in 8) from contiguous, 16-byte
-    aligned tensors, the weights stored (K, N)."""
+    aligned tensors, the weights stored (K, N), or (N, K) when ``kmajor``."""
     ops = [t for t in (X, Wop, X2, R) if t is not None]
     for t in ops:
         if t.dtype != torch.float32:
@@ -455,27 +428,29 @@ def _tf32_check(mode, X, Wop, bias, *, K, N, C=0, K1=0, X2=None, R=None) -> None
     if mode == _PC_CONCAT and (K1 % 4 or not 0 < K1 < K):
         raise ValueError(f"pc_tf32: the concat split K1={K1} must be a multiple of 4 "
                          f"inside K={K}")
-    if Wop.shape != (K, N):
-        raise ValueError(f"pc_tf32: weights must be stored (K, N) = ({K}, {N}), got "
-                         f"{tuple(Wop.shape)}")
+    want = (N, K) if kmajor else (K, N)
+    if Wop.shape != want:
+        raise ValueError(f"pc_tf32: weights must be stored {'(N, K)' if kmajor else '(K, N)'}"
+                         f" = {want}, got {tuple(Wop.shape)}")
     if bias.numel() != N or bias.dtype != torch.float32:
         raise ValueError(f"pc_tf32: bias must be {N} f32 values")
 
 
-def _tf32_gemm(mode, X, Wop, bias, *, K, N, counter, W=1, C=0, X2=None, R=None,
-               K1=0) -> torch.Tensor:
+def _tf32_gemm(mode, X, Wop, bias, *, K, N, counter, kmajor=False, W=1, C=0, X2=None,
+               R=None, K1=0, out_cp=False) -> torch.Tensor:
     """One f32 GEMM per image on the tensor cores as 3xTF32: (B, P, N) =
-    relu(Aop(X[b]) . Wop + bias [+ R[b]]), Wop stored (K, N)."""
-    _tf32_check(mode, X, Wop, bias, K=K, N=N, C=C, K1=K1, X2=X2, R=R)
+    relu(Aop(X[b]) . B + bias [+ R[b]]), B = ``Wop`` stored (K, N), or (N, K)
+    when ``kmajor``; ``out_cp`` returns it as (B, N, P)."""
+    _tf32_check(mode, X, Wop, bias, K=K, N=N, kmajor=kmajor, C=C, K1=K1, X2=X2, R=R)
     if not X.is_cuda:
-        return _wg_gemm_plain(mode, X, Wop, bias, K=K, N=N, kmajor=False, W=W, C=C,
-                              X2=X2, R=R, K1=K1)
+        return _wg_gemm_plain(mode, X, Wop, bias, K=K, N=N, kmajor=kmajor, W=W, C=C,
+                              X2=X2, R=R, K1=K1, out_cp=out_cp)
     B, P = X.shape[0], X.shape[1]
-    out = torch.empty((B, P, N), dtype=X.dtype, device=X.device)
+    out = torch.empty((B, N, P) if out_cp else (B, P, N), dtype=X.dtype, device=X.device)
     rc = _build.library().sq_pc_tf32(
-        mode, X.data_ptr(), None if X2 is None else X2.data_ptr(), Wop.data_ptr(),
-        bias.data_ptr(), None if R is None else R.data_ptr(), out.data_ptr(), B * P, P, K,
-        K1, N, W, C, _build.stream_ptr(X))
+        mode, int(kmajor), X.data_ptr(), None if X2 is None else X2.data_ptr(),
+        Wop.data_ptr(), bias.data_ptr(), None if R is None else R.data_ptr(),
+        out.data_ptr(), B * P, P, K, K1, N, W, C, int(out_cp), _build.stream_ptr(X))
     _build.check(rc, "pc_tf32")
     _build.count_launch(counter)
     return out
@@ -485,23 +460,17 @@ def _tc_chain(x, flat_weights, *, meta, W: int, kmajor: bool, counter: str,
               out_cp: bool = False):
     """The chain in the (P, C) layout, three tensor-core launches per block:
     (B, H*W, Cin) -> (B, H*W, Cout), or (B, Cout, H*W) with ``out_cp`` (the
-    last launch writes K3's layout).  bf16 ``x`` runs the bf16 kernel, where
-    ``kmajor`` says the weights are K3's (C_out, K) orientation instead of
-    K4's (K, C_out), both read as they are; f32 ``x`` runs the 3xTF32 kernel
-    on K4's (K, C_out) weights (no ``kmajor``, no ``out_cp``)."""
+    last launch writes K3's layout).  bf16 ``x`` runs the bf16 kernel, f32
+    ``x`` the 3xTF32 one; ``kmajor`` says the weights are K3's (C_out, K)
+    orientation instead of K4's (K, C_out), both read as they are."""
     cd = x.dtype
-    if cd == torch.bfloat16:
-        gemm = functools.partial(_wg_gemm, kmajor=kmajor, counter=counter)
-    elif kmajor or out_cp:
-        raise ValueError("bottleneck_chain: the f32 route takes K4's (K, C_out) weights "
-                         "and writes the (P, C) layout")
-    else:
-        gemm = functools.partial(_tf32_gemm, counter=counter)
+    gemm = functools.partial(_wg_gemm if cd == torch.bfloat16 else _tf32_gemm,
+                             kmajor=kmajor, counter=counter)
     for i, (ci, width, cout, has_ds) in enumerate(meta):
         w1, b1, w2, b2, w3, b3 = (t.contiguous() for t in flat_weights[6 * i:6 * i + 6])
         w1, w2, w3 = w1.to(cd), w2.to(cd), w3.to(cd)
         b1, b2, b3 = b1.float(), b2.float(), b3.float()
-        kw = {"out_cp": out_cp and i == len(meta) - 1} if cd == torch.bfloat16 else {}
+        kw = {"out_cp": out_cp and i == len(meta) - 1}
         y1 = gemm(_PC_PLAIN, x, w1, b1, K=ci, N=width)
         y2 = gemm(_PC_TAPS3, y1, w2, b2, K=9 * width, N=width, W=W, C=width)
         if has_ds:

@@ -1,4 +1,4 @@
-"""The bf16 tensor-core route of K2 (ops/cuda_resnet.py ``stem16``,
+"""The tensor-core routes of K2 (ops/cuda_resnet.py ``stem16``,
 csrc/stem_wgmma.cu) on the CPU: the wrapper's routing and checks against a
 stand-in for the kernel library, and the plain version of the kernel's tile
 walk against the JAX Pallas stem in interpret mode and the port's plain
@@ -85,7 +85,7 @@ def test_tiles_plain_needs_whole_chunks(weights):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "sq_stem_wgmma"),
-                                         (torch.float32, "sq_conv_gemm")], ids=["bf16", "f32"])
+                                         (torch.float32, "sq_stem_tf32")], ids=["bf16", "f32"])
 def test_cuda_route_picks_the_kernel(fake_lib, weights, dtype, entry):  # noqa: F811
     _, tp = weights
     ta, tbias = tpr.fold_stem16_weights(tp["conv1_s2d"], tp["bn1"], dtype)
@@ -94,10 +94,7 @@ def test_cuda_route_picks_the_kernel(fake_lib, weights, dtype, entry):  # noqa: 
     assert out.shape == (2, 64, 240) and out.dtype == dtype
     [(name, args)] = fake_lib.calls
     assert name == entry and len(args) == len(_build._SIGNATURES[entry])
-    if entry == "sq_stem_wgmma":
-        assert args[4:7] == (2, 10, 24)  # B, H2, W2
-    else:  # dtype 0 (f32), mode B_STEM
-        assert args[:2] == (0, tpr._STEM)
+    assert args[4:7] == (2, 10, 24)  # B, H2, W2
     assert _build.LAUNCHES["stem16"] == 1
 
 

@@ -263,13 +263,25 @@ def test_tf32_gemm_cpu_route_is_the_plain_launch(mode):
 
 
 def test_f32_chain_refuses_k3_layouts():
+    """The f32 route takes K3's layouts since K3 runs on it: (C_out, K)
+    weights with ``kmajor`` and the (C, P) output with ``out_cp``.  It still
+    refuses weights whose orientation is not the one ``kmajor`` names."""
     x, flat, meta = _chain(torch.float32)  # (1, 64, 2048): layer4's (P, C) map
-    for kw in (dict(kmajor=True), dict(kmajor=False, out_cp=True)):
-        with pytest.raises(ValueError, match="f32 route"):
-            tpr._tc_chain(x, flat, meta=meta, W=8, counter="bottleneck_chain", **kw)
+    with pytest.raises(ValueError, match=r"\(N, K\)"):  # K4's weights read as K3's
+        tpr._tc_chain(x, flat, meta=meta, W=8, kmajor=True, counter="bottleneck_chain")
     got = tpr._tc_chain(x, flat, meta=meta, W=8, kmajor=False, counter="bottleneck_chain")
     torch.testing.assert_close(got, tpr.bottleneck_chain_plain(x, flat, meta=meta, H=8, W=8),
                                rtol=1e-6, atol=1e-6)
+    from sequoia_tpu_torch.models import resnet
+
+    params = resnet.random_params(torch.Generator().manual_seed(0))
+    cflat, cmeta = tpr.stage_chain_weights_cp(params["layer4"], 1, torch.float32)
+    cp = tpr._tc_chain(x, cflat, meta=cmeta, W=8, kmajor=True, out_cp=True,
+                       counter="bottleneck_chain_cp")
+    want = tpr.bottleneck_chain_cp_plain(x.transpose(1, 2).contiguous(), cflat, meta=cmeta,
+                                         H=8, W=8)
+    assert cp.shape == want.shape == (1, 2048, 64)
+    torch.testing.assert_close(cp, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 class _FakeLib:
@@ -306,11 +318,14 @@ def test_vis_f32_route_checks_and_calls_the_tf32_entry(monkeypatch):
 
 
 def test_every_c_entry_is_bound():
-    """The f32 K4 entry is bound and the FMA (P, C) entry is gone."""
+    """The f32 tensor-core entries are bound and every FMA kernel is gone."""
     assert "sq_pc_tf32" in _build._SIGNATURES and "sq_pc_gemm" not in _build._SIGNATURES
+    assert "sq_stem_tf32" in _build._SIGNATURES and "sq_conv_gemm" not in _build._SIGNATURES
     assert not (_build.CSRC / "vis_blocks.cu").exists()
+    assert not (_build.CSRC / "conv_gemm.cu").exists()
     text = (_build.CSRC / "conv_wgmma.cu").read_text()
     assert 'extern "C" int sq_pc_tf32(' in text
+    assert 'extern "C" int sq_stem_tf32(' in (_build.CSRC / "stem_wgmma.cu").read_text()
     assert 'extern "C" int sq_vis_blocks(' in (_build.CSRC / "vis_wgmma.cu").read_text()
 
 
