@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only stages_path   # phases 1-2 and 10
     python3 chip_smoke.py --only parallel_path # phases 1-2 and 11
     python3 chip_smoke.py --only raw_planes_path   # phases 1-2 and 12
+    python3 chip_smoke.py --only tools_path    # phases 1-2 and 13
 
 Phases, each printing one JSON line:
 
@@ -236,10 +237,34 @@ Phases, each printing one JSON line:
    slide whose raw read fails on one tile is served in ``'rgb'`` and equals
    it), a ``raw_assemble`` line (one mosaic chunk's tile rebuild and one
    batch's gather, bit-equal to the CPU, with their ms) and
-   ``raw_planes_launches`` with ``phase_seconds``.
+   ``raw_planes_launches`` with ``phase_seconds``;
+13. the tool layer (``tools_*`` lines; ``sequoia_tpu_torch/tools``), each
+   tool's JSON on its own line: ``tools_profile_backbone``, the per-stage
+   profile of the ResNet-50 extractor at batch 128 in bf16 and f32 under four
+   settings (plain; ``early_pallas``, K2 + K3; ``early_pallas`` with
+   ``cp_stages=(2, 3, 4)``, K3; ``fused_stages=(1, 2, 3, 4)``, K4): stage ms
+   (CUDA events inside one forward) against each stage's bound, the whole
+   forward and patches/s, the chain-weight fold alone, launches per forward,
+   device ms by class and the idle share from a trace; each setting's
+   features held against the plain setting's at ``STAGE_FEAT_TOL`` and its
+   stage rows within ``STAGE_SUM_TOL`` of the forward;
+   ``tools_profile_train_step``, the ViS and HE2RNA train steps' pieces at
+   the production shape against their floors; ``tools_validate_real_weights``,
+   ``validate_real_weights`` over a hub fabricated from seeds in a temporary
+   directory (a full-width ViS fold in the HF layout through K1, the ViT and
+   HE2RNA fixtures, torchvision's ``resnet50.pth`` through K2 + K3 and K4,
+   UNI's ``pytorch_model.bin`` at ViT-L width and depth 2; the ResNet's BN
+   statistics calibrated on a seeded batch, as trained weights are), every
+   row within its bound of the float64 oracle; ``tools_uncalibrated_resnet50``,
+   the ResNet routes on the JAX tests' uncalibrated state dict (features in
+   the thousands), each within the kernels' f32 tolerance of the largest
+   feature; ``tools_host``, ``make_example_data
+   --wsis`` (its TIFFs read back equal to their levels) and ``parity_check``
+   on a pair of pickles that passes and one that fails;
+   ``tools_launches`` (K1-K4 must rise) with ``phase_seconds``.
 
 The last lines are the kernels table (``launches`` sums the counts of the
-kernel runs of phases 4-7 and 9-12, each read from 0), the script's run time, the
+kernel runs of phases 4-7 and 9-13, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -4451,6 +4476,302 @@ def raw_planes_path(torch, dev, rparams=None, folds=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the tool layer (sequoia_tpu_torch/tools) on the card
+# ---------------------------------------------------------------------------
+
+# the settings profile_backbone times (ResNetConfig options), each held
+# against the plain setting's features at STAGE_FEAT_TOL; the stage rows must
+# sum to within STAGE_SUM_TOL of the whole forward
+TOOL_SETTINGS = (("plain", {}), ("early_pallas", {"early_pallas": True}),
+                 ("early_pallas+cp", {"early_pallas": True, "cp": (2, 3, 4)}),
+                 ("fused", {"fused": (1, 2, 3, 4)}))
+TOOL_ITERS, STAGE_SUM_TOL = 10, 0.15
+# the fabricated hub's UNI: ViT-L/16 width (1024, 16 heads, MLP 4096, 224 px),
+# depth cut from 24 to 2 (the oracle runs in float64)
+TOOL_UNI_DEPTH = 2
+
+
+def tools_backbone(torch, dev) -> list:
+    """``profile_backbone`` at batch 128 in bf16 and f32 under each of
+    TOOL_SETTINGS, its features against the plain setting's."""
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.tools import profile_backbone as pb
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    params = resnet.random_params(g)
+    u8 = torch.randint(0, 256, (FEAT_BATCH, PATCH, PATCH, 3), generator=g, device=dev,
+                       dtype=torch.uint8)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        plain = None
+        for name, opts in TOOL_SETTINGS:
+            t0 = time.perf_counter()
+            cfg = pb.make_config(dtype, **opts)
+            feats = resnet.extract_from_uint8(cfg, params, u8)
+            plain = feats if plain is None else plain
+            rel = float((feats - plain).abs().max() / plain.abs().max())
+            res = pb.profile(cfg, params, u8, TOOL_ITERS, dev)
+            row = {"dtype": dtype, "setting": name, "batch": FEAT_BATCH,
+                   "features_max_rel_diff_vs_plain": rel, "features_tol": STAGE_FEAT_TOL[dtype],
+                   **res, "seconds": time.perf_counter() - t0}
+            emit({"phase": "tools_profile_backbone", **row})
+            if not bool(torch.isfinite(feats).all()) or rel > STAGE_FEAT_TOL[dtype]:
+                raise AssertionError(f"profile_backbone {dtype} {name}: features {rel:.3g} "
+                                     f"from plain > {STAGE_FEAT_TOL[dtype]:g}")
+            if abs(res["stages_sum_over_forward"] - 1) > STAGE_SUM_TOL:
+                raise AssertionError(f"profile_backbone {dtype} {name}: stage rows sum to "
+                                     f"{res['stages_sum_ms']:.3f} ms of a "
+                                     f"{res['forward_ms']:.3f} ms forward")
+            rows.append(row)
+            del feats
+    return rows
+
+
+def tools_train_step(torch, dev) -> dict:
+    """``profile_train_step`` at the production shape (B 16, T 100, D 2048,
+    G 20,820), every value finite."""
+    from sequoia_tpu_torch.tools import profile_train_step as pts
+
+    t0 = time.perf_counter()
+    res = {"vis": pts.profile_vis(device=dev)}
+    torch.cuda.empty_cache()
+    res["he2rna"] = pts.profile_he2rna(device=dev)
+    torch.cuda.empty_cache()
+    flat = [v for part in res.values() for v in part.values() if not isinstance(v, dict)]
+    flat += [v for part in res.values() for d in part.values() if isinstance(d, dict)
+             for v in d.values()]
+    if not all(isinstance(v, (int, float)) and v == v and abs(v) != float("inf") for v in flat):
+        raise AssertionError(f"profile_train_step: a value is not finite: {res}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def calibrated_resnet50_sd(torch, dev, seed: int) -> dict:
+    """``goldens.resnet50_sd`` (f32, on the CPU) with every BN's running mean
+    and variance set to the statistics of its input over a seeded batch of
+    16 patches, as a trained network's are: the activations keep their scale
+    through the 16 blocks (features of order 1, as torchvision's), where the
+    uncalibrated state dict grows them to thousands (``tools_uncalibrated``)."""
+    import torch.nn.functional as F
+
+    from sequoia_tpu_torch.models import resnet
+    from sequoia_tpu_torch.tools import goldens
+
+    sd = {k: v.to(dev) for k, v in goldens.resnet50_sd(torch.Generator().manual_seed(seed))
+          .items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u8 = torch.randint(0, 256, (16, PATCH, PATCH, 3), generator=g, device=dev,
+                       dtype=torch.uint8)
+
+    def conv_bn(x, conv, bn, **kw):
+        y = F.conv2d(x, sd[conv + ".weight"], **kw)
+        sd[bn + ".running_mean"] = y.mean((0, 2, 3))
+        sd[bn + ".running_var"] = y.var((0, 2, 3), unbiased=False)
+        return F.batch_norm(y, sd[bn + ".running_mean"], sd[bn + ".running_var"],
+                            sd[bn + ".weight"], sd[bn + ".bias"], training=False, eps=1e-5)
+
+    x = resnet.preprocess_uint8(u8).double().permute(0, 3, 1, 2)
+    x = F.max_pool2d(F.relu(conv_bn(x, "conv1", "bn1", stride=2, padding=3)), 3, 2, 1)
+    for s, nblocks in enumerate(goldens.RESNET_BLOCKS):
+        for b in range(nblocks):
+            pre, stride = f"layer{s + 1}.{b}.", 2 if (b == 0 and s > 0) else 1
+            y = F.relu(conv_bn(x, pre + "conv1", pre + "bn1"))
+            y = F.relu(conv_bn(y, pre + "conv2", pre + "bn2", stride=stride, padding=1))
+            y = conv_bn(y, pre + "conv3", pre + "bn3")
+            if pre + "downsample.0.weight" in sd:
+                x = conv_bn(x, pre + "downsample.0", pre + "downsample.1", stride=stride)
+            x = F.relu(y + x)
+    return {k: v.float().cpu() for k, v in sd.items()}
+
+
+def tools_uncalibrated(torch, dev) -> dict:
+    """The ResNet-50 routes of ``validate_real_weights`` on the JAX tests'
+    uncalibrated ``resnet50_sd`` (its features grow to thousands): each
+    route's largest |delta| to the float64 oracle relative to the oracle's
+    largest feature, held to the kernels' f32 tolerance against their plain
+    versions (``TOL``); the JAX tool's absolute bound of 1e-2 is a relative
+    2e-6 there, tighter than f32 rounding carried through 16 blocks."""
+    import numpy as np
+
+    from sequoia_tpu_torch.tools import goldens
+    from sequoia_tpu_torch.tools import validate_real_weights as vrw
+
+    sd = {k: v.float().numpy() for k, v in goldens.resnet50_sd(
+        torch.Generator().manual_seed(133)).items()}
+    u8 = np.random.default_rng(0).integers(0, 256, (2, PATCH, PATCH, 3), dtype=np.uint8)
+    outs, _ = vrw.resnet50_forwards(sd, u8, dev)
+    oracle = outs.pop("oracle")
+    scale = float(np.abs(oracle).max())
+    tol = TOL["bottleneck_chain"]["float32"]
+    rows = {route: {"max_abs": float(np.abs(y - oracle).max()),
+                    "max_abs_over_max_feature": float(np.abs(y - oracle).max()) / scale,
+                    "passes_jax_bound": float(np.abs(y - oracle).max()) <= vrw.MAX_ABS}
+            for route, y in outs.items()}
+    if any(r["max_abs_over_max_feature"] > tol for r in rows.values()):
+        raise AssertionError(f"uncalibrated resnet50: a route past {tol:g} of the largest "
+                             f"feature: {rows}")
+    return {"oracle_max_feature": scale, "tol": tol, "rows": rows}
+
+
+def tools_hub(torch, dev, root: str) -> float:
+    """A local hub of seeded random weights in the released layouts: a ViS
+    fold at full width in the HF layout (config.json + pytorch_model.bin),
+    the ViT (dim and MLP 2048, depth SERVE_VIT_DEPTH) and HE2RNA (2048 -> 256
+    -> 256 -> 20,820) fixtures, torchvision's resnet50.pth (BN statistics
+    calibrated: :func:`calibrated_resnet50_sd`) and UNI's
+    uni/pytorch_model.bin (depth TOOL_UNI_DEPTH); returns its seconds."""
+    from sequoia_tpu_torch.models import convert, he2rna, vis
+    from sequoia_tpu_torch.tools import goldens
+    from sequoia_tpu_torch.train import checkpoint, cv
+
+    t0 = time.perf_counter()
+    vcfg = vis.ViSConfig(num_outputs=GENES, input_dim=D, depth=6, nheads=16, dim_f=64,
+                         dim_s=64, dim_c=64, num_clusters=K)
+    fold = os.path.join(root, "sequoia-syn-0")
+    checkpoint.save_torch_state_dict(
+        convert.vis_to_torch(vcfg, vis.init(vcfg, torch.Generator(device=dev).manual_seed(130))),
+        os.path.join(fold, "pytorch_model.bin"))
+    with open(os.path.join(fold, "config.json"), "w") as f:
+        json.dump({"num_outputs": GENES, "input_dim": D}, f)
+    cfg, params, _, to_torch, _ = cv.build_model(
+        "vit", GENES, D, torch.Generator(device=dev).manual_seed(131), depth=SERVE_VIT_DEPTH,
+        num_clusters=K)
+    checkpoint.save_torch_state_dict(to_torch(cfg, params), os.path.join(root, "vit-test.pt"))
+    hcfg = he2rna.HE2RNAConfig(input_dim=D, output_dim=GENES, layers=HE_LAYERS,
+                               ks=he2rna.ks_for_tokens(K))
+    checkpoint.save_torch_state_dict(
+        convert.he2rna_to_torch(hcfg, he2rna.init(hcfg, torch.Generator(device=dev)
+                                                  .manual_seed(132))),
+        os.path.join(root, "he2rna-test.pt"))
+    torch.save(calibrated_resnet50_sd(torch, dev, 133), os.path.join(root, "resnet50.pth"))
+    os.makedirs(os.path.join(root, "uni"))
+    torch.save({k: v.float() for k, v in goldens.uni_sd(
+        torch.Generator().manual_seed(134), img=224, patch=16, dim=UNI_DIM,
+        depth=TOOL_UNI_DEPTH, heads=16, mlp=4 * UNI_DIM).items()},
+        os.path.join(root, "uni", "pytorch_model.bin"))
+    return time.perf_counter() - t0
+
+
+def tools_validate(torch, dev, root: str) -> dict:
+    """``validate_real_weights`` on the card over the hub of :func:`tools_hub`
+    (the ViS fold through K1, the ResNet-50 extractor through K2 + K3 and
+    through K4, every artifact's plain forward, each against the float64
+    oracle); any row out of the bound, or an exit code other than 0, fails."""
+    import io
+
+    from sequoia_tpu_torch.tools import validate_real_weights as vrw
+
+    hub = os.path.join(root, "hub")
+    seconds = tools_hub(torch, dev, hub)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = vrw.main(["--cancers", "syn", "--folds", "0", "--local-hub", hub,
+                       "--notes", os.path.join(root, "PARITY_NOTES_TORCH.md")])
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    want = {"gevaertlab/sequoia-syn-0 [plain]", "gevaertlab/sequoia-syn-0 [K1 vis_blocks_fused]",
+            "torchvision/resnet50-IMAGENET1K_V1 [plain]",
+            "torchvision/resnet50-IMAGENET1K_V1 [K2+K3 early_pallas]",
+            "torchvision/resnet50-IMAGENET1K_V1 [K4 fused_stages]", "MahmoodLab/UNI [plain]",
+            "local/vit-test.pt [plain]", "local/he2rna-test.pt [plain]"}
+    bad = {k: r for k, r in res["rows"].items() if not r["pass"]}
+    if rc != 0 or bad or set(res["rows"]) != want or res["pending"]:
+        raise AssertionError(f"validate_real_weights: rc {rc}, failing rows {bad}, rows "
+                             f"{sorted(res['rows'])}, pending {res['pending']}")
+    return {**res, "hub_seconds": seconds, "seconds": time.perf_counter() - t0}
+
+
+def tools_host(torch, root: str) -> dict:
+    """``make_example_data --wsis`` (no feature store: no h5py here), its
+    TIFFs read back, and ``parity_check`` on a pair of pickles that passes and
+    one that fails."""
+    import io
+    import pickle
+
+    import numpy as np
+
+    from sequoia_tpu_torch import native
+    from sequoia_tpu_torch.tools import make_example_data as med
+    from sequoia_tpu_torch.tools import parity_check
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "examples")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        med.main(["--out", out, "--n_slides", "2", "--n_genes", "50", "--wsis"])
+    tiffs = sorted(os.listdir(os.path.join(out, "HE")))
+    from PIL import Image
+
+    for i, name in enumerate(tiffs):
+        with Image.open(os.path.join(out, "HE", name)) as im:
+            levels = []
+            for j in range(im.n_frames):
+                im.seek(j)
+                levels.append(np.asarray(im.convert("RGB")))
+        want = med.synthetic_levels(seed=i)
+        if len(levels) != 2 or not all(np.array_equal(a, b) for a, b in zip(levels, want)):
+            raise AssertionError(f"make_example_data: {name} differs from its levels")
+    example = {"files": sorted(os.listdir(out)), "tiffs": tiffs,
+               "writer": "native" if native.available() else "Pillow",
+               "report": buf.getvalue().strip(), "seconds": time.perf_counter() - t0}
+    if len(tiffs) != 2 or not {"ref_file.csv", "gene_list.csv"} <= set(example["files"]):
+        raise AssertionError(f"make_example_data: wrote {example}")
+
+    rng = np.random.default_rng(13)
+    genes = [f"G{i}" for i in range(GENES)]
+    real = rng.normal(size=(40, GENES)).astype(np.float32)
+    pred = real + rng.normal(size=real.shape).astype(np.float32)
+    wsis = np.asarray([f"w{i:03d}" for i in range(40)])
+    for name, p, order in (("ref", pred, np.arange(40)),
+                           ("same", pred, rng.permutation(40)),
+                           ("bad", pred + 2 * rng.normal(size=pred.shape).astype(np.float32),
+                            np.arange(40))):
+        halves = np.array_split(order, 2)
+        res = {"genes": genes, **{f"split_{i}": {"real": real[h], "preds": p[h],
+                                                 "wsi_file_name": wsis[h]}
+                                  for i, h in enumerate(halves)}}
+        with open(os.path.join(root, f"{name}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    parity = {}
+    for name, want_rc in (("same", 0), ("bad", 1)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = parity_check.main(["--ref", os.path.join(root, "ref.pkl"),
+                                    "--ours", os.path.join(root, f"{name}.pkl")])
+        parity[name] = {"rc": rc, "report": buf.getvalue().strip().splitlines()}
+        if rc != want_rc:
+            raise AssertionError(f"parity_check {name}: rc {rc}, not {want_rc}")
+    return {"make_example_data": example, "parity_check": parity}
+
+
+def tools_path(torch, dev) -> dict:
+    """Phase 13; returns the kernels' launch counts of the tools' runs."""
+    import shutil
+    import tempfile
+
+    from sequoia_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    tools_backbone(torch, dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "tools_profile_train_step", **tools_train_step(torch, dev)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        emit({"phase": "tools_validate_real_weights", **tools_validate(torch, dev, tmp)})
+        emit({"phase": "tools_uncalibrated_resnet50", **tools_uncalibrated(torch, dev)})
+        torch.cuda.empty_cache()
+        emit({"phase": "tools_host", **tools_host(torch, tmp)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(_build.LAUNCHES)
+    check_launched(launches, ("stem16", "bottleneck_chain_cp", "bottleneck_chain",
+                              "vis_blocks_fused"), "tools path")
+    emit({"phase": "tools_launches", **launches, "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -4475,7 +4796,8 @@ def main() -> int:
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
                     "for these alone) and/or uni_path (phase 7), train_path (phase 8), "
                     "aggregators_path (phase 9), stages_path (phase 10), parallel_path "
-                    "(phase 11), raw_planes_path (phase 12); prints no result line")
+                    "(phase 11), raw_planes_path (phase 12), tools_path (phase 13); prints "
+                    "no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -4507,7 +4829,7 @@ def main() -> int:
               ("vis_blocks_fused", check_vis))
     known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
                                       "aggregators_path", "stages_path", "parallel_path",
-                                      "raw_planes_path"]
+                                      "raw_planes_path", "tools_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -4549,6 +4871,8 @@ def main() -> int:
             parallel_path(torch, dev)
         if "raw_planes_path" in only:
             raw_planes_path(torch, dev)
+        if "tools_path" in only:
+            tools_path(torch, dev)
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_weight_fold", "dtype": "bfloat16", "per": "extractor batch",
@@ -4581,8 +4905,10 @@ def main() -> int:
     stages = stages_path(torch, dev, kept, keep.pop("test_results"))
     torch.cuda.empty_cache()
     par = parallel_path(torch, dev)
+    torch.cuda.empty_cache()
+    tools = tools_path(torch, dev)
     launches = {k: main[k] + main32[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k]
-                + stages[k] + par[k] for k in results}
+                + stages[k] + par[k] + tools[k] for k in results}
 
     rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"]} for dt, r in by_dtype.items()}
     emit({"phase": "slide_cost", "per": "slide",

@@ -20,7 +20,10 @@ and every block outside those stages run as ``F.conv2d``, with TF32 off
 ``fused_stages`` the backbone runs in ``torch.channels_last``, so K4's
 ``(B, H*W, C)`` view of a stage is a view, not a transpose; a stage of
 ``cp_stages`` or ``early_pallas`` wants NCHW and pays one copy where the two
-layouts meet.
+layouts meet.  :func:`forward_stages` is the forward one stage at a time
+(``forward_extract`` runs it; ``tools/profile_backbone.py`` times each
+stage), and the chain-weight folds are named on a ``torch.profiler`` trace
+by :data:`FOLD_SPAN`.
 
 Also here: basic blocks (resnet18/34), ``config_for_depth``, the 4- and
 1-channel variants (reference ``RNfour``/``RNone``, ``pool_stride=1``) and
@@ -31,11 +34,12 @@ the ``ResNetProject`` head (``sequoia_tpu/models/resnet.py:104-148,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from sequoia_tpu_torch.ops import cuda_resnet
 from sequoia_tpu_torch.ops.nn import compute_dtype as _dtype
@@ -48,6 +52,9 @@ BLOCKS_PER_STAGE = (3, 4, 6, 3)  # resnet50
 STAGE_WIDTH = (64, 128, 256, 512)
 EXPANSION = 4
 BN_EPS = 1e-5
+#: the range that names the chain-weight fold and cast (done on every
+#: forward) on a ``torch.profiler`` trace
+FOLD_SPAN = "resnet.chain_weight_fold"
 
 Params = dict[str, Any]
 
@@ -159,18 +166,25 @@ def _early_pallas(params: Params, x: torch.Tensor) -> torch.Tensor:
     # s2d channels (di, dj, c), padded to 16 channels, 2 zero rows on top and
     # 1 below, so the kernel's four dy taps are whole-row offsets
     x16 = F.pad(_space_to_depth(x), (0, 0, 2, 1, 0, 4))
-    a, bias = cuda_resnet.fold_stem16_weights(params["conv1_s2d"], params["bn1"], x.dtype)
+    with record_function(FOLD_SPAN):
+        a, bias = cuda_resnet.fold_stem16_weights(params["conv1_s2d"], params["bn1"], x.dtype)
     y = cuda_resnet.stem16(x16.reshape(b, 16, (h2 + 3) * w2), a, bias, H2=h2, W2=w2)
     y = F.max_pool2d(y.reshape(b, 64, h2, w2), 3, 2, 1)  # torch maxpool, NCHW
     hp, wp = y.shape[2], y.shape[3]
-    flat, meta = cuda_resnet.stage_chain_weights_cp(params["layer1"], 0, y.dtype)
+    with record_function(FOLD_SPAN):
+        flat, meta = cuda_resnet.stage_chain_weights_cp(params["layer1"], 0, y.dtype)
     out = cuda_resnet.bottleneck_chain_cp(y.reshape(b, 64, hp * wp), flat, meta=meta,
                                           H=hp, W=wp)
     return out.reshape(b, meta[-1][2], hp, wp)
 
 
-def forward_extract(cfg: ResNetConfig, params: Params, images: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) normalized float -> (B, feature_dim_for(H, W)) f32."""
+def forward_stages(cfg: ResNetConfig, params: Params,
+                   images: torch.Tensor) -> Iterator[tuple[str, torch.Tensor]]:
+    """:func:`forward_extract` one stage at a time: yields ``(name,
+    activation)`` after the stem (conv + BN + ReLU, NCHW), the max pool, each
+    of ``layer1``-``layer4`` and the pooled ``mean`` (the features).  Under
+    ``early_pallas`` the stem, pool and layer1 are one step,
+    ``"stem+pool+layer1"`` (K2, the max pool, K3)."""
     x = images.to(_dtype(cfg.compute_dtype))
     layout = torch.channels_last if cfg.fused_stages else torch.contiguous_format
     start_stage = 0
@@ -178,12 +192,16 @@ def forward_extract(cfg: ResNetConfig, params: Params, images: torch.Tensor) -> 
             and "conv1_s2d" in params and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0):
         x = _early_pallas(params, x)
         start_stage = 1
+        yield "stem+pool+layer1", x
     else:
         if "conv1_s2d" in params and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
             x = stem_space_to_depth(x, params["conv1_s2d"]).permute(0, 3, 1, 2)
         else:
             x = _conv(x.permute(0, 3, 1, 2), params["conv1"], stride=2)
-        x = F.max_pool2d(torch.relu(_bn(x, params["bn1"])), 3, 2, 1)
+        x = torch.relu(_bn(x, params["bn1"]))
+        yield "stem", x
+        x = F.max_pool2d(x, 3, 2, 1)
+        yield "pool", x
     x = x.contiguous(memory_format=layout)
     block_fn = _bottleneck if cfg.block == "bottleneck" else _basic_block
     for s in range(start_stage, len(cfg.blocks_per_stage)):
@@ -200,11 +218,20 @@ def forward_extract(cfg: ResNetConfig, params: Params, images: torch.Tensor) -> 
         else:
             for blk in blocks[start:]:
                 x = block_fn(x, blk, 1)
+        yield f"layer{s + 1}", x
     x = x.float()
     if x.shape[2] >= 7 and x.shape[3] >= 7:
         # AvgPool2d(7) with fixed windows, flattened channel-major
-        return F.avg_pool2d(x, 7, stride=cfg.pool_stride).reshape(x.shape[0], -1)
-    return x.mean((2, 3))  # maps below 7x7: global mean (small test inputs)
+        yield "mean", F.avg_pool2d(x, 7, stride=cfg.pool_stride).reshape(x.shape[0], -1)
+    else:
+        yield "mean", x.mean((2, 3))  # maps below 7x7: global mean (small test inputs)
+
+
+def forward_extract(cfg: ResNetConfig, params: Params, images: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) normalized float -> (B, feature_dim_for(H, W)) f32."""
+    for _, x in forward_stages(cfg, params, images):
+        pass
+    return x
 
 
 def _fused_chain(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
@@ -212,7 +239,8 @@ def _fused_chain(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
     The JAX row-chunk rule is kept: whole rows, at most 512 pixels for bf16
     and 256 for f32."""
     b, c, h, w = x.shape
-    flat, meta = cuda_resnet.stage_chain_weights(blocks, start, x.dtype)
+    with record_function(FOLD_SPAN):
+        flat, meta = cuda_resnet.stage_chain_weights(blocks, start, x.dtype)
     target = 512 if x.dtype == torch.bfloat16 else 256
     rows = min(h, max(1, target // w))
     while (h * w) % (w * rows):
@@ -226,7 +254,8 @@ def _fused_chain(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
 def _fused_chain_cp(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
     """Run blocks[start:] (all stride 1) through K3 in the (C, P) layout."""
     b, c, h, w = x.shape
-    flat, meta = cuda_resnet.stage_chain_weights_cp(blocks, start, x.dtype)
+    with record_function(FOLD_SPAN):
+        flat, meta = cuda_resnet.stage_chain_weights_cp(blocks, start, x.dtype)
     out = cuda_resnet.bottleneck_chain_cp(x.reshape(b, c, h * w), flat, meta=meta, H=h, W=w)
     return out.reshape(b, meta[-1][2], h, w)
 

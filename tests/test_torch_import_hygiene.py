@@ -6,6 +6,7 @@ is imported, and its entry points refuse to run on the CPU unless asked to."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "sequoia_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "sequoia_tpu", "tests", "tools"}
 # imported inside the function that needs them, never at module level
 LAZY = {"pandas", "h5py", "PIL", "safetensors", "huggingface_hub", "openslide", "triton",
         "wandb", "sklearn", "cv2", "scanpy", "matplotlib", "seaborn"}
@@ -60,6 +61,13 @@ LAST_MODULES = ("sequoia_tpu_torch/ops/ycbcr.py", "sequoia_tpu_torch/ops/mosaic.
                 "sequoia_tpu_torch/config.py", "sequoia_tpu_torch/cli/download_rnaseq.py")
 
 
+# the tool layer: the counterparts of the repo's tools/*.py
+TOOL_MODULES = tuple(f"sequoia_tpu_torch/tools/{name}.py" for name in (
+    "__init__", "make_example_data", "import_reference_artifacts", "parity_check",
+    "convert_weights", "goldens", "validate_real_weights", "profile_backbone",
+    "profile_train_step"))
+
+
 def _port_files():
     return sorted((ROOT / "sequoia_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -96,7 +104,7 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
                  "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
                  "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES, *AGGREGATOR_MODULES,
-                 *STAGE_MODULES, *PARALLEL_MODULES, *LAST_MODULES):
+                 *STAGE_MODULES, *PARALLEL_MODULES, *LAST_MODULES, *TOOL_MODULES):
         assert want in names
 
 
@@ -128,6 +136,16 @@ def test_no_module_level_lazy_import(path):
                  else [node.module or ""])
         bad = [n for n in names if n.split(".")[0] in LAZY]
         assert not bad, f"{path.name} imports {bad} at module level"
+
+
+def test_example_pipeline_script_runs_no_jax_tool():
+    """The port's example pipeline runs the port's tools, no ``tools/*.py``
+    (those import the JAX package)."""
+    script = (ROOT / "tools" / "run_example_pipeline_torch.sh").read_text()
+    commands = [line for line in script.splitlines() if not line.lstrip().startswith("#")]
+    assert not [line for line in commands if re.search(r"tools/\w+\.py", line)]
+    assert "sequoia_tpu_torch.tools.make_example_data" in script
+    assert "sequoia_tpu_torch.tools.import_reference_artifacts" in script
 
 
 def test_import_loads_no_jax_module():

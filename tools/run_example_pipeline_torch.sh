@@ -1,7 +1,8 @@
 #!/bin/bash
 # The PyTorch/CUDA port's counterpart of tools/run_example_pipeline.sh: the
 # same chain through sequoia_tpu_torch.cli, on the same example data
-# (tools/make_example_data.py writes the files both packages read).
+# (sequoia_tpu_torch.tools.make_example_data writes the files the JAX tool
+# writes). Nothing here imports JAX: it runs where the port runs.
 #
 # One-command replication of ALL FIVE BASELINE.md benchmark configs on
 # synthetic data: WSIs -> tiles -> features -> k-means -> CV training ->
@@ -28,13 +29,13 @@ rm -rf "$OUT" && mkdir -p "$OUT"
 
 GENE_ARGS=(--n_genes 50)
 if [ "$FULL" = "1" ]; then
-    python tools/import_reference_artifacts.py --reference "$REFERENCE" \
+    python -m sequoia_tpu_torch.tools.import_reference_artifacts --reference "$REFERENCE" \
         --out "$OUT/ref_artifacts"
     GENE_ARGS=(--gene_list "$OUT/ref_artifacts/examples/gene_list.csv" \
                --n_genes -1)
 fi
 
-python tools/make_example_data.py --out "$OUT" --n_slides 12 \
+python -m sequoia_tpu_torch.tools.make_example_data --out "$OUT" --n_slides 12 \
     "${GENE_ARGS[@]}" --wsis
 
 # ---- config 2: tiling + ResNet-50 feature extraction --------------------
@@ -90,7 +91,7 @@ python -m sequoia_tpu_torch.cli.predict_independent --ref_file "$OUT/ref_file.cs
 # the fine-tune exercises the real head swap (reference main.py:138-157)
 # n_tokens matches the TCGA chain's --num_clusters so the pretrained
 # pos-emb transfers (the reference contract fixes both at 100)
-python tools/make_example_data.py --out "$OUT/gtex" --n_slides 8 \
+python -m sequoia_tpu_torch.tools.make_example_data --out "$OUT/gtex" --n_slides 8 \
     --n_genes 40 --project GTEX-SYNT --features --n_tokens 8
 
 python -m sequoia_tpu_torch.cli.pretrain_gtex --path_csv "$OUT/gtex/ref_file.csv" \
