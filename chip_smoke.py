@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only parallel_path # phases 1-2 and 11
     python3 chip_smoke.py --only raw_planes_path   # phases 1-2 and 12
     python3 chip_smoke.py --only tools_path    # phases 1-2 and 13
+    python3 chip_smoke.py --only bench_path    # phases 1-2 and 14
 
 Phases, each printing one JSON line:
 
@@ -261,10 +262,25 @@ Phases, each printing one JSON line:
    feature; ``tools_host``, ``make_example_data
    --wsis`` (its TIFFs read back equal to their levels) and ``parity_check``
    on a pair of pickles that passes and one that fails;
-   ``tools_launches`` (K1-K4 must rise) with ``phase_seconds``.
+   ``tools_launches`` (K1-K4 must rise) with ``phase_seconds``;
+14. the whole-slide bench (``bench_*`` lines): every leg of
+   ``sequoia_tpu_torch.bench`` (``probe``, ``resnet``, ``uni``, ``spatial``,
+   ``train``, ``decode``, ``e2e``, ``e2e_uni``, ``e2e_aperio``) run in this
+   process at its full constants with the kernels on, its one JSON line as
+   the ``bench`` line and each leg's unrounded seconds and audit as
+   ``bench_seconds``; ``e2e_aperio`` serves 240-px :class:`PlanarSlide`
+   readers of the e2e fixture (``'mosaic'``), and every leg but ``decode``
+   (absent where the native reader does not build) must succeed, each
+   launching its kernels (``resnet`` K1, K2, K3, K5; ``e2e`` and
+   ``e2e_aperio`` K4, K5, K1; the UNI legs K5); ``bench_kernels_off``, the
+   ``resnet`` leg again with the kernels off, s/slide both ways;
+   ``bench_entry``, ``dryrun.entry()``'s forward (plain f32 ``vis.apply``,
+   no kernel) finite at (16, 20,820), its ms and its error against a
+   float64 run of the same ViS (``tools/goldens.vis_forward``) within
+   1e-4; ``bench_launches`` with ``phase_seconds``.
 
 The last lines are the kernels table (``launches`` sums the counts of the
-kernel runs of phases 4-7 and 9-13, each read from 0), the script's run time, the
+kernel runs of phases 4-7 and 9-14, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -4772,6 +4788,103 @@ def tools_path(torch, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the whole-slide bench (sequoia_tpu_torch.bench) and dryrun.entry
+# ---------------------------------------------------------------------------
+
+# the kernels each bench leg must launch in its timed region: the
+# from-patches program (K2 + K3 early_pallas, K5, K1), the serving
+# predictor of cli.serve.build_predictor (K4, K5, K1), and UNI's (K5: its
+# 1024-d ViS is outside K1's layout)
+BENCH_LAUNCHES = {"resnet": ("stem16", "bottleneck_chain_cp", "lloyd_stats", "vis_blocks_fused"),
+                  "e2e": ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
+                  "e2e_aperio": ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
+                  "uni": ("lloyd_stats",), "e2e_uni": ("lloyd_stats",)}
+# dryrun.entry()'s f32 forward against the float64 oracle of the same ViS:
+# max |f32 - f64| / max |f64|
+ENTRY_TOL = 1e-4
+
+
+def bench_entry(torch, dev) -> dict:
+    """``dryrun.entry()`` on the card: its forward (plain ``vis.apply`` in
+    f32, no kernel) finite at (16, 20,820), its ms, and its error against a
+    float64 run of the same ViS math.  ``vis.apply`` computes in f32 whatever
+    its operands' type (``ops/nn`` upcasts to f32), so the f64 run is
+    ``tools/goldens.vis_forward`` on the entry's weights in the reference
+    layout (``convert.vis_to_torch``)."""
+    from sequoia_tpu_torch import _build, dryrun
+    from sequoia_tpu_torch.models import convert
+    from sequoia_tpu_torch.tools import goldens
+    from sequoia_tpu_torch.train import loop
+
+    forward, (params, feats) = dryrun.entry()
+    cfg = dryrun.entry_config()
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        out = forward(params, feats)
+        ms = time_ms(torch, lambda: forward(params, feats), 10)
+        sd = {k: torch.as_tensor(v).to(dev, torch.float64) for k, v in
+              convert.vis_to_torch(cfg, loop.tree_map(lambda t: t.cpu().numpy(), params)).items()}
+        ref = goldens.vis_forward(sd, feats.double(), depth=cfg.depth, H=cfg.nheads,
+                                  df=cfg.dim_f, ds=cfg.dim_s)
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    finite = bool(torch.isfinite(out).all())
+    rel = float((out.double() - ref).abs().max() / ref.abs().max())
+    res = {"shape": list(out.shape), "dtype": str(out.dtype).replace("torch.", ""),
+           "finite": finite, "ms": ms, "max_rel_err_vs_f64": rel, "tol": ENTRY_TOL,
+           "launches": launched}
+    if out.shape != (16, GENES) or not finite or rel > ENTRY_TOL or launched:
+        raise AssertionError(f"dryrun.entry: {res}")
+    return res
+
+
+def bench_path(torch, dev) -> dict:
+    """Phase 14: every leg of ``sequoia_tpu_torch.bench`` in this process at
+    its full constants with the kernels on (``e2e_aperio`` on 240-px
+    :class:`PlanarSlide` readers of the e2e fixture: the native reader that
+    its files need does not build on the card's machine), its JSON as a
+    ``bench`` line; every leg but ``decode`` must succeed (``decode`` may
+    only report itself absent), and each leg's launches must include its
+    kernels (:data:`BENCH_LAUNCHES`).  Then the ``resnet`` leg with the
+    kernels off, and ``dryrun.entry()``.  Returns the kernels' launch
+    counts of the kernel run."""
+    from sequoia_tpu_torch import _build, bench
+    from sequoia_tpu_torch.data.wsi import ArrayReader
+
+    t0 = time.perf_counter()
+    aperio = [PlanarSlide(torch, dev, ArrayReader(bench.e2e_levels(100 + i, dev)),
+                          bench.APERIO_TILE, (2, 2)) for i in range(2)]
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    _build.reset_launches()
+    out, rc, legs = bench.run_bench(kernels=True, aperio_slides=aperio)
+    launches = dict(_build.LAUNCHES)
+    del aperio
+    emit({"phase": "bench", **out})
+    emit({"phase": "bench_seconds", "aperio_readers_setup_s": setup_s,
+          **{leg: {k: v for k, v in res.items() if k != "launches"}
+             for leg, res in legs.items()}})
+    failed = {leg: why for leg, why in out.get("leg_failures", {}).items()
+              if not (leg == "decode" and why.startswith("LegAbsent"))}
+    if rc or failed:
+        raise AssertionError(f"bench: exit {rc}, failed legs {failed}")
+    for leg, kernels in BENCH_LAUNCHES.items():
+        check_launched(out["launches"][leg], kernels, f"bench {leg} leg")
+    torch.cuda.empty_cache()
+
+    off, rc_off, off_legs = bench.run_bench(kernels=False, legs=("resnet",))
+    if rc_off or any(off["launches"]["resnet"].values()):
+        raise AssertionError(f"bench --kernels off: exit {rc_off}, {off}")
+    on_s, off_s = legs["resnet"]["s_per_slide"], off_legs["resnet"]["s_per_slide"]
+    emit({"phase": "bench_kernels_off", "leg": "resnet", "s_per_slide_kernels": on_s,
+          "s_per_slide_plain": off_s, "plain_over_kernels": off_s / on_s,
+          "slides_per_hour_kernels": 3600.0 / on_s, "slides_per_hour_plain": 3600.0 / off_s})
+    torch.cuda.empty_cache()
+    emit({"phase": "bench_entry", **bench_entry(torch, dev)})
+    emit({"phase": "bench_launches", **launches, "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -4796,8 +4909,8 @@ def main() -> int:
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
                     "for these alone) and/or uni_path (phase 7), train_path (phase 8), "
                     "aggregators_path (phase 9), stages_path (phase 10), parallel_path "
-                    "(phase 11), raw_planes_path (phase 12), tools_path (phase 13); prints "
-                    "no result line")
+                    "(phase 11), raw_planes_path (phase 12), tools_path (phase 13), "
+                    "bench_path (phase 14); prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -4829,7 +4942,7 @@ def main() -> int:
               ("vis_blocks_fused", check_vis))
     known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
                                       "aggregators_path", "stages_path", "parallel_path",
-                                      "raw_planes_path", "tools_path"]
+                                      "raw_planes_path", "tools_path", "bench_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -4873,6 +4986,8 @@ def main() -> int:
             raw_planes_path(torch, dev)
         if "tools_path" in only:
             tools_path(torch, dev)
+        if "bench_path" in only:
+            bench_path(torch, dev)
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_weight_fold", "dtype": "bfloat16", "per": "extractor batch",
@@ -4907,8 +5022,10 @@ def main() -> int:
     par = parallel_path(torch, dev)
     torch.cuda.empty_cache()
     tools = tools_path(torch, dev)
+    torch.cuda.empty_cache()
+    benched = bench_path(torch, dev)
     launches = {k: main[k] + main32[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k]
-                + stages[k] + par[k] + tools[k] for k in results}
+                + stages[k] + par[k] + tools[k] + benched[k] for k in results}
 
     rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"]} for dt, r in by_dtype.items()}
     emit({"phase": "slide_cost", "per": "slide",

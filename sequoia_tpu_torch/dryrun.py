@@ -1,11 +1,21 @@
-"""The multi-device dry run: one sharded ViS AdamW step, one sharded
-inference step and one sharded window stage over an (n_data, n_model) mesh.
+"""Entry points: the production ViS forward (``entry``) and the
+multi-device dry run, one sharded ViS AdamW step, one sharded inference step
+and one sharded window stage over an (n_data, n_model) mesh.
 
-Counterpart of ``__graft_entry__.dryrun_multichip`` (``:76``) with its
-inference (``_dryrun_infer``, ``:159``) and spatial (``_dryrun_spatial``,
-``:250``) legs::
+Counterpart of ``__graft_entry__.entry`` (``:18``) and
+``__graft_entry__.dryrun_multichip`` (``:76``) with its inference
+(``_dryrun_infer``, ``:159``) and spatial (``_dryrun_spatial``, ``:250``)
+legs::
 
+    python -m sequoia_tpu_torch.dryrun    # entry()'s forward, then every card
     python -c "from sequoia_tpu_torch import dryrun; dryrun.dryrun_multichip(4)"
+
+``entry(device=None)`` returns ``(forward, (params, features))``: the plain
+``vis.apply`` in f32 at the production config (:func:`entry_config`: D =
+2048, depth 6, 16 heads of 64, 100 cluster tokens, 20,820 genes), weights
+from ``vis.init`` with a generator seeded 0, and a (16, 100, 2048) f32
+batch from ``np.random.default_rng(0)``, on CUDA unless ``device="cpu"``.
+Like JAX's ``entry``, it runs no kernel.
 
 ``production`` (the default, or ``SEQUOIA_DRYRUN_FULL=1``): the full shapes,
 D = 2048, depth 6, 16 heads and the 20,820-gene head; ``SEQUOIA_DRYRUN_FULL=0``
@@ -28,6 +38,38 @@ import numpy as np
 import torch
 
 
+def entry_config(input_dim: int = 2048, num_outputs: int = 20820, depth: int = 6,
+                 nheads: int = 16, head_dim: int = 64, num_clusters: int = 100):
+    """The ViS config of :func:`entry`; the defaults are the production
+    widths, and the tests call it at a small width."""
+    from sequoia_tpu_torch.models import vis
+
+    return vis.ViSConfig(num_outputs=num_outputs, input_dim=input_dim, depth=depth,
+                         nheads=nheads, dim_f=head_dim, dim_s=head_dim, dim_c=head_dim,
+                         num_clusters=num_clusters)
+
+
+def entry(device=None):
+    """``(forward, (params, features))``: ``forward(params, features)`` is
+    ``vis.apply`` at :func:`entry_config`, the params
+    ``vis.init`` with a generator seeded 0, the features a (16, T, D) f32
+    draw of ``np.random.default_rng(0).normal``; on ``device`` (CUDA unless
+    given; raises without it)."""
+    from sequoia_tpu_torch.models import vis
+    from sequoia_tpu_torch.utils.device import resolve_device, tree_to
+
+    dev = resolve_device(device)
+    cfg = entry_config()
+    params = tree_to(vis.init(cfg, torch.Generator().manual_seed(0)), dev)
+
+    def forward(params, features):
+        return vis.apply(cfg, params, features)
+
+    features = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(16, cfg.num_clusters, cfg.input_dim)).astype(np.float32)).to(dev)
+    return forward, (params, features)
+
+
 def _factor(n_devices: int) -> tuple[int, int]:
     n_model = int(os.environ.get("SEQUOIA_DRYRUN_MODEL", "0")) or (
         2 if n_devices % 2 == 0 and n_devices > 1 else 1)
@@ -40,8 +82,7 @@ def _vis_cfg(production: bool, n_model: int, D: int | None = None, k: int = 100)
     from sequoia_tpu_torch.models import vis
 
     if production:
-        return vis.ViSConfig(num_outputs=20820, input_dim=D or 2048, depth=6, nheads=16,
-                             dim_f=64, dim_s=64, dim_c=64, num_clusters=k)
+        return entry_config(input_dim=D or 2048, num_clusters=k)
     return vis.ViSConfig(num_outputs=32 * n_model, input_dim=D or 64, depth=2, nheads=4,
                          dim_f=8, dim_s=8, dim_c=8, num_clusters=k)
 
@@ -220,3 +261,15 @@ def dryrun_multichip(n_devices: int, production: bool | None = None,
     for line in lines:
         print(line)
     return lines
+
+
+if __name__ == "__main__":
+    from sequoia_tpu_torch.ops.nn import precision
+
+    precision()  # TF32 off: the f32 forward is IEEE f32
+    fn, args = entry()
+    with torch.no_grad():
+        out = fn(*args)
+    assert out.shape == (16, 20820) and bool(torch.isfinite(out).all()), tuple(out.shape)
+    print(f"entry: forward {tuple(out.shape)} finite")
+    dryrun_multichip(torch.cuda.device_count())

@@ -68,6 +68,10 @@ TOOL_MODULES = tuple(f"sequoia_tpu_torch/tools/{name}.py" for name in (
     "profile_train_step"))
 
 
+# the benchmark slice: the whole-slide bench, dryrun.py's entry()
+BENCH_MODULES = ("sequoia_tpu_torch/bench.py", "sequoia_tpu_torch/dryrun.py")
+
+
 def _port_files():
     return sorted((ROOT / "sequoia_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -104,7 +108,8 @@ def test_port_files_exist():
                  "sequoia_tpu_torch/data/wsi.py", "sequoia_tpu_torch/pipeline/patch_gen.py",
                  "sequoia_tpu_torch/models/uni_vit.py", "sequoia_tpu_torch/ops/pil_resize.py",
                  "chip_smoke.py", *SLICE_MODULES, *TRAIN_MODULES, *AGGREGATOR_MODULES,
-                 *STAGE_MODULES, *PARALLEL_MODULES, *LAST_MODULES, *TOOL_MODULES):
+                 *STAGE_MODULES, *PARALLEL_MODULES, *LAST_MODULES, *TOOL_MODULES,
+                 *BENCH_MODULES):
         assert want in names
 
 
@@ -236,6 +241,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: pi.ensemble_predict(cfg, [], []),
                  lambda: pi.predict_independent(None, "features", "out",
                                                 checkpoint_template="x{fold}")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_bench_and_entry_raise_without_cuda(monkeypatch):
+    """The bench and ``dryrun.entry`` run on CUDA unless given the CPU, and
+    importing the bench touches no GPU and no lazily imported package."""
+    code = ("import sys, torch\n"
+            "import sequoia_tpu_torch.bench, sequoia_tpu_torch.dryrun\n"
+            "print(torch.cuda.is_initialized(), sorted(m for m in sys.modules\n"
+            "      if m.split('.')[0] in ('pandas', 'h5py', 'PIL', 'jax', 'sequoia_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.strip() == "False []", out.stdout + out.stderr
+    from sequoia_tpu_torch import bench, dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: bench.main([]), lambda: bench.measure_probe(),
+                 lambda: bench.measure_device_pipeline("uni"), dryrun.entry):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
