@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only raw_planes_path   # phases 1-2 and 12
     python3 chip_smoke.py --only tools_path    # phases 1-2 and 13
     python3 chip_smoke.py --only bench_path    # phases 1-2 and 14
+    python3 chip_smoke.py --only sync_path     # phases 1-2 and 15
 
 Phases, each printing one JSON line:
 
@@ -250,7 +251,9 @@ Phases, each printing one JSON line:
    features held against the plain setting's at ``STAGE_FEAT_TOL`` and its
    stage rows within ``STAGE_SUM_TOL`` of the forward;
    ``tools_profile_train_step``, the ViS and HE2RNA train steps' pieces at
-   the production shape against their floors; ``tools_validate_real_weights``,
+   the production shape against their floors, and under ``loop`` an epoch
+   of ``train/loop.train`` split by its spans (every one of the loop's
+   spans must be there, each mean finite); ``tools_validate_real_weights``,
    ``validate_real_weights`` over a hub fabricated from seeds in a temporary
    directory (a full-width ViS fold in the HF layout through K1, the ViT and
    HE2RNA fixtures, torchvision's ``resnet50.pth`` through K2 + K3 and K4,
@@ -277,7 +280,16 @@ Phases, each printing one JSON line:
    ``bench_entry``, ``dryrun.entry()``'s forward (plain f32 ``vis.apply``,
    no kernel) finite at (16, 20,820), its ms and its error against a
    float64 run of the same ViS (``tools/goldens.vis_forward``) within
-   1e-4; ``bench_launches`` with ``phase_seconds``.
+   1e-4; ``bench_launches`` with ``phase_seconds``;
+15. the ``host_syncs`` gate (``sync_census`` lines): one slide of each
+   serving path of ``tools/sync_census.py`` (host features through ViS, ViT
+   and HE2RNA folds; ResNet and UNI patches; ``predict_wsi`` in ``'rgb'``
+   and ``'screened'``) and of the raw-plane modes (``'ycbcr'`` and
+   ``'mosaic'``, from :class:`PlanarSlide` readers of its slide), each with
+   tracing off and on: the synchronising calls that
+   ``torch.cuda.set_sync_debug_mode("warn")`` reports both times must equal
+   the program's ``host_syncs`` counter, on every path; then
+   ``sync_census_seconds``.
 
 The last lines are the kernels table (``launches`` sums the counts of the
 kernel runs of phases 4-7 and 9-14, each read from 0), the script's run time, the
@@ -4557,10 +4569,24 @@ def tools_train_step(torch, dev) -> dict:
     flat = [v for part in res.values() for v in part.values() if not isinstance(v, dict)]
     flat += [v for part in res.values() for d in part.values() if isinstance(d, dict)
              for v in d.values()]
+    loop = pts.profile_loop(device=dev)
+    del loop["records"]
+    torch.cuda.empty_cache()
+    missing = set(TRAIN_SPANS) - set(loop["per_call_ms"])
+    if missing:
+        raise AssertionError(f"profile_train_step loop: no span {sorted(missing)}")
+    flat += [v for d in loop["per_call_ms"].values() for v in d.values()]
     if not all(isinstance(v, (int, float)) and v == v and abs(v) != float("inf") for v in flat):
-        raise AssertionError(f"profile_train_step: a value is not finite: {res}")
+        raise AssertionError(f"profile_train_step: a value is not finite: {res} {loop}")
+    res["loop"] = loop
     res["seconds"] = time.perf_counter() - t0
     return res
+
+
+# the spans of one epoch of train/loop.train (utils/profiling)
+TRAIN_SPANS = ("train.batch_wait", "train.upload", "train.step", "train.forward",
+               "train.backward", "train.optimizer", "train.eval_step", "train.readback",
+               "train.snapshot")
 
 
 def calibrated_resnet50_sd(torch, dev, seed: int) -> dict:
@@ -4885,6 +4911,40 @@ def bench_path(torch, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the host_syncs gate (tools/sync_census.py)
+# ---------------------------------------------------------------------------
+
+
+def sync_path(torch, dev) -> None:
+    """Phase 15: every serving path's ``host_syncs`` against the syncs that
+    ``set_sync_debug_mode`` sees, tracing off and on; raises on any
+    disagreement, a missing path or a raw-plane slide served in another
+    mode."""
+    from sequoia_tpu_torch.tools import sync_census as sc
+
+    t0 = time.perf_counter()
+    base = sc.slide_reader(20)
+    raw = {"ycbcr": PlanarSlide(torch, dev, base, PATCH, (2, 2)),
+           "mosaic": PlanarSlide(torch, dev, base, 240, (2, 2))}
+    runs = sc.slides(dev, raw)
+    missing = set(sc.PATHS) - set(runs)
+    if missing:
+        raise AssertionError(f"sync census: no path {sorted(missing)} here")
+    sc.warned(lambda: None)  # the first switch of the mode warns once itself
+    bad = []
+    for name, (fn, mode) in runs.items():
+        row = {"path": name, "mode": mode, **sc.census(fn)}
+        emit({"phase": "sync_census", **row})
+        if not row["agree"] or (name in raw and mode != name):
+            bad.append(name)
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"sync census: host_syncs disagrees on {bad}")
+    emit({"phase": "sync_census_seconds", "paths": len(runs),
+          "seconds": time.perf_counter() - t0})
+
+
 def km_steps(torch, dev, feats, pred) -> int:
     """The Lloyd steps of the fit ``pred.cluster`` ran on ``feats``."""
     from sequoia_tpu_torch.ops import kmeans as km
@@ -4910,7 +4970,7 @@ def main() -> int:
                     "for these alone) and/or uni_path (phase 7), train_path (phase 8), "
                     "aggregators_path (phase 9), stages_path (phase 10), parallel_path "
                     "(phase 11), raw_planes_path (phase 12), tools_path (phase 13), "
-                    "bench_path (phase 14); prints no result line")
+                    "bench_path (phase 14), sync_path (phase 15); prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -4942,7 +5002,8 @@ def main() -> int:
               ("vis_blocks_fused", check_vis))
     known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
                                       "aggregators_path", "stages_path", "parallel_path",
-                                      "raw_planes_path", "tools_path", "bench_path"]
+                                      "raw_planes_path", "tools_path", "bench_path",
+                                      "sync_path"]
     unknown = set(only) - set(known)
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {known}, got {unknown}")
@@ -4988,6 +5049,8 @@ def main() -> int:
             tools_path(torch, dev)
         if "bench_path" in only:
             bench_path(torch, dev)
+        if "sync_path" in only:
+            sync_path(torch, dev)
         print(smi, flush=True)
         return 0
     emit({"phase": "chain_weight_fold", "dtype": "bfloat16", "per": "extractor batch",
@@ -5024,6 +5087,8 @@ def main() -> int:
     tools = tools_path(torch, dev)
     torch.cuda.empty_cache()
     benched = bench_path(torch, dev)
+    torch.cuda.empty_cache()
+    sync_path(torch, dev)
     launches = {k: main[k] + main32[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k]
                 + stages[k] + par[k] + tools[k] + benched[k] for k in results}
 

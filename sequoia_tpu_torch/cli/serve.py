@@ -246,7 +246,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kernels", default="on", choices=["on", "off"],
                    help="serve with the CUDA kernels (on) or the plain PyTorch versions")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the one-shot run into DIR")
+                   help="write a torch.profiler trace of the one-shot run into DIR "
+                        "(trace.json) and, beside it, spans.json: the program's spans "
+                        "(serve.slide, serve.kmeans, kmeans.seed, ...) and counters "
+                        "(kmeans.lloyd_steps, host_syncs), summed and one record each")
     p.add_argument("--data_parallel", action="store_true",
                    help="split backbone patch batches over this process's devices")
     add_compile_cache_arg(p)

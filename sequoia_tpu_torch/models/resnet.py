@@ -22,8 +22,8 @@ and every block outside those stages run as ``F.conv2d``, with TF32 off
 ``cp_stages`` or ``early_pallas`` wants NCHW and pays one copy where the two
 layouts meet.  :func:`forward_stages` is the forward one stage at a time
 (``forward_extract`` runs it; ``tools/profile_backbone.py`` times each
-stage), and the chain-weight folds are named on a ``torch.profiler`` trace
-by :data:`FOLD_SPAN`.
+stage), and the chain-weight folds are the span :data:`FOLD_SPAN`
+(``utils/profiling.span``: a range on a ``torch.profiler`` trace).
 
 Also here: basic blocks (resnet18/34), ``config_for_depth``, the 4- and
 1-channel variants (reference ``RNfour``/``RNone``, ``pool_stride=1``) and
@@ -39,11 +39,11 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from sequoia_tpu_torch.ops import cuda_resnet
 from sequoia_tpu_torch.ops.nn import compute_dtype as _dtype
 from sequoia_tpu_torch.utils import torch_init
+from sequoia_tpu_torch.utils.profiling import count, span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -52,8 +52,7 @@ BLOCKS_PER_STAGE = (3, 4, 6, 3)  # resnet50
 STAGE_WIDTH = (64, 128, 256, 512)
 EXPANSION = 4
 BN_EPS = 1e-5
-#: the range that names the chain-weight fold and cast (done on every
-#: forward) on a ``torch.profiler`` trace
+#: the span of the chain-weight fold and cast (done on every forward)
 FOLD_SPAN = "resnet.chain_weight_fold"
 
 Params = dict[str, Any]
@@ -166,12 +165,12 @@ def _early_pallas(params: Params, x: torch.Tensor) -> torch.Tensor:
     # s2d channels (di, dj, c), padded to 16 channels, 2 zero rows on top and
     # 1 below, so the kernel's four dy taps are whole-row offsets
     x16 = F.pad(_space_to_depth(x), (0, 0, 2, 1, 0, 4))
-    with record_function(FOLD_SPAN):
+    with span(FOLD_SPAN):
         a, bias = cuda_resnet.fold_stem16_weights(params["conv1_s2d"], params["bn1"], x.dtype)
     y = cuda_resnet.stem16(x16.reshape(b, 16, (h2 + 3) * w2), a, bias, H2=h2, W2=w2)
     y = F.max_pool2d(y.reshape(b, 64, h2, w2), 3, 2, 1)  # torch maxpool, NCHW
     hp, wp = y.shape[2], y.shape[3]
-    with record_function(FOLD_SPAN):
+    with span(FOLD_SPAN):
         flat, meta = cuda_resnet.stage_chain_weights_cp(params["layer1"], 0, y.dtype)
     out = cuda_resnet.bottleneck_chain_cp(y.reshape(b, 64, hp * wp), flat, meta=meta,
                                           H=hp, W=wp)
@@ -239,7 +238,7 @@ def _fused_chain(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
     The JAX row-chunk rule is kept: whole rows, at most 512 pixels for bf16
     and 256 for f32."""
     b, c, h, w = x.shape
-    with record_function(FOLD_SPAN):
+    with span(FOLD_SPAN):
         flat, meta = cuda_resnet.stage_chain_weights(blocks, start, x.dtype)
     target = 512 if x.dtype == torch.bfloat16 else 256
     rows = min(h, max(1, target // w))
@@ -254,7 +253,7 @@ def _fused_chain(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
 def _fused_chain_cp(x: torch.Tensor, blocks, start: int) -> torch.Tensor:
     """Run blocks[start:] (all stride 1) through K3 in the (C, P) layout."""
     b, c, h, w = x.shape
-    with record_function(FOLD_SPAN):
+    with span(FOLD_SPAN):
         flat, meta = cuda_resnet.stage_chain_weights_cp(blocks, start, x.dtype)
     out = cuda_resnet.bottleneck_chain_cp(x.reshape(b, c, h * w), flat, meta=meta, H=h, W=w)
     return out.reshape(b, meta[-1][2], h, w)
@@ -265,6 +264,7 @@ def preprocess_uint8(images_u8: torch.Tensor) -> torch.Tensor:
     x = images_u8.float() / 255.0
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    count("host_syncs", 2)  # a list to the device is a blocking copy
     return (x - mean) / std
 
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from sequoia_tpu_torch.models.resnet import IMAGENET_MEAN, IMAGENET_STD
 from sequoia_tpu_torch.ops import pil_resize
 from sequoia_tpu_torch.ops.nn import LN_EPS, compute_dtype, linear
+from sequoia_tpu_torch.utils.profiling import count
 
 Params = dict[str, Any]
 
@@ -275,4 +276,5 @@ def extract_from_uint8(cfg: UniViTConfig, params: Params, u8: torch.Tensor) -> t
     x = u8.float() / 255.0
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    count("host_syncs", 2)  # a list to the device is a blocking copy
     return forward(cfg, params, (x - mean) / std)

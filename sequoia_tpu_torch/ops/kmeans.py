@@ -31,6 +31,7 @@ import torch
 
 from sequoia_tpu_torch.ops import cuda_kmeans
 from sequoia_tpu_torch.utils.device import resolve_device
+from sequoia_tpu_torch.utils.profiling import BINCOUNT_SYNCS, count, span
 
 
 def _pairwise_sq_dist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -47,6 +48,7 @@ def _plusplus_init(gen: torch.Generator, x: torch.Tensor, mask: torch.Tensor,
     first = torch.multinomial(maskf, 1, generator=gen)
     centers = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
     centers[0] = x[first[0]]
+    count("host_syncs")  # the 0-d index is read back to the host
     d2 = torch.where(mask, ((x - x[first]) ** 2).sum(1), 0.0)
     for i in range(1, k):
         w = torch.where(mask & (d2 > 0), d2, 0.0)
@@ -91,6 +93,8 @@ def _donor_repair(x, mask, labels, centers, best):
     cluster order (sklearn ``_relocate_empty_clusters`` semantics)."""
     k = centers.shape[0]
     counts = torch.bincount(labels[mask], minlength=k)
+    # the masked select sizes its output on the host, then the bincount, the bool
+    count("host_syncs", 1 + BINCOUNT_SYNCS + 1)
     if not bool((counts == 0).any()):
         return labels, centers, best
     lab = labels.cpu().numpy().copy()
@@ -114,6 +118,7 @@ def _donor_repair(x, mask, labels, centers, best):
     for c, p in moves:
         centers[c] = x[p]
     dev = x.device
+    count("host_syncs", 4 + 2)  # the four reads above, the two blocking uploads below
     return (torch.as_tensor(lab, device=dev), centers, torch.as_tensor(bst, device=dev))
 
 
@@ -139,23 +144,31 @@ def _lloyd(x, mask, centers, max_iter: int, tol_abs, use_pallas: bool = False,
            trace: list | None = None):
     """Lloyd steps until the shift is within ``tol_abs`` and no unexpected
     cluster is empty, then the final assignment and donor repair.  ``trace``
-    (a list) receives each step's (shift alive, empty alive) pair."""
-    # with fewer valid points than clusters, k - n_valid clusters can never
-    # fill: only unexpected empties keep the loop alive
-    min_empty = max(0, centers.shape[0] - int(mask.sum()))
-    stats = _stats_fn(x, mask, use_pallas)
-    n_iter = 0
-    while n_iter < max_iter:
-        centers, alive = _lloyd_step(x, centers, stats, tol_abs, min_empty)
-        n_iter += 1
-        by_shift, by_empty = alive.tolist()  # one host sync per step
-        if trace is not None:
-            trace.append((by_shift, by_empty))
-        if not (by_shift or by_empty):
-            break
-    # the final assignment by the distances the loop converged on
-    _, _, best, labels = stats(centers)
-    labels, centers, best = _donor_repair(x, mask, labels, centers, best)
+    (a list) receives each step's (shift alive, empty alive) pair.  Spans
+    ``kmeans.lloyd`` (the steps, with the plan they share) and
+    ``kmeans.means`` (the final assignment and the repair); counts
+    ``kmeans.lloyd_steps``."""
+    with span("kmeans.lloyd"):
+        # with fewer valid points than clusters, k - n_valid clusters can
+        # never fill: only unexpected empties keep the loop alive
+        min_empty = max(0, centers.shape[0] - int(mask.sum()))
+        count("host_syncs")  # the valid count's readback
+        stats = _stats_fn(x, mask, use_pallas)
+        n_iter = 0
+        while n_iter < max_iter:
+            centers, alive = _lloyd_step(x, centers, stats, tol_abs, min_empty)
+            n_iter += 1
+            by_shift, by_empty = alive.tolist()  # one host sync per step
+            count("kmeans.lloyd_steps")
+            count("host_syncs")
+            if trace is not None:
+                trace.append((by_shift, by_empty))
+            if not (by_shift or by_empty):
+                break
+    with span("kmeans.means"):
+        # the final assignment by the distances the loop converged on
+        _, _, best, labels = stats(centers)
+        labels, centers, best = _donor_repair(x, mask, labels, centers, best)
     return centers, labels, best.sum(), n_iter
 
 
@@ -173,9 +186,10 @@ def kmeans_fit(x: torch.Tensor, mask: torch.Tensor, gen: torch.Generator,
                use_pallas: bool = False):
     """One slide: x (N, D), mask (N,) bool, ``gen`` on x's device.  Returns
     (centers (k, D), labels (N,) -- arbitrary on masked rows, inertia,
-    n_iter)."""
+    n_iter).  The seeding is the span ``kmeans.seed``."""
     x = x.float()
-    centers = _plusplus_init(gen, x, mask, n_clusters)
+    with span("kmeans.seed"):
+        centers = _plusplus_init(gen, x, mask, n_clusters)
     return _lloyd(x, mask, centers, max_iter, _tol_abs(x, mask, tol), use_pallas)
 
 

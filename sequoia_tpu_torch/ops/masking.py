@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from sequoia_tpu_torch.utils.profiling import BINCOUNT_SYNCS, count
+
 _GRAY = (0.2125, 0.7154, 0.0721)  # skimage rgb2gray weights
 
 
@@ -48,6 +50,7 @@ def _histogram(idx: torch.Tensor, nbins: int) -> torch.Tensor:
     rows = idx.reshape(-1, idx.shape[-1]).long()
     offs = torch.arange(rows.shape[0], device=idx.device)[:, None] * nbins
     counts = torch.bincount((rows + offs).reshape(-1), minlength=rows.shape[0] * nbins)
+    count("host_syncs", BINCOUNT_SYNCS)
     return counts.reshape(*lead, nbins).float()
 
 
@@ -161,6 +164,7 @@ def is_low_contrast(img: torch.Tensor, fraction_threshold: float = 0.05,
     flat = gray.flatten(-2)
     q = torch.tensor([lower_percentile / 100.0, upper_percentile / 100.0],
                      dtype=torch.float32, device=img.device)
+    count("host_syncs")  # a list to the device is a blocking copy
     lo, hi = torch.quantile(flat, q, dim=-1)  # linear interpolation
     return (hi - lo) / 2.0 < fraction_threshold
 

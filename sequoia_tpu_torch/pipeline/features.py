@@ -41,6 +41,7 @@ from sequoia_tpu_torch.models import resnet as resnet_mod
 from sequoia_tpu_torch.models import uni_vit
 from sequoia_tpu_torch.ops.nn import precision
 from sequoia_tpu_torch.utils.device import resolve_device, tree_to
+from sequoia_tpu_torch.utils.profiling import span
 
 
 class FeatureExtractor:
@@ -103,8 +104,9 @@ class FeatureExtractor:
         self._replicas = [place(row[0]) for row in mesh.devices[1:]] if mesh else []
 
     def upload(self, block_u8: np.ndarray) -> torch.Tensor:
-        """Host block -> the extractor's device."""
-        return torch.as_tensor(block_u8).to(self.device, non_blocking=True)
+        """Host block -> the extractor's device (the span ``serve.upload``)."""
+        with span("serve.upload", bytes=block_u8.nbytes):
+            return torch.as_tensor(block_u8).to(self.device, non_blocking=True)
 
     def map_shards(self, fn, params, *xs: torch.Tensor):
         """``fn(params, *rows)`` over the ``data`` row shards of each of
@@ -149,21 +151,23 @@ class FeatureExtractor:
     @torch.no_grad()
     def features(self, patches_u8) -> torch.Tensor:
         """(N, ps, ps, 3) uint8 (numpy or tensor) -> (N, D) f32 on the
-        device, in ``batch_size`` blocks with the tail padded."""
+        device, in ``batch_size`` blocks with the tail padded; each block's
+        backbone is the span ``serve.backbone``."""
         n, bs = patches_u8.shape[0], self.batch_size
         out = torch.empty((n, self.feature_dim), dtype=torch.float32, device=self.device)
         for start in range(0, n, bs):
             block = patches_u8[start:start + bs]
             if not isinstance(block, torch.Tensor):
                 block = self.upload(np.ascontiguousarray(block))
-            block = block.to(self.device)
             m = block.shape[0]
-            if m < bs:  # pad the tail to the full batch shape
-                pad = torch.zeros((bs - m,) + tuple(block.shape[1:]), dtype=block.dtype,
-                                  device=block.device)
-                block = torch.cat([block, pad])
-            feats = self.raw_fwd(self.params, block)
-            out[start:start + m] = feats[:m]
+            with span("serve.backbone", patches=m):
+                block = block.to(self.device)
+                if m < bs:  # pad the tail to the full batch shape
+                    pad = torch.zeros((bs - m,) + tuple(block.shape[1:]), dtype=block.dtype,
+                                      device=block.device)
+                    block = torch.cat([block, pad])
+                feats = self.raw_fwd(self.params, block)
+                out[start:start + m] = feats[:m]
         return out
 
     def __call__(self, patches_u8) -> np.ndarray:

@@ -33,6 +33,7 @@ import torch
 from sequoia_tpu_torch.data.wsi import SlideReader, open_slide, read_regions
 from sequoia_tpu_torch.ops import masking
 from sequoia_tpu_torch.utils.device import resolve_device
+from sequoia_tpu_torch.utils.profiling import count
 
 BACKGROUND_THRESHOLD = 0.2
 
@@ -49,6 +50,7 @@ def compute_slide_mask(slide: SlideReader, level: str | int = "max", device=None
     mask = masking.tissue_mask(img_xy)
     mask = masking.binary_dilation(mask, iterations=3)
     mask = masking.binary_erosion(mask, iterations=3)
+    count("host_syncs", 2)  # the blocking upload of the thumbnail, the mask's readback
     return mask.cpu().numpy(), level
 
 

@@ -83,6 +83,7 @@ from sequoia_tpu_torch.ops.nn import compute_dtype, precision
 from sequoia_tpu_torch.pipeline import patch_gen
 from sequoia_tpu_torch.pipeline.features import FeatureExtractor
 from sequoia_tpu_torch.utils.device import resolve_device, tree_to
+from sequoia_tpu_torch.utils.profiling import count, new_request, span
 
 
 def _aggregator_apply(model_type: str, cfg):
@@ -190,10 +191,13 @@ class SlidePredictor:
 
     def _screen(self, imgs: np.ndarray, rf: float) -> np.ndarray:
         """The candidates that pass the tissue screen (on the device), resized
-        to ``patch_size`` with Pillow when the slide is not at AppMag 20."""
-        flags = masking.patch_keep_flags(
-            self._upload_counted(imgs),
-            background_threshold=patch_gen.BACKGROUND_THRESHOLD).cpu().numpy()
+        to ``patch_size`` with Pillow when the slide is not at AppMag 20; the
+        span ``serve.screen``."""
+        with span("serve.screen", patches=len(imgs)):
+            flags = masking.patch_keep_flags(
+                self._upload_counted(imgs),
+                background_threshold=patch_gen.BACKGROUND_THRESHOLD).cpu().numpy()
+            count("host_syncs")  # the flags' readback
         self.io_stats["candidates"] += len(imgs)
         kept = imgs[flags]
         if rf != 1.0 and len(kept):
@@ -379,7 +383,8 @@ class SlidePredictor:
         devices = [row[0] for row in mesh.devices] if mesh is not None else [self.device]
         copies = {}
         for d in devices:
-            t = torch.as_tensor(arr).to(d, non_blocking=True)
+            with span("serve.upload", bytes=arr.nbytes):
+                t = torch.as_tensor(arr).to(d, non_blocking=True)
             if t.device not in copies:
                 copies[t.device] = t
                 self.io_stats["bytes_uploaded"] += arr.nbytes
@@ -393,46 +398,61 @@ class SlidePredictor:
 
     @torch.no_grad()
     def cluster(self, feats) -> torch.Tensor:
-        """(N, D) patch features -> (n_clusters, D) cluster means on the device."""
+        """(N, D) patch features -> (n_clusters, D) cluster means on the
+        device; the span ``serve.kmeans``, features on the host uploaded in
+        ``serve.upload``."""
         if feats.shape[0] == 0:
             raise ValueError("no tissue patches survived screening")
-        if isinstance(feats, np.ndarray):
-            self.io_stats["bytes_uploaded"] += feats.nbytes
-        x = torch.as_tensor(feats).to(self.device).float()
-        mask = torch.ones((x.shape[0],), dtype=torch.bool, device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(self.kmeans_seed)
-        _, labels, _, _ = km.kmeans_fit(x, mask, gen, n_clusters=self.n_clusters,
-                                        use_pallas=self.use_pallas)
-        cf = km.cluster_means(x, labels, mask, self.n_clusters)
-        if x.shape[0] < self.n_clusters:
-            # small slide: some clusters are necessarily empty (NaN means);
-            # zero-pad them as the reference's <100-token windows
-            print(f"serve: {x.shape[0]} patches < n_clusters={self.n_clusters}; "
-                  f"empty clusters zero-padded", file=sys.stderr)
-            cf = torch.nan_to_num(cf)
+        with span("serve.kmeans"):
+            if isinstance(feats, np.ndarray):
+                self.io_stats["bytes_uploaded"] += feats.nbytes
+            x = torch.as_tensor(feats)
+            if x.device.type != self.device.type:
+                count("host_syncs")  # a blocking copy from pageable memory
+            with span("serve.upload", bytes=x.nbytes):
+                x = x.to(self.device).float()
+            mask = torch.ones((x.shape[0],), dtype=torch.bool, device=self.device)
+            gen = torch.Generator(device=self.device).manual_seed(self.kmeans_seed)
+            _, labels, _, _ = km.kmeans_fit(x, mask, gen, n_clusters=self.n_clusters,
+                                            use_pallas=self.use_pallas)
+            with span("kmeans.means"):
+                cf = km.cluster_means(x, labels, mask, self.n_clusters)
+                if x.shape[0] < self.n_clusters:
+                    # small slide: some clusters are necessarily empty (NaN
+                    # means); zero-pad them as the reference's <100-token windows
+                    print(f"serve: {x.shape[0]} patches < n_clusters={self.n_clusters}; "
+                          f"empty clusters zero-padded", file=sys.stderr)
+                    cf = torch.nan_to_num(cf)
         return cf
 
     @torch.no_grad()
     def predict_cluster_features(self, cf) -> np.ndarray:
-        """(N, D) or (B, N, D) cluster features -> fold-averaged (B, G)."""
-        cf = torch.as_tensor(cf).to(self.device).float()
-        if cf.ndim == 2:
-            cf = cf[None]
-        preds = []
-        for i, (cfg, params) in enumerate(self.vis_models):
-            if self._packed is None:
-                preds.append(self._applies[i](params, cf))
-            else:
-                preds.append(torch.cat([
-                    cuda_vis.vis_apply_fused(cfg, params, self._packed[i], cf[b:b + 1])
-                    for b in range(cf.shape[0])]))
-        return torch.stack(preds).mean(0).cpu().numpy()
+        """(N, D) or (B, N, D) cluster features -> fold-averaged (B, G); the
+        spans ``serve.folds`` and ``serve.readback``."""
+        with span("serve.folds"):
+            cf = torch.as_tensor(cf).to(self.device).float()
+            if cf.ndim == 2:
+                cf = cf[None]
+            preds = []
+            for i, (cfg, params) in enumerate(self.vis_models):
+                if self._packed is None:
+                    preds.append(self._applies[i](params, cf))
+                else:
+                    preds.append(torch.cat([
+                        cuda_vis.vis_apply_fused(cfg, params, self._packed[i], cf[b:b + 1])
+                        for b in range(cf.shape[0])]))
+            genes = torch.stack(preds).mean(0)
+        with span("serve.readback"):
+            count("host_syncs")  # the genes' readback
+            return genes.cpu().numpy()
 
     def predict_features(self, feats) -> np.ndarray:
-        return self.predict_cluster_features(self.cluster(feats))
+        with span("serve.slide"):
+            return self.predict_cluster_features(self.cluster(feats))
 
     def predict_patches(self, patches_u8) -> np.ndarray:
-        return self.predict_features(self.extractor.features(patches_u8))
+        with span("serve.slide"):
+            return self.predict_features(self.extractor.features(patches_u8))
 
     # -- streaming --------------------------------------------------------
 
@@ -453,17 +473,20 @@ class SlidePredictor:
                 return "mosaic", layout
         return "rgb", rf
 
-    def _start_producer(self, wsi_path, force_rgb: bool = False):
+    def _start_producer(self, wsi_path, force_rgb: bool = False, request=None):
         """Start one slide's decode: the slide mask and candidate grid are
         computed here, on the caller's thread and the device, and the mode
         picked (:meth:`_pick_mode`); a daemon thread then decodes candidate
         chunks into a bounded queue of 4.  A slide that cannot be opened
         hands its error to the thread, which raises it into :meth:`_consume`
-        (per-slide quarantine).
+        (per-slide quarantine).  The candidates are the span
+        ``serve.candidates`` and each decoded chunk ``serve.decode`` on the
+        thread, both of ``request`` (the slide's, :func:`new_request`).
 
         Returns ``(queue, thread, err, stop, mode, arg)``."""
         try:
-            cands = self._candidates(wsi_path)
+            with span("serve.candidates", request=request):
+                cands = self._candidates(wsi_path)
             failure = None
         except Exception as e:
             cands, failure = None, e
@@ -488,8 +511,11 @@ class SlidePredictor:
             try:
                 if failure is not None:
                     raise failure
-                for chunk in chunks():
-                    if not put(chunk):
+                it = chunks()
+                while True:
+                    with span("serve.decode", request=request):
+                        chunk = next(it, None)
+                    if chunk is None or not put(chunk):
                         return
             except BaseException as e:  # propagate into the consumer
                 err.append(e)
@@ -511,13 +537,15 @@ class SlidePredictor:
     def _drain(q, t, err, stop, on_chunk) -> None:
         """Feed each of a producer's chunks to ``on_chunk`` until its
         sentinel or ``stop``; then stop and join the producer, whatever
-        happened, and raise its error (per-slide quarantine)."""
+        happened, and raise its error (per-slide quarantine).  The wait on
+        the queue is the span ``serve.decode_wait``."""
         try:
             while not stop.is_set():
                 # stop is only set on this thread (``on_chunk``, or the
                 # finally below), so checking it before q.get() never blocks
                 # on a producer that has already seen it and left
-                chunk = q.get()
+                with span("serve.decode_wait"):
+                    chunk = q.get()
                 if chunk is None or stop.is_set():
                     break
                 on_chunk(chunk)
@@ -544,11 +572,14 @@ class SlidePredictor:
     def _run_fused(self, fused, pieces, n: int):
         """One padded batch uploaded and run through a fused program:
         ``(features of its first n rows that pass the screen, their (n,)
-        keep flags)``, on the device; counts the n candidates."""
-        f, fl = fused(self.extractor.params, *(self._upload_counted(p) for p in pieces))
-        self.io_stats["candidates"] += n
-        fl = fl[:n]
-        return f[:n][fl], fl
+        keep flags)``, on the device; counts the n candidates.  The span
+        ``serve.backbone``."""
+        with span("serve.backbone", patches=n):
+            f, fl = fused(self.extractor.params, *(self._upload_counted(p) for p in pieces))
+            self.io_stats["candidates"] += n
+            fl = fl[:n]
+            count("host_syncs")  # the masked select sizes its output on the host
+            return f[:n][fl], fl
 
     @torch.no_grad()
     def _consume(self, q, t, err, stop, mode: str, arg) -> np.ndarray:
@@ -579,8 +610,9 @@ class SlidePredictor:
                 if fused is not None:
                     take = self._run_fused(fused, pieces, n)[0][:self.max_patches - kept]
                 else:  # screened, resized and capped on arrival
-                    take = self.extractor.raw_fwd(self.extractor.params,
-                                                  self._upload_counted(pieces[0]))[:n]
+                    block = self._upload_counted(pieces[0])
+                    with span("serve.backbone", patches=n):
+                        take = self.extractor.raw_fwd(self.extractor.params, block)[:n]
                 kept += len(take)
                 self.io_stats["kept"] += len(take)
                 if len(take):
@@ -637,6 +669,7 @@ class SlidePredictor:
 
         def smallest(kfeat, korig, keep: int):
             order = np.argsort(korig, kind="stable")[:keep]
+            count("host_syncs")  # a blocking upload of the order
             return kfeat[torch.as_tensor(order, device=self.device)], korig[order]
 
         def on_chunk(chunk) -> None:
@@ -651,6 +684,7 @@ class SlidePredictor:
             for s, n, pieces in self._batches((idx, offs, wh), fill):
                 f, fl = self._run_fused(lambda p, *xs: prog(p, tiles, *xs), pieces, n)
                 kfeat = torch.cat([kfeat, f])
+                count("host_syncs")  # the flags' readback
                 korig = np.concatenate([korig, orig[s:s + n][fl.cpu().numpy()]])
                 if len(korig) > 2 * self.max_patches:
                     kfeat, korig = smallest(kfeat, korig, self.max_patches)
@@ -663,21 +697,26 @@ class SlidePredictor:
     def predict_wsi(self, wsi_path) -> np.ndarray:
         """Streaming slide inference: decode on a producer thread, screen and
         featurise on the device, then k-means and the fold ensemble."""
-        return self._consume_retrying(wsi_path, self._start_producer(wsi_path))
+        request = new_request()
+        return self._consume_retrying(
+            wsi_path, self._start_producer(wsi_path, request=request), request)
 
-    def _consume_retrying(self, wsi_path, producer) -> np.ndarray:
+    def _consume_retrying(self, wsi_path, producer, request=None) -> np.ndarray:
         """:meth:`_consume`, with one retry in ``'rgb'`` when a raw-plane
         slide (``'ycbcr'``/``'mosaic'``) fails with ``OSError``.  The raw
         read is strict, so a corrupt tile fails loudly instead of feeding
         wrong planes past the screen; the RGB decode of the same slide
         still serves it (the native reader decodes a bad tile black and the
-        screen drops it, as the reference gets from OpenSlide)."""
-        try:
-            return self._consume(*producer)
-        except OSError:
-            if producer[4] not in ("ycbcr", "mosaic"):
-                raise
-            return self._consume(*self._start_producer(wsi_path, force_rgb=True))
+        screen drops it, as the reference gets from OpenSlide).  The span
+        ``serve.slide`` of ``request``, the one the producer was given."""
+        with span("serve.slide", request=request):
+            try:
+                return self._consume(*producer)
+            except OSError:
+                if producer[4] not in ("ycbcr", "mosaic"):
+                    raise
+                return self._consume(*self._start_producer(wsi_path, force_rgb=True,
+                                                           request=request))
 
     def predict_slides(self, wsi_paths, on_error=None):
         """Cross-slide pipelined serving: while the device works on slide i,
@@ -689,13 +728,15 @@ class SlidePredictor:
         paths = list(wsi_paths)
         if not paths:
             return
-        producer = self._start_producer(paths[0])
+        requests = [new_request() for _ in paths]
+        producer = self._start_producer(paths[0], request=requests[0])
         nxt = None
         try:
             for i, path in enumerate(paths):
-                nxt = self._start_producer(paths[i + 1]) if i + 1 < len(paths) else None
+                nxt = (self._start_producer(paths[i + 1], request=requests[i + 1])
+                       if i + 1 < len(paths) else None)
                 try:
-                    out = self._consume_retrying(path, producer)
+                    out = self._consume_retrying(path, producer, requests[i])
                 except Exception as e:
                     if on_error is None:
                         raise

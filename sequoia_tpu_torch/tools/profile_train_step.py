@@ -11,7 +11,17 @@ Counterpart of ``tools/profile_train_step.py``, with its keys:
 * HE2RNA (reference ``src/he2rna.py:108-127``): the train step
   (``train/he2rna_fit.make_he2rna_step_fns``, Adam, Dropout(0.5)) at each
   fixed k of the sweep (1, 2, 5, 10, 20, 50, 100) and with k drawn per step,
-  as the real loop does.
+  as the real loop does;
+* the loop (``loop``, this port's own): one epoch of ``train/loop.train``
+  over ViS batches of the production shape, after a warm-up epoch, under a
+  ``torch.profiler`` session, reported as the loop's spans
+  (``utils/profiling``: ``train.batch_wait``, ``train.upload`` on the reader
+  thread, ``train.step`` with ``train.forward``, ``train.backward`` and
+  ``train.optimizer``, ``train.eval_step``, ``train.readback``,
+  ``train.snapshot``): ``profiling.summary()`` and each span's host, self
+  and device ms per call; ``--spans PATH`` writes the summary and every
+  span's record (``profiling.records()``, with the request, the batch, that
+  ties each upload to its step) there as JSON.
 
 Each piece is timed with CUDA events around K chained calls after a warm-up
 (ms per call); ``full_step_dispatched_ms`` is the host clock over the same
@@ -22,7 +32,8 @@ peaks: 3.35 TB/s and 989 TFLOP/s in bf16 (``mxu_floor_ms`` keeps the JAX
 key's name and means the H100 tensor-core floor).  The trainers launch none
 of K1-K5, as in the JAX package.  Prints one JSON dict.
 
-    python -m sequoia_tpu_torch.tools.profile_train_step [vis|he2rna|all] [--device cpu]
+    python -m sequoia_tpu_torch.tools.profile_train_step [vis|he2rna|loop|all] [--device cpu]
+        [--spans PATH]
 
 On ``--device cpu`` the times are host times of the CPU's kernels.
 """
@@ -38,10 +49,12 @@ import time
 import numpy as np
 import torch
 
+from sequoia_tpu_torch.data.dataset import Batch
 from sequoia_tpu_torch.models import he2rna, vis
 from sequoia_tpu_torch.ops import stats
 from sequoia_tpu_torch.ops.nn import layer_norm, linear, precision
 from sequoia_tpu_torch.train import he2rna_fit, loop
+from sequoia_tpu_torch.utils import profiling
 from sequoia_tpu_torch.utils.device import resolve_device
 
 B, T, D, G = 16, 100, 2048, 20820
@@ -215,10 +228,58 @@ def profile_he2rna(batch: int = B, tokens: int = T, dim: int = D, genes: int = G
     return out
 
 
+def profile_loop(batch: int = B, tokens: int = T, dim: int = D, genes: int = G, *,
+                 depth: int = 6, nheads: int = 16, head_dim: int = 64,
+                 train_batches: int = STEPS, val_batches: int = 5, device=None) -> dict:
+    """``profiling.summary()`` of one profiled epoch of ``loop.train`` (the
+    ViS at bf16 blocks, AdamW, the loop's default prefetch), with
+    ``per_call_ms``: each span's host, self and device ms over its count,
+    ``epoch_ms`` on the host clock, and the spans' ``records``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device(device)
+    cfg = vis.ViSConfig(num_outputs=genes, input_dim=dim, depth=depth, nheads=nheads,
+                        dim_f=head_dim, dim_s=head_dim, dim_c=head_dim, num_clusters=tokens,
+                        compute_dtype="bfloat16")
+    rng = np.random.default_rng(44)
+
+    def batches(n):
+        return [Batch(rng.standard_normal((batch, tokens, dim), np.float32),
+                      rng.standard_normal((batch, genes), np.float32),
+                      np.ones(batch, bool), ["w"] * batch, ["p"] * batch) for _ in range(n)]
+
+    loaders = {"train": batches(train_batches), "val": batches(val_batches)}
+    params = vis.init(cfg, torch.Generator().manual_seed(0))
+
+    def epoch():
+        loop.train(lambda p, x: vis.apply(cfg, p, x), params,
+                   lambda p: loop.make_adamw(p, 1e-3), loaders, num_epochs=1,
+                   verbose=False, device=dev)
+
+    epoch()  # warm-up: allocations, first calls
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    profiling.clear()
+    with profile(activities=acts):
+        t0 = time.perf_counter()
+        epoch()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+    out = profiling.summary()
+    out["per_call_ms"] = {name: {k: a[k] / a["count"] for k in
+                                 ("host_ms", "self_host_ms", "device_ms")}
+                          for name, a in out["spans"].items()}
+    out["epoch_ms"] = epoch_ms
+    out["records"] = profiling.records()
+    profiling.clear()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("which", nargs="?", default="all", choices=["all", "vis", "he2rna"])
+    ap.add_argument("which", nargs="?", default="all",
+                    choices=["all", "vis", "he2rna", "loop"])
     ap.add_argument("--device", default=None, help="cuda (default; raises without CUDA) or cpu")
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="write the loop's span summary and records here as JSON")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -229,6 +290,12 @@ def main(argv=None) -> None:
         res["vis"] = profile_vis(device=dev)
     if args.which in ("all", "he2rna"):
         res["he2rna"] = profile_he2rna(device=dev)
+    if args.which in ("all", "loop"):
+        res["loop"] = profile_loop(device=dev)
+        records = res["loop"].pop("records")
+        if args.spans:
+            with open(args.spans, "w") as f:
+                json.dump(dict(res["loop"], records=records), f)
     print(json.dumps(res), flush=True)
 
 

@@ -38,6 +38,7 @@ from sequoia_tpu_torch.data.dataset import BatchLoader, prefetch
 from sequoia_tpu_torch.ops import stats
 from sequoia_tpu_torch.ops.nn import compute_dtype
 from sequoia_tpu_torch.utils.device import resolve_device, tree_to
+from sequoia_tpu_torch.utils.profiling import current_request, in_request, span
 
 BETAS, EPS = (0.9, 0.999), 1e-8
 TRAIN_METRICS = ("loss", "mae", "corr")
@@ -168,15 +169,16 @@ class LowMemAdamW(torch.optim.Optimizer):
 
 def make_eval_step(apply_fn: Callable):
     """``eval_step(params, feats, rna, valid) -> (pred, metrics)``, metrics
-    as 0-d tensors on the device."""
+    as 0-d tensors on the device; the span ``train.eval_step``."""
 
     @torch.no_grad()
     def eval_step(params, feats, rna, valid):
-        pred = apply_fn(params, feats)
-        return pred, {"loss": stats.masked_mse(pred, rna, valid),
-                      "mae": stats.masked_mae(pred, rna, valid),
-                      "corr": stats.mean_correlation(pred, rna, valid),
-                      "smape": stats.masked_smape(pred, rna, valid)}
+        with span("train.eval_step"):
+            pred = apply_fn(params, feats)
+            return pred, {"loss": stats.masked_mse(pred, rna, valid),
+                          "mae": stats.masked_mae(pred, rna, valid),
+                          "corr": stats.mean_correlation(pred, rna, valid),
+                          "smape": stats.masked_smape(pred, rna, valid)}
 
     return eval_step
 
@@ -186,18 +188,24 @@ def make_step_fns(apply_fn: Callable, optimizer: torch.optim.Optimizer):
     (ViS, ViT).  ``train_step(params, feats, rna, valid) -> metrics``: the
     masked MSE's backward and one step of ``optimizer``, which must hold the
     leaves of ``params`` (it updates them in place); the metrics are those
-    of the forward before the update, on the device."""
+    of the forward before the update, on the device.  The span
+    ``train.step`` holds ``train.forward``, ``train.backward`` and
+    ``train.optimizer``."""
 
     def train_step(params, feats, rna, valid):
-        optimizer.zero_grad(set_to_none=True)
-        pred = apply_fn(params, feats)
-        loss = stats.masked_mse(pred, rna, valid)
-        with torch.no_grad():
-            out = pred.detach()
-            metrics = {"loss": loss.detach(), "mae": stats.masked_mae(out, rna, valid),
-                       "corr": stats.mean_correlation(out, rna, valid)}
-        loss.backward()
-        optimizer.step()
+        with span("train.step"):
+            with span("train.forward"):
+                optimizer.zero_grad(set_to_none=True)
+                pred = apply_fn(params, feats)
+                loss = stats.masked_mse(pred, rna, valid)
+                with torch.no_grad():
+                    out = pred.detach()
+                    metrics = {"loss": loss.detach(), "mae": stats.masked_mae(out, rna, valid),
+                               "corr": stats.mean_correlation(out, rna, valid)}
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                optimizer.step()
         return metrics
 
     return train_step, make_eval_step(apply_fn)
@@ -387,10 +395,11 @@ def _uploader(dev: torch.device, feat_dtype: torch.dtype | None, mesh=None):
 
 def _phase_means(rows: list, keys) -> dict:
     """The epoch phase's means of the per-batch metrics: one host read of
-    all of them."""
+    all of them (the span ``train.readback``)."""
     if not rows:
         return {k: np.nan for k in keys}
-    vals = torch.stack(rows).cpu().numpy()  # (batches, metrics) f32
+    with span("train.readback"):
+        vals = torch.stack(rows).cpu().numpy()  # (batches, metrics) f32
     return {k: float(np.mean(vals[:, j])) for j, k in enumerate(keys)}
 
 
@@ -508,6 +517,10 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
             print(f"resumed training state from {state_path} at epoch {start_epoch}")
 
     def save(p, epoch):
+        with span("train.snapshot"):
+            _save(p, epoch)
+
+    def _save(p, epoch):
         nonlocal best_params, best_epoch
         if mesh is not None:
             best_params = whole(p)
@@ -530,22 +543,34 @@ def train(apply_fn, params, optimizer, loaders: dict[str, BatchLoader], *,
 
     to_device = _uploader(dev, compute_dtype(h2d_dtype) if h2d_dtype else None, mesh)
 
+    def upload(batch):
+        """``(request, uploaded batch)``: the span ``train.upload``, on the
+        reader thread a request of its own, which the batch's step keeps."""
+        with span("train.upload"):
+            return current_request(), to_device(batch)
+
     for epoch in range(start_epoch, num_epochs):
         epoch_metrics: dict[str, dict[str, float]] = {}
         for phase in phases:
             rows: list = []
             keys = TRAIN_METRICS if phase == "train" else EVAL_METRICS
             # the reader thread uploads batch i+1 while batch i steps
-            batches = (prefetch(loaders[phase], depth=prefetch_depth, transform=to_device)
-                       if prefetch_depth else map(to_device, loaders[phase]))
+            batches = (prefetch(loaders[phase], depth=prefetch_depth, transform=upload)
+                       if prefetch_depth else map(upload, loaders[phase]))
             try:
-                for item in batches:
+                while True:
+                    with span("train.batch_wait"):
+                        got = next(batches, None)
+                    if got is None:
+                        break
+                    request, item = got
                     if item is None:
                         continue
-                    if phase == "train":
-                        m = train_step(params, *item)
-                    else:
-                        _, m = eval_step(params, *item)
+                    with in_request(request):
+                        if phase == "train":
+                            m = train_step(params, *item)
+                        else:
+                            _, m = eval_step(params, *item)
                     rows.append(torch.stack([m[k] for k in keys]))
             finally:
                 # an exception mid-epoch must not strand the reader thread

@@ -56,8 +56,8 @@ def _tracking(pred):
     started = []
     orig = pred._start_producer
 
-    def start(path):
-        tup = orig(path)
+    def start(path, **kw):
+        tup = orig(path, **kw)
         started.append(tup)
         return tup
 

@@ -157,6 +157,8 @@ def test_entry_points_need_cuda_or_cpu(monkeypatch):
         pts.profile_vis(batch=1, tokens=2, dim=8, genes=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         pts.profile_he2rna(batch=1, tokens=2, dim=8, genes=2, ks=(1,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pts.profile_loop(batch=1, tokens=2, dim=8, genes=2)
 
 
 # ---------------------------------------------------------------------------
@@ -206,3 +208,35 @@ def test_profile_he2rna_keys_and_floors():
     assert math.isfinite(res["random_k_device_ms"])
     assert res["bwd_onehot_tf_at_k"] == {k: round(2 * 2 * 10 * k * 100 / 1e12, 3)
                                          for k in pts.HE2RNA_KS}
+
+
+TRAIN_SPANS = ("train.batch_wait", "train.upload", "train.step", "train.forward",
+               "train.backward", "train.optimizer", "train.eval_step", "train.readback",
+               "train.snapshot")
+
+
+def test_profile_loop_reports_every_train_span(tmp_path, monkeypatch):
+    """The loop's profile: every span of ``loop.train`` with its calls (3
+    training and 2 validation batches), per-call means of the summary, and
+    through ``main --spans`` the records that tie each upload to its step."""
+    import functools
+
+    small = functools.partial(pts.profile_loop, batch=2, tokens=4, dim=16, genes=6, depth=1,
+                              nheads=2, head_dim=4, train_batches=3, val_batches=2)
+    res = small(device="cpu")
+    assert set(TRAIN_SPANS) <= set(res["spans"])
+    calls = {k: res["spans"][k]["count"] for k in TRAIN_SPANS}
+    assert calls == {"train.batch_wait": 3 + 2 + 2, "train.upload": 5, "train.step": 3,
+                     "train.forward": 3, "train.backward": 3, "train.optimizer": 3,
+                     "train.eval_step": 2, "train.readback": 2, "train.snapshot": 1}
+    for name, a in res["spans"].items():
+        assert res["per_call_ms"][name]["host_ms"] == pytest.approx(a["host_ms"] / a["count"])
+    assert res["epoch_ms"] >= res["spans"]["train.step"]["host_ms"] > 0
+    monkeypatch.setattr(pts, "profile_loop", small)
+    out = tmp_path / "spans.json"
+    pts.main(["loop", "--device", "cpu", "--spans", str(out)])
+    got = json.loads(out.read_text())
+    ups = [r for r in got["records"] if r["name"] == "train.upload"]
+    steps = [r for r in got["records"] if r["name"] in ("train.step", "train.eval_step")]
+    assert sorted(r["request"] for r in ups) == sorted(r["request"] for r in steps)
+    assert got["spans"].keys() == res["spans"].keys()
