@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only stem16,vis_blocks_fused   # phases 1-3 for these
     python3 chip_smoke.py --only stem16,bottleneck_chain_cp   # the f32 K2, K3 rows too
     python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
+    python3 chip_smoke.py --only kmeans_seed   # phases 1-2, the kmeans++ kernel's line
     python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
     python3 chip_smoke.py --only train_path    # phases 1-2 and 8
     python3 chip_smoke.py --only aggregators_path   # phases 1-2 and 9
@@ -41,7 +42,14 @@ Phases, each printing one JSON line:
    from one seeding on near-equal features: steps, what kept each alive,
    labels equal to the f64 fit's) and a ``lloyd_step`` line (one K5-mode
    Lloyd step: K5's device time against the rest of the step and the host
-   sync).  K1 and K2 (bf16: the tensor-core kernels of
+   sync).  A ``kmeans_seed`` line: the kmeans++ kernel
+   (``kmeans_seed.cu``, one launch a fit) against its plain mirror on the
+   same uniforms at (4096, 2048), (4000, 1024) and (500, 2048) with 64
+   masked padding rows and at (60, 2048), k = 100, 20 seeds each: equal
+   indices and centers, any parting only where a pick's race is within
+   1e-12 of a tie; its ms, bound (the larger of its bytes and k picks at
+   the least time a pick of any shape) and launches a fit.  K1 and K2
+   (bf16: the tensor-core kernels of
    ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: their 3xTF32 tensor-core
    kernels in the same sources) also report their share of the bound, GB/s
    and TFLOP/s, and are checked at off-path edge shapes (K1 in bf16: 7 and
@@ -335,6 +343,12 @@ VIS_EDGES = ((7, 512, 8), (130, 512, 8))
 VIS_WIDE_HEADS = ((8, 128), (8, 96))
 # K5 past one 128-center tile: k at the main path's (4096, 2048)
 LLOYD_WIDE_K = (129, 200, 256)
+# kmeans_seed against its plain mirror at k = K: (points, width, masked padding
+# rows), seeds a shape, and how near a tie (a share of the lesser score) a
+# pick's race must be where the two pick apart (their f64 sums of d2 differ
+# in order only)
+SEED_SHAPES = ((PATCHES, D, 64), (4000, 1024, 64), (500, D, 64), (SMALL_SLIDE, D, 0))
+SEED_SEEDS, SEED_TIE = 20, 1e-12
 STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
 # the UNI path: feature width, the UNI_SCAN_CHUNK sweep, the LayerScale
 # gammas of the random weights, and bf16 features against f32 on one batch:
@@ -356,6 +370,9 @@ ADAMW_BYTES = {"float32": 28, "bfloat16": 20}
 # larger of bytes / HBM rate and operations / peak rate for their type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
+# the rate of a read that hits the 50 MB L2 (no data-sheet figure; taken
+# high, as a bound should be): kmeans_seed's passes after the first
+L2_BYTES_PER_S = 8e12
 
 # kernel vs plain version on the same inputs: max |kernel - plain| / max |plain|.
 # f32: the two sum in different orders (f32 rounding only).  bf16: both round
@@ -388,6 +405,8 @@ SOURCES = {
                          "sequoia_tpu/ops/pallas_resnet.py:151"),
     "lloyd_stats": ("sequoia_tpu_torch/csrc/lloyd_wgmma.cu",
                     "sequoia_tpu/ops/pallas_kmeans.py:81"),
+    "kmeans_seed": ("sequoia_tpu_torch/csrc/kmeans_seed.cu",
+                    "no TPU kernel: sequoia_tpu/ops/kmeans.py:40 (XLA)"),
 }
 
 
@@ -414,17 +433,22 @@ def launch_gaps(torch, fn, match: str) -> dict:
     """One call of fn traced with torch.profiler: its device kernels whose
     name holds ``match``, their count, the span from the first start to the
     last end, and the gaps between one kernel's end and the next one's start
-    (negative where programmatic dependent launch lets them overlap)."""
+    (negative where programmatic dependent launch lets them overlap).  A
+    trace that comes back without the kernel's events (the profiler has
+    dropped them once in a run) is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                if e.device_type == DeviceType.CUDA and match in e.name)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and match in e.name)
+        if ev:
+            break
     if not ev:
         raise AssertionError(f"profile: no device kernel named *{match}* in the trace")
     gaps = [b[0] - a[1] for a, b in zip(ev, ev[1:])] or [0.0]
@@ -701,6 +725,8 @@ def slide_costs(rows: dict, totals: dict, launches: dict) -> dict:
             calls = n / K3_LAYER1_LAUNCHES
         elif k == "lloyd_stats":  # one fit a slide: its plan, then the Lloyd steps
             calls = (n - r["launches_per_fit"]) / r["launches_per_call"]
+        elif k == "kmeans_seed":  # one launch a fit
+            calls = n / r["launches_per_fit"]
         else:
             calls = n / r.get("launches_per_call", 1)
         out[k] = {"calls": calls, "ms": ms, "bound_ms": bound,
@@ -906,6 +932,97 @@ def check_lloyd_k(torch, dev, k: int, dim: int = D) -> dict:
         res["kmeans_fit"] = {"steps": fits[True][3], "plain_steps": fits[False][3],
                              "labels_equal_plain": same, "slide_predictor_cluster": list(cf.shape)}
     return res
+
+
+def seed_tie_gap(torch, x, mask, u, idx, i: int, a: int, b: int) -> float:
+    """How near pick i's race is to a tie between rows a and b: the gap
+    between their scores (race draw over weight) over the lesser, with the
+    weights the plain mirror gives after the picks idx[:i] (recomputed in
+    f64).  A row without weight scores inf."""
+    from sequoia_tpu_torch.ops import cuda_kmeans as ck
+
+    x64 = x.double()
+    w = mask.double()
+    if i:
+        d2 = torch.full((x.shape[0],), float("inf"), dtype=torch.float64, device=x.device)
+        for j in idx[:i].tolist():
+            d2 = torch.minimum(d2, ((x64 - x64[j]) ** 2).sum(1))
+        dw = torch.where(mask & (d2 > 0), d2, 0.0)
+        w = dw if bool(dw.sum() > 0) else w
+    e = ck.race_exp(u.contiguous().view(torch.int64)[i:i + 1], x.shape[0])[0]
+    sa, sb = (float(e[r] / w[r]) if float(w[r]) > 0 else float("inf") for r in (a, b))
+    return abs(sa - sb) / min(sa, sb)
+
+
+def check_kmeans_seed(torch, dev) -> dict:
+    """kmeans_seed (csrc/kmeans_seed.cu) against its plain mirror on the same
+    uniforms: clustered points with 8 duplicates of a row and masked padding
+    rows, k = K, SEED_SEEDS seeds a shape (the last shape has fewer rows
+    than centers).  Indices and centers equal, no masked row drawn, and
+    where the two part, the pick's race within SEED_TIE of a tie between
+    their rows (later picks then differ by design).  Times at each shape, launches a
+    fit, and the bound: the larger of the k - 1 distance passes over x (the
+    first from HBM, the rest from the L2, which holds x) and k picks at the
+    per-pick latency, the least time a pick of any shape (at every shape
+    the bytes are the lesser: a grid barrier and the dependent reads around
+    it a pick)."""
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.ops import cuda_kmeans as ck
+
+    rows = []
+    for n, dim, pad in SEED_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(40 + n + dim)
+        true = torch.randn((K, dim), generator=g, device=dev)
+        lab = torch.randint(0, K, (n,), generator=g, device=dev)
+        x = true[lab] + 0.1 * torch.randn((n, dim), generator=g, device=dev)
+        x[1:9] = x[0]
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        if pad:
+            mask[-pad:] = False
+        parted, worst, err = 0, 0.0, 0.0
+        for seed in range(SEED_SEEDS):
+            u = torch.rand(K, generator=torch.Generator(device=dev).manual_seed(seed),
+                           dtype=torch.float64, device=dev)
+            (c1, i1), (c2, i2) = ck.kmeans_seed(x, mask, u), ck.kmeans_seed_plain(x, mask, u)
+            if not bool(mask[i1].all()) or not torch.equal(c1, x[i1]):
+                raise AssertionError(f"kmeans_seed {n}x{dim} seed {seed}: a masked row drawn, "
+                                     "or centers that are not the drawn rows")
+            apart = (i1 != i2).nonzero()
+            m = int(apart[0]) if apart.numel() else K
+            if not torch.equal(c1[:m], c2[:m]):
+                raise AssertionError(f"kmeans_seed {n}x{dim} seed {seed}: centers differ")
+            err = max(err, float((c1[:m] - c2[:m]).abs().max()) if m else 0.0)
+            if m < K:
+                gap = seed_tie_gap(torch, x, mask, u, i2, m, int(i1[m]), int(i2[m]))
+                worst = max(worst, gap)
+                parted += 1
+                if gap > SEED_TIE:
+                    raise AssertionError(f"kmeans_seed {n}x{dim} seed {seed}: pick {m} is "
+                                         f"{int(i1[m])}, the mirror's {int(i2[m])}, their "
+                                         f"scores {gap:.3g} apart")
+        u = torch.rand(K, generator=torch.Generator(device=dev).manual_seed(0),
+                       dtype=torch.float64, device=dev)
+        before = _build.LAUNCHES["kmeans_seed"]
+        ck.kmeans_seed(x, mask, u)
+        launches = _build.LAUNCHES["kmeans_seed"] - before
+        ms = time_ms(torch, lambda: ck.kmeans_seed(x, mask, u), 20)
+        pass_bytes = n * dim * 4
+        rows.append({"points": n, "dim": dim, "masked": pad, "k": K, "seeds": SEED_SEEDS,
+                     "seeds_parted": parted, "worst_tie_gap": worst, "tie_tol": SEED_TIE,
+                     "max_abs_err": err, "launches_per_fit": launches, "ms": ms,
+                     "bytes_ms": (pass_bytes / HBM_BYTES_PER_S
+                                  + (K - 2) * pass_bytes / L2_BYTES_PER_S) * 1e3,
+                     "plain_ms": time_ms(torch, lambda: ck.kmeans_seed_plain(x, mask, u), 3)})
+        if launches != 1:
+            raise AssertionError(f"kmeans_seed: {launches} launches a fit")
+    pick_ms = min(r["ms"] for r in rows) / K
+    for r in rows:
+        r["bound_ms"] = max(r["bytes_ms"], K * pick_ms)
+        r["bound_by"] = "bytes" if r["bytes_ms"] >= K * pick_ms else "latency"
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+    return {"shapes": rows, "pick_us": pick_ms * 1e3, "library_ms": None,
+            **{k: rows[0][k] for k in ("ms", "bound_ms", "bound_by", "bound_share",
+                                       "plain_ms", "max_abs_err", "launches_per_fit")}}
 
 
 def lloyd_backends(torch, km, x, mask, init, max_iter: int = 300) -> dict:
@@ -1159,7 +1276,7 @@ def main_path(torch, dev, rparams, folds) -> tuple[dict, dict]:
         per_slide[n] = {k: _build.LAUNCHES[k] - before[k] for k in before}
     launches = dict(_build.LAUNCHES)
     check_launched(launches, ("stem16", "bottleneck_chain_cp", "vis_blocks_fused",
-                              "lloyd_stats"), "main path")
+                              "lloyd_stats", "kmeans_seed"), "main path")
 
     for n, u8 in slides.items():
         y = preds[n]
@@ -1211,7 +1328,7 @@ def main_path(torch, dev, rparams, folds) -> tuple[dict, dict]:
         # of kmeans_s is the Lloyd loop, one host sync per step
         mask = torch.ones((f.shape[0],), dtype=torch.bool, device=dev)
         stage("kmeans_seeding_s", km.kmeans_fit, f, mask,
-              torch.Generator(device=dev).manual_seed(0), K, 0)
+              torch.Generator(device=dev).manual_seed(0), K, 0, 1e-4, p.use_pallas)
         stage("vis_folds_s", p.predict_cluster_features, cf)
         gen = lambda: torch.Generator(device=dev).manual_seed(p.kmeans_seed)  # noqa: E731
         # the steps of the fit p.cluster ran (kmeans_fit draws the same seeding)
@@ -1243,7 +1360,7 @@ def main_path_f32(torch, dev, rparams, folds) -> tuple[dict, dict]:
     from sequoia_tpu_torch.serve import SlidePredictor
 
     f32, kernels = torch.float32, ("stem16", "bottleneck_chain_cp", "lloyd_stats",
-                                   "vis_blocks_fused")
+                                   "kmeans_seed", "vis_blocks_fused")
     ffolds = [(dataclasses.replace(cfg, compute_dtype="float32"), p) for cfg, p in folds]
     g = torch.Generator(device=dev).manual_seed(6)  # main_path's first slide
     u8 = torch.randint(0, 256, (PATCHES, PATCH, PATCH, 3), generator=g, device=dev,
@@ -1400,8 +1517,8 @@ def wsi_path(torch, dev, rparams, folds) -> tuple[dict, list, dict]:
     _build.reset_launches()
     got = serve(fast, "kernels")
     launches = dict(_build.LAUNCHES)
-    check_launched(launches, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
-                   "WSI path")
+    check_launched(launches, ("bottleneck_chain", "lloyd_stats", "kmeans_seed",
+                              "vis_blocks_fused"), "WSI path")
     ref = serve(plain, "plain")
 
     for i in range(len(slides)):
@@ -1695,8 +1812,8 @@ def serve_cli_path(torch, dev, folds) -> dict:
         if writer is None:
             res["http"] = http_checks(torch, np, fast, genes, [], None)
             emit(res)
-            check_launched(launches, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
-                           "serve_cli path")
+            check_launched(launches, ("bottleneck_chain", "lloyd_stats", "kmeans_seed",
+                                      "vis_blocks_fused"), "serve_cli path")
             return launches
 
         paths = [os.path.join(tmp, f"slide{i}.tiff") for i in range(len(slides))]
@@ -1771,8 +1888,8 @@ def serve_cli_path(torch, dev, folds) -> dict:
         res["float32"] = serve_cli_f32(torch, np, cli, exp, paths[0], tmp)
         launches = {k: launches[k] + v for k, v in res["float32"]["launches"].items()}
         emit(res)
-        check_launched(launches, ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
-                       "serve_cli path")
+        check_launched(launches, ("bottleneck_chain", "lloyd_stats", "kmeans_seed",
+                                  "vis_blocks_fused"), "serve_cli path")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1807,7 +1924,7 @@ def serve_cli_f32(torch, np, cli, exp: str, path: str, tmp: str) -> dict:
            "pearson_r_vs_plain": pearson(np, y, want), "rtol": RAW_RTOL, "atol": RAW_ATOL,
            "launches": runs["kernels"]["launches"]}
     check_launched(res["kernels_launches"], ("bottleneck_chain", "lloyd_stats",
-                                             "vis_blocks_fused"), "serve_cli f32")
+                                             "kmeans_seed", "vis_blocks_fused"), "serve_cli f32")
     if any(res["plain_launches"].values()):
         raise AssertionError(f"serve_cli f32: --kernels off launched {res['plain_launches']}")
     if y.shape != want.shape or not np.isfinite(y).all() or not np.allclose(
@@ -3497,12 +3614,17 @@ def stage_kmeans(torch, dev, root: str, mem) -> tuple[dict, dict]:
                                             for cf in written[label]):
             raise AssertionError(f"stages_kmeans {label}: {got['slides']} slides")
         k5 = dev.type == "cuda" and kernels == "on"
-        if got["kernels"] != (["lloyd_stats"] if k5 else []) or \
-                (counts["lloyd_stats"] > 0) != k5:
-            raise AssertionError(f"stages_kmeans {label}: K5 launched "
-                                 f"{counts['lloyd_stats']} times")
+        seeded = k5 and backend == "device"  # hybrid seeds on the host
+        if got["kernels"] != (["lloyd_stats"] if k5 else []) + (["kmeans_seed"] if seeded
+                                                                else []) or \
+                (counts["lloyd_stats"] > 0) != k5 or \
+                counts["kmeans_seed"] != (len(ids) if seeded else 0):
+            raise AssertionError(f"stages_kmeans {label}: kernels {got['kernels']}, K5 "
+                                 f"launched {counts['lloyd_stats']} times, kmeans_seed "
+                                 f"{counts['kmeans_seed']}")
         res[label] = {"seconds": secs, "seconds_per_slide": secs / len(ids),
-                      "kernels": got["kernels"], "lloyd_stats_launches": counts["lloyd_stats"]}
+                      "kernels": got["kernels"], "lloyd_stats_launches": counts["lloyd_stats"],
+                      "kmeans_seed_launches": counts["kmeans_seed"]}
 
     again = cli.main(["--ref_file", ref, "--feature_path", os.path.join(root, "kmeans_hybrid_k5"),
                       "--backend", "hybrid"])
@@ -4967,8 +5089,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
-                    "for these alone) and/or uni_path (phase 7), train_path (phase 8), "
-                    "aggregators_path (phase 9), stages_path (phase 10), parallel_path "
+                    "for these alone; lloyd_stats, kmeans_seed) and/or uni_path (phase 7), "
+                    "train_path (phase 8), aggregators_path (phase 9), stages_path "
+                    "(phase 10), parallel_path "
                     "(phase 11), raw_planes_path (phase 12), tools_path (phase 13), "
                     "bench_path (phase 14), sync_path (phase 15); prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
@@ -5000,7 +5123,7 @@ def main() -> int:
               ("bottleneck_chain_cp", functools.partial(check_chain, kname="bottleneck_chain_cp")),
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
-    known = [k for k, _ in checks] + ["lloyd_stats", "uni_path", "train_path",
+    known = [k for k, _ in checks] + ["lloyd_stats", "kmeans_seed", "uni_path", "train_path",
                                       "aggregators_path", "stages_path", "parallel_path",
                                       "raw_planes_path", "tools_path", "bench_path",
                                       "sync_path"]
@@ -5032,6 +5155,10 @@ def main() -> int:
         emit({"phase": "lloyd_step", "points": PATCHES, "dim": D, "k": K,
               **lloyd_step_profile(torch, km, x, mask, init)})
         del x, mask, init
+    if not only or "kmeans_seed" in only:
+        r = check_kmeans_seed(torch, dev)
+        emit({"phase": "kernel", "name": "kmeans_seed", "dtype": "float32", **r})
+        results["kmeans_seed"] = r
     if only:
         if "uni_path" in only:
             emit({"phase": "uni_launches", **uni_path(torch, dev, [None, None])})
@@ -5092,7 +5219,8 @@ def main() -> int:
     launches = {k: main[k] + main32[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k]
                 + stages[k] + par[k] + tools[k] + benched[k] for k in results}
 
-    rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"]} for dt, r in by_dtype.items()}
+    rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"],
+                 "kmeans_seed": results["kmeans_seed"]} for dt, r in by_dtype.items()}
     emit({"phase": "slide_cost", "per": "slide",
           "from_patches": slide_costs(rows["bfloat16"], totals["bfloat16"], main_slide),
           "from_patches_f32": slide_costs(rows["float32"], totals["float32"], main32_slide),

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"vis_blocks_fused": 0, "stem16": 0,
                             "bottleneck_chain_cp": 0, "bottleneck_chain": 0,
-                            "lloyd_stats": 0}
+                            "lloyd_stats": 0, "kmeans_seed": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -52,6 +52,7 @@ _SIGNATURES = {
                      _P, _P, _P],
     "sq_stem_wgmma": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sq_stem_tf32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "sq_kmeans_seed": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None

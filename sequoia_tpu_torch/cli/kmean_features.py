@@ -53,8 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     p.add_argument("--kernels", default="on", choices=["on", "off"],
-                   help="run the Lloyd steps through the CUDA kernel K5 (on) or the plain "
-                        "PyTorch version")
+                   help="run the Lloyd steps through the CUDA kernel K5 and the device "
+                        "backend's kmeans++ through kmeans_seed (on), or the plain "
+                        "PyTorch versions")
     add_fleet_args(p)
     return p
 
@@ -77,8 +78,10 @@ def main(argv=None) -> dict:
     dev = multihost.fleet_device(args, dev)
     print(f"Number of slides = {df.shape[0]}")
 
-    kernels = (["lloyd_stats"] if dev.type == "cuda" and args.kernels == "on"
-               and args.backend != "sklearn" else [])
+    # K5 for the Lloyd steps; the device backend seeds through kmeans_seed too
+    kernels = ((["lloyd_stats"] + (["kmeans_seed"] if args.backend == "device" else []))
+               if dev.type == "cuda" and args.kernels == "on" and args.backend != "sklearn"
+               else [])
     print(f"kmean_features: {dev.type}, backend {args.backend}, kernels: "
           + (", ".join(kernels) or "none"), file=sys.stderr)
     done = kmeans_stage.run_kmeans(

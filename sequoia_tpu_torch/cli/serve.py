@@ -56,7 +56,8 @@ from sequoia_tpu_torch.utils.device import resolve_device
 
 #: the kernels the serving entry points run on CUDA: K4 in every ResNet
 #: stage (``fused_stages=(1, 2, 3, 4)``; the ResNet backbone only), K5 for
-#: every Lloyd step, K1 for the ViS folds' blocks
+#: every Lloyd step, K1 for the ViS folds' blocks.  ``lloyd_stats`` selects
+#: k-means' kernels, K5 and the kmeans++ seeding's ``kmeans_seed``
 SERVING_KERNELS = ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused")
 
 #: each aggregator's state-dict converter and panel slicer
@@ -204,7 +205,8 @@ def build_predictor(feat_type: str, weights: str, models, *, device=None,
     mesh = getattr(extractor, "mesh", None)
     line = (f"serve: {dev.type}"
             + (f" x{mesh.shape['data']} (data parallel)" if mesh else "")
-            + ", kernels: " + (", ".join(on) or "none (plain PyTorch)")
+            + ", kernels: " + (", ".join(on + ["kmeans_seed"] * ("lloyd_stats" in on))
+                               or "none (plain PyTorch)")
             + (f"; vis_blocks_fused left out: {why}" if why else ""))
     return pred, line
 

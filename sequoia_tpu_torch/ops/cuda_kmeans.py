@@ -27,6 +27,11 @@ Plain versions: :func:`lloyd_stats_tc_plain` mirrors the kernel's recipe
 (centering, TF32 rounding, the three products); :func:`lloyd_stats_plain` is
 the JAX kernel's uncentered f32 recipe, which CPU tensors run (the parity
 route against JAX).
+
+The kmeans++ seeding of a fit, :func:`kmeans_seed`, is one more kernel
+(``csrc/kmeans_seed.cu``, one launch a fit) with its plain mirror,
+:func:`kmeans_seed_plain`: D^2 sampling as an exponential race keyed by
+uniforms the caller draws, distances in f64.
 """
 
 from __future__ import annotations
@@ -172,3 +177,91 @@ class LloydPlan:
 def lloyd_stats(x: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor):
     """One fused Lloyd pass: ``(sums (K, D), counts (K,), inertia (), best (N,))``."""
     return LloydPlan(x, mask).stats(centers)[:4]
+
+
+#: splitmix64's constants as int64: the golden-ratio step and the two mixers
+_GOLDEN, _MIX1, _MIX2 = (c - (1 << 64) for c in (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9,
+                                                  0x94D049BB133111EB))
+
+
+def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 (``>>`` on int64 is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def race_exp(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(k, n) f64: row r's Exp(1) draw for each pick, keyed by ``keys`` (k,)
+    int64, the bits of the picks' uniforms: -log of ((z >> 11) + 1/2)
+    2^-53, z splitmix64 of key + (r + 1) times the golden step (int64
+    products wrap, as the kernel's unsigned ones do)."""
+    z = keys[:, None] + torch.arange(1, n + 1, dtype=torch.int64, device=keys.device) * _GOLDEN
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    z = z ^ _shr(z, 31)
+    return -torch.log((_shr(z, 11).double() + 0.5) * 2.0 ** -53)
+
+
+def kmeans_seed_plain(x: torch.Tensor, mask: torch.Tensor, u: torch.Tensor):
+    """kmeans++ (D^2 sampling, one draw a center) from the uniforms ``u``
+    (k,) f64: ``(centers (k, D), indices (k,) int64)``.  The weights: for
+    the first center the valid rows; for center i each row's least squared
+    distance to the centers so far (summed in f64), zero on masked rows and
+    on rows that hold a center already; where no weight is left, the valid
+    rows again.  The pick is an exponential race keyed by ``u[i]``: the row
+    with weight whose :func:`race_exp` draw over its weight is least (the
+    first on a tie), row r with probability w_r / T.  Unlike an inverse CDF
+    over the cumulative weights, a change in one row's weight moves the
+    pick only where it changes the winner, so the features' rounding seldom
+    changes the seeding.  No host sync.  The draws of all picks are made at
+    once, and the differences to a center go into one f64 buffer kept
+    across the picks."""
+    n, k = x.shape[0], u.shape[0]
+    x64 = x.double()
+    diff = torch.empty_like(x64)
+    valid = mask.to(torch.float64)
+    exp = race_exp(u.contiguous().view(torch.int64), n)
+    d2 = torch.full((n,), float("inf"), dtype=torch.float64, device=x.device)
+    idx = torch.empty((k,), dtype=torch.int64, device=x.device)
+    w = valid
+    for i in range(k):
+        if i:
+            torch.sub(x64, x64.index_select(0, idx[i - 1:i]), out=diff)
+            d2 = torch.minimum(d2, diff.square_().sum(1))
+            w = torch.where(mask & (d2 > 0), d2, 0.0)
+            w = torch.where(w.sum() > 0, w, valid)
+        score = torch.where(w > 0, exp[i] / w, float("inf"))
+        idx[i:i + 1] = torch.argmin(score, 0, keepdim=True)
+    return x.index_select(0, idx), idx
+
+
+def kmeans_seed(x: torch.Tensor, mask: torch.Tensor, u: torch.Tensor):
+    """:func:`kmeans_seed_plain`'s function in one launch of
+    ``csrc/kmeans_seed.cu``: CUDA tensors, x (N, D) f32 with D % 4 == 0,
+    16-byte aligned."""
+    if x.ndim != 2 or x.dtype != torch.float32:
+        raise TypeError(f"kmeans_seed: x must be (N, D) f32, got {x.dtype} {tuple(x.shape)}")
+    n, d = x.shape
+    if mask.shape != (n,) or u.ndim != 1 or u.dtype != torch.float64:
+        raise ValueError(f"kmeans_seed: x {tuple(x.shape)}, mask {tuple(mask.shape)}, "
+                         f"u {u.dtype} {tuple(u.shape)}")
+    if not (x.is_cuda and mask.device == x.device and u.device == x.device):
+        raise ValueError(f"kmeans_seed kernel needs its operands on one CUDA device, got "
+                         f"{x.device}, {mask.device}, {u.device}")
+    k = u.shape[0]
+    if n < 1 or k < 1:
+        raise ValueError(f"kmeans_seed kernel needs a row and a center, got N={n}, k={k}")
+    if d % 4:
+        raise ValueError(f"kmeans_seed kernel needs D % 4 == 0 (16-byte rows), got {d}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("kmeans_seed kernel needs x 16-byte aligned")
+    mask, u = mask.to(torch.bool).contiguous(), u.contiguous()
+    centers = torch.empty((k, d), dtype=torch.float32, device=x.device)
+    idx = torch.empty((k,), dtype=torch.int64, device=x.device)
+    ws = torch.empty((8 * n,), dtype=torch.float64, device=x.device)
+    rc = _build.library().sq_kmeans_seed(
+        x.data_ptr(), mask.data_ptr(), u.data_ptr(), n, d, k, centers.data_ptr(),
+        idx.data_ptr(), ws.data_ptr(), _build.stream_ptr(x))
+    _build.check(rc, "kmeans_seed")
+    _build.count_launch("kmeans_seed")
+    return centers, idx

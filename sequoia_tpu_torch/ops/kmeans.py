@@ -13,12 +13,15 @@ Differences of form from the JAX module:
 * ``jax.lax.top_k`` (index order on ties) is a stable descending sort;
 * the final donor repair runs on the host in numpy, and only when the final
   assignment left a cluster empty (otherwise it changes nothing);
-* the RNG is a ``torch.Generator``: seeded centers differ from JAX's, so
-  :func:`kmeans_fit` agrees with JAX in inertia, and :func:`kmeans_lloyd`
-  from shared centers agrees exactly.
+* the RNG is a ``torch.Generator``: kmeans++ draws its k uniforms at once
+  and picks each center by an exponential race on the D^2 mass keyed by
+  one of them (JAX's ``categorical`` draws from the same distribution with
+  another stream), so :func:`kmeans_fit` agrees with JAX in inertia, and
+  :func:`kmeans_lloyd` from shared centers agrees exactly.
 
-``use_pallas=True`` (the JAX flag name) runs the fit through the K5 kernel:
-one ``ops/cuda_kmeans.LloydPlan`` per fit, whose stats give every step and
+``use_pallas=True`` (the JAX flag name) runs the fit through the kernels:
+the seeding in one ``kmeans_seed`` launch, then one
+``ops/cuda_kmeans.LloydPlan`` (K5) per fit, whose stats give every step and
 the final assignment.  On the card its distances are taken from operands
 centered on the mean (``ops/cuda_kmeans.py`` says why), so on near-tie
 features its steps follow a float64 fit, where the JAX recipe's may not.
@@ -42,22 +45,16 @@ def _pairwise_sq_dist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
 
 
 def _plusplus_init(gen: torch.Generator, x: torch.Tensor, mask: torch.Tensor,
-                   k: int) -> torch.Tensor:
-    """kmeans++ (D^2 sampling) over the valid rows."""
-    maskf = mask.to(x.dtype)
-    first = torch.multinomial(maskf, 1, generator=gen)
-    centers = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-    centers[0] = x[first[0]]
-    count("host_syncs")  # the 0-d index is read back to the host
-    d2 = torch.where(mask, ((x - x[first]) ** 2).sum(1), 0.0)
-    for i in range(1, k):
-        w = torch.where(mask & (d2 > 0), d2, 0.0)
-        # all-zero d2 (fewer distinct points than clusters): sample the mask
-        w = torch.where(w.sum() > 0, w, maskf)
-        c = x[torch.multinomial(w, 1, generator=gen)]
-        centers[i] = c[0]
-        d2 = torch.minimum(d2, torch.where(mask, ((x - c) ** 2).sum(1), 0.0))
-    return centers
+                   k: int, use_pallas: bool = False) -> torch.Tensor:
+    """kmeans++ (D^2 sampling) over the valid rows: one ``torch.rand(k)``
+    of f64 uniforms from ``gen``, then the picks by an exponential race a
+    uniform keys (``cuda_kmeans.kmeans_seed_plain``; ``use_pallas`` on CUDA
+    tensors: the ``kmeans_seed`` kernel, one launch).  Both backends take
+    the same uniforms, so they draw the same centers up to the f64 rounding
+    of the distances' sums."""
+    u = torch.rand(k, generator=gen, dtype=torch.float64, device=x.device)
+    kernel = use_pallas and x.is_cuda
+    return (cuda_kmeans.kmeans_seed if kernel else cuda_kmeans.kmeans_seed_plain)(x, mask, u)[0]
 
 
 def _assign(x, mask, centers):
@@ -189,7 +186,7 @@ def kmeans_fit(x: torch.Tensor, mask: torch.Tensor, gen: torch.Generator,
     n_iter).  The seeding is the span ``kmeans.seed``."""
     x = x.float()
     with span("kmeans.seed"):
-        centers = _plusplus_init(gen, x, mask, n_clusters)
+        centers = _plusplus_init(gen, x, mask, n_clusters, use_pallas)
     return _lloyd(x, mask, centers, max_iter, _tol_abs(x, mask, tol), use_pallas)
 
 

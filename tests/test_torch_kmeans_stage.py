@@ -222,7 +222,8 @@ def test_cli_matches_jax(stores, tmp_path, backend, capsys):
 
 def test_cli_kernel_set_and_flags(stores, tmp_path, monkeypatch, capsys):
     """On CUDA the Lloyd steps run through K5 unless ``--kernels off`` or the
-    sklearn backend; ``tpu`` is the JAX name of ``device``; the fleet flags
+    sklearn backend, and the device backend's seeding through kmeans_seed;
+    ``tpu`` is the JAX name of ``device``; the fleet flags
     parse; without CUDA the CLI raises."""
     ref = tmp_path / "ref.csv"
     DF.iloc[:1].to_csv(ref, index=False)
@@ -236,8 +237,10 @@ def test_cli_kernel_set_and_flags(stores, tmp_path, monkeypatch, capsys):
         tcli.main(["--ref_file", str(ref), *extra])
     assert seen == [("device", True, 0), ("device", False, 0), ("sklearn", False, 0),
                     ("hybrid", True, 0), ("device", True, 0)]
-    assert "kmean_features: cuda, backend device, kernels: lloyd_stats" in \
-        capsys.readouterr().err
+    err = capsys.readouterr().err.splitlines()
+    assert "kmean_features: cuda, backend device, kernels: lloyd_stats, kmeans_seed" in err
+    assert "kmean_features: cuda, backend device, kernels: none" in err
+    assert "kmean_features: cuda, backend hybrid, kernels: lloyd_stats" in err
     monkeypatch.undo()
     for flag, dest, value in ((["--multihost"], "multihost", True),
                               (["--coordinator", "h:1"], "coordinator", "h:1"),

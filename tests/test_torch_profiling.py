@@ -110,10 +110,10 @@ def test_lloyd_steps_and_host_syncs():
         km.kmeans_fit = fit
     c = profiling.summary()["counters"]
     assert len(n_iters) == 3 and c["kmeans.lloyd_steps"] == sum(n_iters)
-    # a slide: the first center's index (seeding), the valid count and each
-    # step (Lloyd), the masked select, bincount and bool (the repair's
-    # check), the genes' readback
-    fixed = 1 + 1 + (1 + profiling.BINCOUNT_SYNCS + 1) + 1
+    # a slide: the valid count and each step (Lloyd), the masked select,
+    # bincount and bool (the repair's check), the genes' readback; the
+    # seeding reads nothing back
+    fixed = 1 + (1 + profiling.BINCOUNT_SYNCS + 1) + 1
     assert c["host_syncs"] == 3 * fixed + sum(n_iters)
 
 
