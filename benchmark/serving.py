@@ -4,16 +4,20 @@ the sample of served slides kept for the check, and the check itself."""
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from benchmark import arith, weights
 from benchmark.reference import kmeans as ref_kmeans
-from benchmark.reference import resnet50 as ref_resnet
-from benchmark.reference import uni_vitl16 as ref_uni
 from benchmark.reference import vis as ref_vis
 
 SEED_MOD = 2 ** 32
+#: one file a backbone kind, ``<kind>.py``
+BACKBONES = Path(__file__).resolve().parent / "backbones"
+_KINDS: dict = {}
 
 
 def rng(seed: int, stream: int) -> np.random.Generator:
@@ -40,28 +44,46 @@ def fold_weights(cfg: dict, seed: int, device) -> list[dict]:
                              **vis_shape(cfg)) for i in range(v["folds"])]
 
 
+def backbone_kind(cfg: dict):
+    """The module of the configuration's backbone kind,
+    ``backbones/<cfg["backbone"]["kind"]>.py``: a new backbone is a new file
+    there.  With ``b`` the configuration's ``backbone`` group, it gives
+
+    - ``weights(b, gen)``: the seeded tree, drawn on ``gen``'s device and
+      handed alike to the program and to the reference;
+    - ``extractor(b, params, on, device)``: the program's extractor over
+      ``params``, assembled as ``cli/serve.build_extractor`` does with the
+      serving kernel set ``on``, and ``on`` less the kernels this backbone
+      does not run;
+    - ``reference(b, params, u8, device, mode)``: (B, H, W, 3) uint8
+      patches, on the host or the device, -> (B, feature_dim) f32 on
+      ``device``, every product under ``mode`` (``reference.numerics``:
+      ``float32``, ``tf32``, ``fp8``); handed a block at a time;
+    - ``work(b, n)``: (flops by dtype, bytes) of the extractor over ``n``
+      patches, for the roofline metrics."""
+    path = BACKBONES / f"{cfg['backbone']['kind']}.py"
+    if path not in _KINDS:
+        if not path.is_file():
+            raise ValueError(f"backbone kind {path.stem!r}: no file {path}")
+        spec = importlib.util.spec_from_file_location(f"benchmark_backbone_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _KINDS[path] = mod
+    return _KINDS[path]
+
+
 def backbone_weights(cfg: dict, seed: int, device) -> dict:
-    b = cfg["backbone"]
-    g = gen(seed, 1, device)
-    if b["kind"] == "resnet50":
-        return weights.resnet50(g)
-    return weights.uni_vit(g, img=b["img_size"], patch=b["patch"], dim=b["feature_dim"],
-                           depth=b["depth"], mlp=b["mlp_dim"], layer_scale=b["layer_scale"])
+    return backbone_kind(cfg).weights(cfg["backbone"], gen(seed, 1, device))
 
 
 def build_predictor(cfg: dict, backbone: dict | None, folds: list[dict], device):
     """The predictor of ``cli.serve.build_predictor``: its kernel set
-    (``serving_kernels``), the extractor of ``build_extractor`` (K4 in
-    ``K4_STAGES`` for ResNet), the folds at the serving compute dtype; the
-    weights are the seeded ones, not a file's.  ``backbone`` None: no
+    (``serving_kernels``), the extractor of ``build_extractor`` (the
+    backbone kind's ``extractor``), the folds at the serving compute dtype;
+    the weights are the seeded ones, not a file's.  ``backbone`` None: no
     extractor (a predictor of features)."""
-    import dataclasses
-
-    from sequoia_tpu_torch.cli.compute_features import K4_STAGES
     from sequoia_tpu_torch.cli.serve import SERVING_KERNELS, serving_kernels
-    from sequoia_tpu_torch.models import resnet, uni_vit, vis
-    from sequoia_tpu_torch.ops.nn import compute_dtype
-    from sequoia_tpu_torch.pipeline.features import FeatureExtractor
+    from sequoia_tpu_torch.models import vis
     from sequoia_tpu_torch.serve import SlidePredictor
 
     v = cfg["vis"]
@@ -72,23 +94,9 @@ def build_predictor(cfg: dict, backbone: dict | None, folds: list[dict], device)
     models = [(vcfg, p) for p in folds]
     on, why = serving_kernels(device, models, SERVING_KERNELS, "vis")
     b = cfg["backbone"]
-    dt = compute_dtype(b["compute_dtype"])
     extractor = None
-    if b["kind"] != "resnet50" and "bottleneck_chain" in on:
-        on.remove("bottleneck_chain")
-    if backbone is not None and b["kind"] == "resnet50":
-        rcfg = resnet.ResNetConfig(compute_dtype=dt, fused_stages=K4_STAGES
-                                   if "bottleneck_chain" in on else ())
-        extractor = FeatureExtractor("resnet", resnet.enable_s2d_stem(backbone),
-                                     batch_size=b["batch_size"], cfg=rcfg, device=device,
-                                     patch_size=b["patch_size"])
-    elif backbone is not None:
-        ucfg = dataclasses.replace(
-            uni_vit.UniViTConfig(img_size=b["img_size"], patch_size=b["patch"],
-                                 dim=b["feature_dim"], depth=b["depth"], heads=b["heads"],
-                                 mlp_dim=b["mlp_dim"]), compute_dtype=dt)
-        extractor = FeatureExtractor("uni", backbone, batch_size=b["batch_size"], cfg=ucfg,
-                                     device=device, patch_size=b["patch_size"])
+    if backbone is not None:
+        extractor, on = backbone_kind(cfg).extractor(b, backbone, on, device)
     k = cfg["kmeans"]
     pred = SlidePredictor(extractor, models, model_type="vis", n_clusters=k["n_clusters"],
                           max_patches=cfg["max_patches"], patch_size=b["patch_size"],
@@ -148,16 +156,18 @@ def patch_pool(seed: int, n: int, size: int, device, chunk: int = 1024) -> np.nd
 def feature_pool(cfg: dict, seed: int, n: int, device, mode: str = "tf32",
                  chunk: int = 128) -> np.ndarray:
     """``n`` stored patch features on the host, as users store them: the
-    reference ResNet-50's pooled post-ReLU (n, 2048) f32 features, under
-    ``mode``, of ``n`` H&E-like patches (``_patch_chunks``), with the
-    backbone weights a run of ``seed`` draws.  The reference makes them;
-    nothing comes from the program."""
+    reference backbone's (n, feature_dim) f32 features (ResNet-50's pooled
+    post-ReLU ones in ``sequoia-resnet50-vis``), under ``mode``, of ``n``
+    H&E-like patches (``_patch_chunks``), with the backbone weights a run of
+    ``seed`` draws.  The reference makes them; nothing comes from the
+    program."""
     b = cfg["backbone"]
+    kind = backbone_kind(cfg)
     backbone = backbone_weights(cfg, seed, device)
     out = np.empty((n, b["feature_dim"]), np.float32)
     with torch.no_grad():
         for s, part in _patch_chunks(seed, n, b["patch_size"], device, chunk):
-            out[s:s + len(part)] = ref_resnet.features(backbone, part, mode).cpu().numpy()
+            out[s:s + len(part)] = kind.reference(b, backbone, part, device, mode).cpu().numpy()
     del backbone
     return out
 
@@ -212,16 +222,9 @@ def capture(pred, last: dict) -> None:
 def reference_features(cfg: dict, backbone: dict, u8: np.ndarray, device,
                        mode: str = "float32", block: int = 32) -> torch.Tensor:
     """The reference backbone over host uint8 patches, in blocks."""
-    b = cfg["backbone"]
-    out = []
-    for s in range(0, len(u8), block):
-        part = u8[s:s + block]
-        if b["kind"] == "resnet50":
-            out.append(ref_resnet.features(backbone, torch.as_tensor(part, device=device), mode))
-        else:
-            out.append(ref_uni.features(backbone, part, img=b["img_size"], patch=b["patch"],
-                                        heads=b["heads"], device=device, mode=mode))
-    return torch.cat(out)
+    b, kind = cfg["backbone"], backbone_kind(cfg)
+    return torch.cat([kind.reference(b, backbone, u8[s:s + block], device, mode)
+                      for s in range(0, len(u8), block)])
 
 
 def reference_genes(cfg: dict, folds: list[dict], cf: torch.Tensor,
@@ -298,17 +301,12 @@ def slide_work(cfg: dict, n: int, n_iter: int, backbone: bool = True) -> dict:
     """(flops by dtype, bytes) of each layer of one slide of ``n`` patches
     (``backbone`` False: of ``n`` features, no backbone)."""
     b, k, v = cfg["backbone"], cfg["kmeans"], cfg["vis"]
-    if b["kind"] == "resnet50":
-        bb = arith.resnet50_work(n, b["patch_size"], b["batch_size"], b["compute_dtype"])
-    else:
-        bb = arith.vit_work(n, b["patch_size"], b["batch_size"], b["compute_dtype"],
-                            img=b["img_size"], patch=b["patch"], dim=b["feature_dim"],
-                            depth=b["depth"], mlp=b["mlp_dim"])
     km = arith.kmeans_work(n, b["feature_dim"], k["n_clusters"], n_iter)
     fo = arith.vis_folds_work(v["folds"], v["num_clusters"], v["compute_dtype"],
                               **vis_shape(cfg))
-    return {"backbone": bb, "kmeans": km, "folds": fo} if backbone else {"kmeans": km,
-                                                                          "folds": fo}
+    if not backbone:
+        return {"kmeans": km, "folds": fo}
+    return {"backbone": backbone_kind(cfg).work(b, n), "kmeans": km, "folds": fo}
 
 
 def run(ctx: dict, from_patches: bool) -> dict:
@@ -373,6 +371,7 @@ def run(ctx: dict, from_patches: bool) -> dict:
     sched = schedule(traffic, seed, traffic["pool"])
     n_genes = cfg["vis"]["num_outputs"]
     lat, attempted, failed, bad, patches = [], 0, 0, 0, 0
+    lat_unprofiled = []  # the slides that ran with no profiler session open
     window = common.Window(ctx["seconds"])
     from sequoia_tpu_torch import _build
 
@@ -385,6 +384,7 @@ def run(ctx: dict, from_patches: bool) -> dict:
         n, off, group_end = next(sched)
         attempted += 1
         x = pool[off:off + n] if from_patches else inputs[off:off + n]
+        profiled = prof is not None
         t0 = time.perf_counter()
         try:
             if traced:
@@ -404,6 +404,8 @@ def run(ctx: dict, from_patches: bool) -> dict:
             failed += 1
             continue
         lat.append(time.perf_counter() - t0)
+        if not profiled:
+            lat_unprofiled.append(lat[-1])
         patches += n
         if bad_answer(genes, n_genes):
             bad += 1
@@ -432,6 +434,7 @@ def run(ctx: dict, from_patches: bool) -> dict:
     record["items"] = {"slides": done, "patches": patches, "slides_traced": n_traced,
                        "patches_traced": patches_traced}
     record["work"] = {k: (v[0], v[1]) for k, v in work_traced.items()}
+    record["slide_s"] = lat_unprofiled
     kept = sample.items()
     del pred, last
     if dev.type == "cuda":
@@ -440,12 +443,12 @@ def run(ctx: dict, from_patches: bool) -> dict:
                             inputs=inputs)
     readings["bad_answers"] = bad
     e2e = {"slides_per_hour": 3600.0 * done / window_s if window_s > 0 else None,
-           "slide_p95_s": common.quantile(lat, 0.95) if lat else None,
            "setup_s": setup_s}
     return {"e2e": e2e, "record": record, "readings": readings, "attempted": attempted,
             "failed": failed + bad, "device": device,
             "notes": {"window_s": window_s, "slides": done, "checked": len(kept),
-                      "slide_p95_s": e2e["slide_p95_s"], "launches_per_slide": launches,
+                      "slide_p95_s": common.quantile(lat, 0.95) if lat else None,
+                      "launches_per_slide": launches,
                       "lloyd_steps": fit_calls}}
 
 

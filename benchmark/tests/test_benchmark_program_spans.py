@@ -89,7 +89,7 @@ BEFORE = {
     "run.py":
         "ecef4ff31793f483aca45487495cc89d0d374be609a649d6cef68f7f7401c495",
     "serving.py":
-        "dc7f1df03e111dec5edd16758b01c493f7a58eb05faaa27f82a23b0869fd6e05",
+        "389a888f2a1662463d48c45e176c7befad0857e5981855be6f8ed82d8a1f9ef9",
     "tests/test_benchmark_arith.py":
         "b35228ab675c82e5e96304c54bccc454cc52cc084d619d5458471dd81dfd96aa",
     "tests/test_benchmark_control.py":
