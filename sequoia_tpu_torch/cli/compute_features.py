@@ -9,10 +9,11 @@ Counterpart of ``sequoia_tpu/cli/compute_features.py`` (reference
 
 ``load_extractor``: ``weights`` is a local torch state dict
 (``.pt``/``.bin``: torchvision's ResNet-50 names, or timm's ViT names for
-UNI, e.g. the MahmoodLab UNI ``pytorch_model.bin``) or ``"random"`` (random
-weights from seed 0, for benchmarks and smoke runs); nothing is downloaded.
-A UNI state dict gives its own config (``uni_vit.uni_from_torch``), with
-``compute_dtype`` applied to it.
+UNI and Virchow2, e.g. the MahmoodLab UNI or paige-ai Virchow2
+``pytorch_model.bin``) or ``"random"`` (random weights from seed 0, for
+benchmarks and smoke runs); nothing is downloaded.  A ViT state dict gives
+its own config (``uni_vit.uni_from_torch``, ``uni_vit.virchow2_from_torch``),
+with ``compute_dtype`` applied to it.
 
 The CLI runs on CUDA unless ``--device cpu`` is given, and raises without
 CUDA.  On CUDA with ``--feat_type resnet`` it extracts through the K4 kernel
@@ -40,7 +41,8 @@ import torch
 from sequoia_tpu_torch.cli import add_compile_cache_arg, add_fleet_args
 from sequoia_tpu_torch.models import resnet, uni_vit
 from sequoia_tpu_torch.ops.nn import compute_dtype as to_dtype
-from sequoia_tpu_torch.pipeline.features import FeatureExtractor, compute_features
+from sequoia_tpu_torch.pipeline.features import (FEAT_TYPES, FeatureExtractor,
+                                                  compute_features, vit_config)
 from sequoia_tpu_torch.train import checkpoint
 from sequoia_tpu_torch.utils.device import resolve_device
 from sequoia_tpu_torch.utils.profiling import StageTimer
@@ -72,8 +74,8 @@ def load_extractor(feat_type: str, weights: str, batch_size: int,
     ``data_parallel``: a data mesh over ``devices``, by default this
     process's devices of ``device``'s type (local devices only, as in JAX:
     a fleet rank drives its own)."""
-    if feat_type not in ("resnet", "uni"):
-        raise ValueError('feat_type must be "resnet" or "uni"')
+    if feat_type not in FEAT_TYPES:
+        raise ValueError(f"feat_type must be one of {FEAT_TYPES}, got {feat_type!r}")
     mesh = None
     if data_parallel:
         from sequoia_tpu_torch.parallel import sharding as sh
@@ -83,15 +85,18 @@ def load_extractor(feat_type: str, weights: str, batch_size: int,
         mesh = sh.make_mesh(n_data=len(local), n_model=1, devices=local)
         device = mesh.first
     dtype = to_dtype(compute_dtype)
-    if feat_type == "uni":
+    if feat_type != "resnet":
         if fused_stages:
-            raise ValueError("fused_stages is a ResNet option; the UNI backbone has none")
+            raise ValueError(f"fused_stages is a ResNet option; the {feat_type} backbone "
+                             f"has none")
         if weights == "random":
-            cfg = uni_vit.UniViTConfig()
+            cfg = vit_config(feat_type)
             params = uni_vit.random_params(cfg, torch.Generator().manual_seed(0))
         else:
             # the cfg inferred from the state dict, not the default shape
-            cfg, params = uni_vit.uni_from_torch(checkpoint.load_torch_checkpoint(weights))
+            from_torch = (uni_vit.uni_from_torch if feat_type == "uni"
+                          else uni_vit.virchow2_from_torch)
+            cfg, params = from_torch(checkpoint.load_torch_checkpoint(weights))
         cfg = dataclasses.replace(cfg, compute_dtype=dtype)
         return FeatureExtractor(feat_type, params, batch_size=batch_size, cfg=cfg,
                                 device=device, mesh=mesh)
@@ -106,7 +111,7 @@ def load_extractor(feat_type: str, weights: str, batch_size: int,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Per-patch feature extraction (PyTorch/CUDA)")
-    p.add_argument("--feat_type", default="resnet", choices=["resnet", "uni"])
+    p.add_argument("--feat_type", default="resnet", choices=list(FEAT_TYPES))
     p.add_argument("--ref_file", required=True, type=str)
     p.add_argument("--patch_data_path", required=True, type=str)
     p.add_argument("--feature_path", type=str, default="features")

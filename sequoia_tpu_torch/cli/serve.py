@@ -22,7 +22,8 @@ Where the port differs from the JAX CLI:
 * on CUDA it serves with the kernel set of :func:`build_predictor` (K4 in
   every ResNet stage, with ``--feat_type resnet``; K5 for k-means; K1 for
   ViS folds where ``cuda_vis.kernel_takes`` accepts their config, which
-  UNI's 1024-d folds do not, and never for ViT or HE2RNA folds) and prints
+  UNI's 1024-d and Virchow2's 2560-d folds do not, and never for ViT or
+  HE2RNA folds) and prints
   one stderr line naming it and why K1 was left out; ``--kernels off`` or
   ``--device cpu`` serves with the plain PyTorch versions;
 * ``--compute_dtype`` also sets the ViS and ViT folds' compute dtype (the
@@ -50,6 +51,7 @@ from sequoia_tpu_torch.cli.compute_features import K4_STAGES, load_extractor
 from sequoia_tpu_torch.models import convert, he2rna, vis, vit
 from sequoia_tpu_torch.ops import cuda_vis
 from sequoia_tpu_torch.ops.nn import compute_dtype as to_dtype
+from sequoia_tpu_torch.pipeline.features import FEAT_TYPES
 from sequoia_tpu_torch.serve import SlidePredictor
 from sequoia_tpu_torch.train import checkpoint
 from sequoia_tpu_torch.utils.device import resolve_device
@@ -170,7 +172,7 @@ def build_extractor(feat_type: str, weights: str, on: list[str], *, device,
                     batch_size: int, compute_dtype: str, data_parallel: bool = False,
                     devices=None):
     """The backbone of :func:`build_predictor`: K4 in every ResNet stage where
-    ``bottleneck_chain`` is in ``on`` (removed from ``on`` for UNI); data
+    ``bottleneck_chain`` is in ``on`` (removed from ``on`` for the ViTs); data
     parallel over ``devices`` (default: this process's) with
     ``data_parallel``."""
     if feat_type != "resnet" and "bottleneck_chain" in on:
@@ -187,7 +189,7 @@ def build_predictor(feat_type: str, weights: str, models, *, device=None,
                     max_patches: int = 4000, patch_size: int = 256,
                     model_type: str = "vis", data_parallel: bool = False, devices=None):
     """The serving predictor with the kernel set of :func:`serving_kernels`,
-    less the ResNet kernel K4 for ``feat_type="uni"`` and K1 for ViT and
+    less the ResNet kernel K4 for the ViT backbones and K1 for ViT and
     HE2RNA folds.  Returns ``(SlidePredictor, line)``, the line naming the
     kernels it serves with and, where K1 is left out, why.  No kernel
     failure is caught.  ``data_parallel``: the backbone over ``devices``
@@ -225,8 +227,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-request wait bound in seconds under --http (504 on expiry)")
     p.add_argument("--checkpoints", type=str, required=True,
                    help="CV dir, .pt file, or HF-layout dir")
-    p.add_argument("--feat_type", default="resnet", choices=["resnet", "uni"],
-                   help="backbone: ResNet-50 (2048-d) or UNI ViT-L/16 (1024-d)")
+    p.add_argument("--feat_type", default="resnet", choices=list(FEAT_TYPES),
+                   help="backbone: ResNet-50 (2048-d), UNI ViT-L/16 (1024-d) or Virchow2 "
+                        "ViT-H/14 (2560-d)")
     p.add_argument("--model_type", default="vis", choices=["vis", "vit", "he2rna"],
                    help="aggregator family of the checkpoints")
     p.add_argument("--weights", type=str, required=True,

@@ -47,6 +47,7 @@ from sequoia_tpu_torch.cli.serve import build_extractor, serving_kernels
 from sequoia_tpu_torch.data.wsi import open_slide
 from sequoia_tpu_torch.models import convert
 from sequoia_tpu_torch.pipeline import spatial
+from sequoia_tpu_torch.pipeline.features import FEAT_TYPES
 from sequoia_tpu_torch.train import checkpoint
 from sequoia_tpu_torch.utils.device import resolve_device, tree_to
 
@@ -60,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wsi_file_name", type=str, required=True)
     p.add_argument("--save_folder", type=str, required=True)
     p.add_argument("--model_type", type=str, required=True, choices=["he2rna", "vit", "vis"])
-    p.add_argument("--feat_type", type=str, required=True, choices=["resnet", "uni"])
+    p.add_argument("--feat_type", type=str, required=True, choices=list(FEAT_TYPES))
     p.add_argument("--folds", type=str, default="0,1,2,3,4")
     p.add_argument("--stride", type=int, default=1)
     p.add_argument("--patch_size", type=int, default=256)
@@ -202,8 +203,10 @@ def main(argv=None):
     save_path = os.path.join("visualizations", args.project, args.save_folder,
                              args.wsi_file_name)
     # the reference resizes every tile before the backbone: Resize(224) for
-    # uni, the square patch size for resnet (its Resize((256, 265)) is a typo)
-    resize_to = 224 if args.feat_type == "uni" else args.patch_size
+    # uni, the square patch size for resnet (its Resize((256, 265)) is a typo);
+    # Virchow2's bicubic Resize(224) is its extractor's own (extract_from_uint8),
+    # as the tile stage resizes with the bilinear filter
+    resize_to = {"resnet": args.patch_size, "uni": 224}.get(args.feat_type)
     res = spatial.run_visualize(slide, mask, list(gene_ids), fold_models, extractor,
                                 gene_names=gene_names, patch_size=args.patch_size,
                                 resize_factor=manual_resize, stride=args.stride,

@@ -1,11 +1,13 @@
 """Canonical typed configuration.
 
 Counterpart of ``sequoia_tpu/config.py`` (a copy: the port imports nothing
-of the JAX package).  The reference hard-codes its architecture and
-training constants at call sites across six scripts (SURVEY.md section 5
-config/flag system).  This module is the documented source of those
-values; no module of either package imports it, and the port's CLIs
-default to the same values (``tests/test_torch_config.py`` holds both).
+of the JAX package), with one addition: ``feature_dims`` also names the
+Virchow2 backbone, which the JAX package does not have.  The reference
+hard-codes its architecture and training constants at call sites across six
+scripts (SURVEY.md section 5 config/flag system).  This module is the
+documented source of those values; no module of either package imports it,
+and the port's CLIs default to the same values (``tests/test_torch_config.py``
+holds both).
 
 Values and their reference provenance:
 * ViS/ViT: depth 6, 16 heads, f/s/c dims 64, dim_head 64, mlp 2048,
@@ -71,7 +73,8 @@ class PipelineDefaults:
     max_patches_per_slide: int = 4000
     num_clusters: int = 100
     kmeans_random_state: int = 0
-    feature_dims: tuple[tuple[str, int], ...] = (("resnet", 2048), ("uni", 1024))
+    feature_dims: tuple[tuple[str, int], ...] = (("resnet", 2048), ("uni", 1024),
+                                                 ("virchow2", 2560))
     sliding_window: int = 10
     sliding_window_min_tiles: int = 50
     sliding_stride: int = 1

@@ -1,18 +1,31 @@
-"""UNI backbone: ViT-L/16 (timm ``vit_large_patch16_224`` with
-``init_values=1e-5`` LayerScale, ``num_classes=0``).
+"""The ViT backbones: UNI's ViT-L/16 (timm ``vit_large_patch16_224`` with
+``init_values=1e-5`` LayerScale, ``num_classes=0``) and Virchow2's ViT-H/14
+(timm ``vit_huge_patch14_224`` with ``reg_tokens=4``,
+``mlp_layer=SwiGLUPacked``, ``act_layer=SiLU``; Zimmermann et al.,
+arXiv:2408.00738), one config-driven model.
 
-Counterpart of ``sequoia_tpu/models/uni_vit.py``, with the same stacked
-parameter layout (block parameters on a leading ``depth`` axis, weights in
-``(in, out)`` math layout), so a JAX parameter tree carries across with
-``models.convert.uni_params_from_numpy`` and a timm state dict with
-:func:`uni_from_torch`.
+UNI is the counterpart of ``sequoia_tpu/models/uni_vit.py``, with the same
+stacked parameter layout (block parameters on a leading ``depth`` axis,
+weights in ``(in, out)`` math layout), so a JAX parameter tree carries
+across with ``models.convert.uni_params_from_numpy`` and a timm state dict
+with :func:`uni_from_torch`.  Virchow2 has no JAX counterpart; its timm
+state dict loads with :func:`virchow2_from_torch` into the same layout.
 
-A 224x224 ImageNet-normalized patch -> the 1024-d final-norm CLS token: the
-patch embed as a reshape + GEMM over (p_row, p_col, channel) token order,
-the CLS token and position embedding over 197 tokens, 24 pre-norm blocks of
-MHA (qkv bias, 16 heads) and MLP (4096, exact GELU), each branch scaled by
-its LayerScale gamma, a final LayerNorm.  LayerNorm uses eps 1e-5, as the
-JAX package does (timm's ``VisionTransformer`` uses 1e-6).
+UNI: a 224x224 ImageNet-normalized patch -> the 1024-d final-norm CLS token:
+the patch embed as a reshape + GEMM over (p_row, p_col, channel) token
+order, the CLS token and position embedding over 197 tokens, 24 pre-norm
+blocks of MHA (qkv bias, 16 heads) and MLP (4096, exact GELU), each branch
+scaled by its LayerScale gamma, a final LayerNorm.  LayerNorm uses eps 1e-5,
+as the JAX package does (timm's ``VisionTransformer`` uses 1e-6).
+
+Virchow2 (:class:`Virchow2Config`): the same block at 1280 wide, 32 deep, 16
+heads of 80, with four register tokens after the CLS token (the position
+embedding covers all 261 tokens, timm's ``no_embed_class=False``), a packed
+SwiGLU MLP (fc1 to 6832, ``silu(first half) * second half``, fc2 from 3416),
+LayerNorm eps 1e-6, the final LayerNorm over every token, and the 2560-d
+output CLS ⊕ the mean of the 256 patch tokens (the registers left out).
+Its preprocessing is the model card's: Pillow BICUBIC ``Resize(224)`` of
+the uint8 patch, then the ImageNet normalisation.
 
 Precision.  f32 is the parity path: every product in IEEE f32 (TF32 off,
 ``ops/nn.precision``).  In bf16 every GEMM takes bf16 operands on the tensor
@@ -22,11 +35,17 @@ scores come out of their product in f32, the softmax runs in f32 and its
 probabilities are rounded to bf16 for the product with V, as the JAX
 einsums do.  LayerNorm statistics are f32 (``F.layer_norm`` accumulates in
 f32); the residual stream, the LayerScale products and the GELU are bf16
-tensors, and the CLS row leaves as f32.  :func:`prepare` casts the GEMM
-weights, biases, LayerNorm affines, gammas and embeddings to the compute
-type once, so no forward casts them again.  The attention is plain
-``torch.matmul`` + softmax: the JAX package computes it with XLA einsums,
-not a Pallas kernel.
+tensors, and the output leaves as f32.  The SwiGLU gate takes two roundings
+to bf16: ``silu(a)`` (computed in f32 inside the op) and its product with
+``b``.  Virchow2's patch mean is taken in f32 over the bf16 normalised
+tokens.  :func:`prepare` casts the GEMM weights, biases, LayerNorm affines,
+gammas and embeddings to the compute type once, so no forward casts them
+again.  The attention is plain ``torch.matmul`` + softmax: the JAX package
+computes it with XLA einsums, not a Pallas kernel.
+
+Spans (``utils/profiling``, recorded only under a profiler):
+``vit.preprocess`` around the resize and normalisation of
+:func:`extract_from_uint8`, ``vit.mlp`` around each block's MLP branch.
 """
 
 from __future__ import annotations
@@ -42,7 +61,7 @@ import torch.nn.functional as F
 from sequoia_tpu_torch.models.resnet import IMAGENET_MEAN, IMAGENET_STD
 from sequoia_tpu_torch.ops import pil_resize
 from sequoia_tpu_torch.ops.nn import LN_EPS, compute_dtype, linear
-from sequoia_tpu_torch.utils.profiling import count
+from sequoia_tpu_torch.utils.profiling import count, span
 
 Params = dict[str, Any]
 
@@ -57,20 +76,63 @@ class UniViTConfig:
     dim: int = 1024
     depth: int = 24
     heads: int = 16
-    mlp_dim: int = 4096
+    mlp_dim: int = 4096  # fc1's width
     compute_dtype: Any = torch.float32
+    reg_tokens: int = 0  # register tokens after the CLS token
+    mlp: str = "gelu"  # or "swiglu_packed": silu(fc1's first half) * its second half
+    ln_eps: float = LN_EPS
+    pool: str = "cls"  # or "cls_mean": CLS ⊕ the mean of the patch tokens
+    resize: str = "bilinear"  # Pillow's filter to img_size (``ops/pil_resize``)
+
+    def __post_init__(self):
+        if self.mlp not in ("gelu", "swiglu_packed"):
+            raise ValueError(f"mlp must be 'gelu' or 'swiglu_packed', got {self.mlp!r}")
+        if self.pool not in ("cls", "cls_mean"):
+            raise ValueError(f"pool must be 'cls' or 'cls_mean', got {self.pool!r}")
+        if self.mlp == "swiglu_packed" and self.mlp_dim % 2:
+            raise ValueError(f"a packed SwiGLU needs an even mlp_dim, got {self.mlp_dim}")
 
     @property
     def grid(self) -> int:
         return self.img_size // self.patch_size
 
     @property
+    def prefix(self) -> int:
+        """The tokens before the patches: the CLS token and the registers."""
+        return 1 + self.reg_tokens
+
+    @property
     def tokens(self) -> int:
-        return self.grid * self.grid + 1
+        return self.grid * self.grid + self.prefix
 
     @property
     def dim_head(self) -> int:
         return self.dim // self.heads
+
+    @property
+    def hidden_dim(self) -> int:
+        """fc2's input width: half of fc1's for the packed SwiGLU."""
+        return self.mlp_dim // 2 if self.mlp == "swiglu_packed" else self.mlp_dim
+
+    @property
+    def feature_dim(self) -> int:
+        return 2 * self.dim if self.pool == "cls_mean" else self.dim
+
+
+@dataclasses.dataclass(frozen=True)
+class Virchow2Config(UniViTConfig):
+    """Virchow2's ViT-H/14 (the module's docstring)."""
+
+    patch_size: int = 14
+    dim: int = 1280
+    depth: int = 32
+    heads: int = 16
+    mlp_dim: int = 6832
+    reg_tokens: int = 4
+    mlp: str = "swiglu_packed"
+    ln_eps: float = 1e-6
+    pool: str = "cls_mean"
+    resize: str = "bicubic"
 
 
 def prepare(cfg: UniViTConfig, params: Params) -> Params:
@@ -92,10 +154,18 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
-def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last axis (biased variance, eps 1e-5), statistics
-    in f32, output in ``x``'s type."""
-    return F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype), bias.to(x.dtype), LN_EPS)
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis (biased variance), statistics in f32,
+    output in ``x``'s type."""
+    return F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype), bias.to(x.dtype), eps)
+
+
+def _swiglu(h: torch.Tensor) -> torch.Tensor:
+    """timm's ``GluMlp(gate_last=False)`` gate: ``silu(a) * b`` of fc1's
+    halves ``a, b``."""
+    a, b = h.chunk(2, dim=-1)
+    return F.silu(a) * b
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -119,7 +189,7 @@ def _block(cfg: UniViTConfig, x: torch.Tensor, bp: dict) -> torch.Tensor:
     b, n, d = x.shape
     h, dh = cfg.heads, cfg.dim_head
 
-    y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+    y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.ln_eps)
     qkv = _linear(y, bp["w_qkv"], bp["b_qkv"]).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]
     attn = torch.softmax(_scores(q, k, dh ** -0.5), dim=-1).to(v.dtype)
@@ -128,29 +198,45 @@ def _block(cfg: UniViTConfig, x: torch.Tensor, bp: dict) -> torch.Tensor:
     # the LayerScale gammas in the activation's type, as JAX casts them down
     x = torch.addcmul(x, out, bp["ls1"].to(out.dtype))
 
-    y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    y = F.gelu(_linear(y, bp["w_fc1"], bp["b_fc1"]))
-    y = _linear(y, bp["w_fc2"], bp["b_fc2"])
-    return torch.addcmul(x, y, bp["ls2"].to(y.dtype))
+    with span("vit.mlp"):
+        y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.ln_eps)
+        y = _linear(y, bp["w_fc1"], bp["b_fc1"])
+        y = F.gelu(y) if cfg.mlp == "gelu" else _swiglu(y)
+        y = _linear(y, bp["w_fc2"], bp["b_fc2"])
+        return torch.addcmul(x, y, bp["ls2"].to(y.dtype))
 
 
 def forward(cfg: UniViTConfig, params: Params, images: torch.Tensor) -> torch.Tensor:
-    """(B, 224, 224, 3) normalized NHWC float -> (B, 1024) f32 CLS embedding."""
+    """(B, img, img, 3) normalized NHWC float -> (B, ``cfg.feature_dim``) f32:
+    the CLS embedding (UNI), or CLS ⊕ the patch tokens' mean (Virchow2)."""
     b = images.shape[0]
     p, g = cfg.patch_size, cfg.grid
     dt = compute_dtype(cfg.compute_dtype)
     x = images.to(dt)
     # conv patch embed as reshape + GEMM: (B, g, p, g, p, 3) -> (B, g*g, p*p*3)
     x = x.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
-    x = _linear(x, params["patch_w"], params["patch_b"])  # (B, N-1, D)
+    x = _linear(x, params["patch_w"], params["patch_b"])  # (B, g*g, D)
 
-    cls = params["cls_token"].to(dt).expand(b, 1, cfg.dim)
-    x = torch.cat([cls, x], dim=1) + params["pos_emb"].to(dt)
+    prefix = [params["cls_token"].to(dt).expand(b, 1, cfg.dim)]
+    if cfg.reg_tokens:
+        prefix.append(params["reg_token"].to(dt).expand(b, cfg.reg_tokens, cfg.dim))
+    x = torch.cat([*prefix, x], dim=1) + params["pos_emb"].to(dt)
     blocks = params["blocks"]
     for i in range(cfg.depth):
         x = _block(cfg, x, {k: v[i] for k, v in blocks.items()})
-    # LayerNorm is per token: normalising the CLS row alone gives its values
-    return _layer_norm(x[:, 0], params["norm_scale"], params["norm_bias"]).float()
+    return _pool(cfg, x, params)
+
+
+def _pool(cfg: UniViTConfig, x: torch.Tensor, params: Params) -> torch.Tensor:
+    """The final LayerNorm and the output, in f32: the CLS row (``"cls"``),
+    or CLS ⊕ the mean of the patch tokens, registers left out
+    (``"cls_mean"``)."""
+    if cfg.pool == "cls":
+        # LayerNorm is per token: normalising the CLS row alone gives its values
+        return _layer_norm(x[:, 0], params["norm_scale"], params["norm_bias"],
+                           cfg.ln_eps).float()
+    y = _layer_norm(x, params["norm_scale"], params["norm_bias"], cfg.ln_eps).float()
+    return torch.cat([y[:, 0], y[:, cfg.prefix:].mean(1)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,21 +262,47 @@ def uni_from_torch(sd, cfg: UniViTConfig | None = None, *,
     reference ``compute_features_hdf5.py:62-68``).  Any other width must
     pass ``cfg`` or ``heads``."""
     if cfg is None:
-        d = _np(sd["cls_token"]).shape[-1]
-        if heads is None:
-            if d != 1024:
-                raise ValueError(
-                    f"cannot infer the head count for dim={d} (a fused-qkv "
-                    f"state dict does not record it); pass cfg= or heads=")
-            heads = 16
-        depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
-        mlp = _np(sd["blocks.0.mlp.fc1.weight"]).shape[0]
-        p = _np(sd["patch_embed.proj.weight"]).shape[-1]
-        n_tok = _np(sd["pos_embed"]).shape[1]
-        img = int(round(((n_tok - 1) ** 0.5))) * p
-        cfg = UniViTConfig(img_size=img, patch_size=p, dim=d, depth=depth,
-                           heads=heads, mlp_dim=mlp)
+        cfg = UniViTConfig(**_timm_shape(sd, heads, 1024, "the UNI backbone"))
+    return cfg, _from_timm(sd, cfg)
 
+
+def virchow2_from_torch(sd, cfg: Virchow2Config | None = None, *,
+                        heads: int | None = None) -> tuple[Virchow2Config, Params]:
+    """timm ``vit_huge_patch14_224`` state dict of Virchow2 (``reg_token``
+    (1, 4, D), a packed ``mlp.fc1`` of (6832, D), ``mlp.fc2`` of (D, 3416))
+    -> (cfg, params), f32 on the CPU, in :func:`uni_from_torch`'s layout
+    plus ``reg_token`` (R, D).  The head count is inferred as 16 only at
+    dim 1280; any other width must pass ``cfg`` or ``heads``."""
+    if cfg is None:
+        cfg = Virchow2Config(**_timm_shape(sd, heads, 1280, "Virchow2"))
+    params = _from_timm(sd, cfg)
+    params["reg_token"] = torch.as_tensor(
+        np.ascontiguousarray(_np(sd["reg_token"]).reshape(cfg.reg_tokens, cfg.dim)))
+    return cfg, params
+
+
+def _timm_shape(sd, heads: int | None, known_dim: int, known: str) -> dict:
+    """The config sizes a timm ViT state dict records; the head count from
+    ``heads``, or 16 at ``known_dim``."""
+    d = _np(sd["cls_token"]).shape[-1]
+    if heads is None:
+        if d != known_dim:
+            raise ValueError(
+                f"cannot infer the head count for dim={d} (a fused-qkv state dict does "
+                f"not record it; {known} has dim {known_dim}); pass cfg= or heads=")
+        heads = 16
+    depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    mlp = _np(sd["blocks.0.mlp.fc1.weight"]).shape[0]
+    p = _np(sd["patch_embed.proj.weight"]).shape[-1]
+    reg = _np(sd["reg_token"]).shape[1] if "reg_token" in sd else 0
+    n_tok = _np(sd["pos_embed"]).shape[1]
+    img = int(round(((n_tok - 1 - reg) ** 0.5))) * p
+    return dict(img_size=img, patch_size=p, dim=d, depth=depth, heads=heads, mlp_dim=mlp,
+                reg_tokens=reg)
+
+
+def _from_timm(sd, cfg: UniViTConfig) -> Params:
+    """A timm ViT state dict's shared leaves in the port's layout."""
     w = _np(sd["patch_embed.proj.weight"])  # (D, 3, p, p)
     patch_w = w.transpose(2, 3, 1, 0).reshape(-1, cfg.dim)  # (p*p*3, D)
 
@@ -210,7 +322,7 @@ def uni_from_torch(sd, cfg: UniViTConfig | None = None, *,
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a))
 
-    params: Params = {
+    return {
         "patch_w": t(patch_w),
         "patch_b": t(_np(sd["patch_embed.proj.bias"])),
         "cls_token": t(_np(sd["cls_token"]).reshape(1, cfg.dim)),
@@ -219,18 +331,19 @@ def uni_from_torch(sd, cfg: UniViTConfig | None = None, *,
         "norm_scale": t(_np(sd["norm.weight"])),
         "norm_bias": t(_np(sd["norm.bias"])),
     }
-    return cfg, params
 
 
 def random_params(cfg: UniViTConfig, gen: torch.Generator,
                   layer_scale: float = 1e-5) -> Params:
-    """Random weights at the UNI architecture (tests, benches), f32 on the
-    generator's device; the JAX function's distributions, not its numbers.
+    """Random weights at ``cfg``'s architecture (tests, benches), f32 on the
+    generator's device; the JAX function's distributions, not its numbers
+    (the register tokens, where there are any, drawn last, normal at 0.02
+    as the CLS token).
     ``layer_scale`` fills the LayerScale gammas (timm's ``init_values``,
     1e-5 as in JAX); at 1e-5 a random block moves the residual stream by
     less than one bf16 ulp, so a bf16 forward gives every image nearly the
     same features."""
-    d, mlp, depth = cfg.dim, cfg.mlp_dim, cfg.depth
+    d, mlp, hid, depth = cfg.dim, cfg.mlp_dim, cfg.hidden_dim, cfg.depth
     pdim = cfg.patch_size * cfg.patch_size * 3
     dev = gen.device
 
@@ -250,11 +363,11 @@ def random_params(cfg: UniViTConfig, gen: torch.Generator,
         "ln2_scale": full((depth, d), 1.0), "ln2_bias": full((depth, d), 0.0),
         "w_fc1": nrm((depth, d, mlp), d ** -0.5),
         "b_fc1": full((depth, mlp), 0.0),
-        "w_fc2": nrm((depth, mlp, d), mlp ** -0.5),
+        "w_fc2": nrm((depth, hid, d), hid ** -0.5),
         "b_fc2": full((depth, d), 0.0),
         "ls2": full((depth, d), layer_scale),
     }
-    return {
+    params = {
         "patch_w": nrm((pdim, d), pdim ** -0.5),
         "patch_b": full((d,), 0.0),
         "cls_token": nrm((1, d), 0.02),
@@ -263,18 +376,25 @@ def random_params(cfg: UniViTConfig, gen: torch.Generator,
         "norm_scale": full((d,), 1.0),
         "norm_bias": full((d,), 0.0),
     }
+    if cfg.reg_tokens:
+        params["reg_token"] = nrm((cfg.reg_tokens, d), 0.02)
+    return params
 
 
 def extract_from_uint8(cfg: UniViTConfig, params: Params, u8: torch.Tensor) -> torch.Tensor:
-    """uint8 patches (B, H, W, 3) -> (B, dim) f32 UNI features with the
-    reference preprocessing (``compute_features_hdf5.py:53-56`` order: PIL
-    Resize(224) on the uint8 image, bit-exact here in integers, then
-    ToTensor + Normalize).  The one implementation shared by the extractor
-    and the slide program, so preprocessing cannot drift."""
-    if u8.shape[1] != cfg.img_size or u8.shape[2] != cfg.img_size:
-        u8 = pil_resize.resize_u8(u8, cfg.img_size, cfg.img_size)
-    x = u8.float() / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    count("host_syncs", 2)  # a list to the device is a blocking copy
-    return forward(cfg, params, (x - mean) / std)
+    """uint8 patches (B, H, W, 3) -> (B, ``cfg.feature_dim``) f32 features
+    with the reference preprocessing (``compute_features_hdf5.py:53-56``
+    order: PIL Resize(224) on the uint8 image with ``cfg.resize``'s filter,
+    bilinear for UNI and bicubic for Virchow2, bit-exact here in integers,
+    then ToTensor + Normalize), the span ``vit.preprocess``.  The one
+    implementation shared by the extractor and the slide program, so
+    preprocessing cannot drift."""
+    with span("vit.preprocess"):
+        if u8.shape[1] != cfg.img_size or u8.shape[2] != cfg.img_size:
+            u8 = pil_resize.resize_u8(u8, cfg.img_size, cfg.img_size, cfg.resize)
+        x = u8.float() / 255.0
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+        count("host_syncs", 2)  # a list to the device is a blocking copy
+        x = (x - mean) / std
+    return forward(cfg, params, x)

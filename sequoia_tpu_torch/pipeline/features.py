@@ -4,10 +4,10 @@ the batched backbone with fused preprocessing that serving shares.
 Counterpart of ``sequoia_tpu/pipeline/features.py``. Patches travel to the
 device as uint8 in fixed ``batch_size`` blocks, the tail block zero-padded
 to the full batch; the preprocessing runs on the device with the backbone
-(the ImageNet normalization, and for UNI first the bit-exact Pillow resize
-to 224). ``raw_fwd`` is the backbone as one ``(params, u8) -> (N, D)``
-function honouring ``cfg``, so a caller can run more device work on the same
-uploaded batch (serving's tissue screen and raw-plane reconstruction,
+(the ImageNet normalization, and for the ViTs first the bit-exact Pillow
+resize to 224: bilinear for UNI, bicubic for Virchow2). ``raw_fwd`` is the
+backbone as one ``(params, u8) -> (N, D)`` function honouring ``cfg``, so a
+caller can run more device work on the same uploaded batch (serving's tissue screen and raw-plane reconstruction,
 ``serve.SlidePredictor._fused_program`` and its siblings).
 
 With ``mesh`` (an in-process ``parallel.sharding.Mesh``) extraction is data
@@ -44,20 +44,34 @@ from sequoia_tpu_torch.utils.device import resolve_device, tree_to
 from sequoia_tpu_torch.utils.profiling import span
 
 
+#: the backbones a ``feat_type`` names
+FEAT_TYPES = ("resnet", "uni", "virchow2")
+
+
+def vit_config(feat_type: str, **kw) -> uni_vit.UniViTConfig:
+    """The default config of the ViT backbone ``feat_type`` (``"uni"`` or
+    ``"virchow2"``, ``models/uni_vit.py``), with ``kw`` set on it."""
+    return (uni_vit.UniViTConfig if feat_type == "uni" else uni_vit.Virchow2Config)(**kw)
+
+
 class FeatureExtractor:
     """uint8 patches -> backbone features.
 
     ``feat_type="resnet"``: normalize 256-px patches -> ResNet-50 -> 2048-d;
     ``cfg.early_pallas`` / ``fused_stages`` switch the ResNet kernels on.
     ``feat_type="uni"``: resize to 224 (bit-exact Pillow BILINEAR, the
-    reference's PIL ``Resize(224)``) -> ViT-L/16 -> 1024-d, the weights cast
-    to the compute dtype once here.  ``params``: the port's parameters for
-    that backbone (moved to ``device``, or to every ``data`` row of
-    ``mesh``, whose first device is then the extractor's).  The compute
-    dtype comes from ``cfg`` or ``compute_dtype`` (f32 by default)."""
+    reference's PIL ``Resize(224)``) -> ViT-L/16 -> the CLS token, 1024-d.
+    ``feat_type="virchow2"``: resize to 224 (bit-exact Pillow BICUBIC, the
+    model card's transform) -> ViT-H/14 with 4 registers and a packed SwiGLU
+    MLP -> CLS ⊕ the patch tokens' mean, 2560-d; it has no JAX counterpart.
+    A ViT's weights are cast to the compute dtype once here.  ``params``:
+    the port's parameters for that backbone (moved to ``device``, or to
+    every ``data`` row of ``mesh``, whose first device is then the
+    extractor's).  The compute dtype comes from ``cfg`` or
+    ``compute_dtype`` (f32 by default)."""
 
-    #: UNI batches run through the ViT in chunks of this many patches where
-    #: the batch is larger and a multiple of it (0: never); the upload
+    #: ViT batches (UNI and Virchow2) run in chunks of this many patches
+    #: where the batch is larger and a multiple of it (0: never); the upload
     #: granularity stays ``batch_size``.  The value is the H100's, from the
     #: chunk sweep of ``chip_smoke.py``'s ``uni_path`` (PERF.md).
     UNI_SCAN_CHUNK = 0
@@ -65,8 +79,8 @@ class FeatureExtractor:
     def __init__(self, feat_type: str, params, batch_size: int = 256,
                  compute_dtype=None, patch_size: int = 256, cfg=None, mesh=None,
                  device=None):
-        if feat_type not in ("resnet", "uni"):
-            raise ValueError('feat_type must be "resnet" or "uni"')
+        if feat_type not in FEAT_TYPES:
+            raise ValueError(f"feat_type must be one of {FEAT_TYPES}, got {feat_type!r}")
         if mesh is not None:
             from sequoia_tpu_torch.parallel.sharding import in_process
 
@@ -94,8 +108,8 @@ class FeatureExtractor:
             def place(d):
                 return tree_to(params, d)
         else:
-            self.cfg = cfg or uni_vit.UniViTConfig(compute_dtype=dt)
-            self.feature_dim = self.cfg.dim
+            self.cfg = cfg or vit_config(feat_type, compute_dtype=dt)
+            self.feature_dim = self.cfg.feature_dim
 
             def place(d):
                 return uni_vit.prepare(self.cfg, tree_to(params, d))
@@ -130,7 +144,7 @@ class FeatureExtractor:
 
     def raw_fwd(self, params, u8: torch.Tensor) -> torch.Tensor:
         """(N, ps, ps, 3) uint8 on the device -> (N, D) f32 features through
-        ``cfg`` (its kernel options included); UNI in chunks of
+        ``cfg`` (its kernel options included); a ViT in chunks of
         :attr:`UNI_SCAN_CHUNK`.  Under a mesh, data parallel
         (:meth:`map_shards`)."""
         if self.mesh is not None:

@@ -8,13 +8,16 @@ Counterpart of ``sequoia_tpu/pipeline/fused.py``:
     -> ViS forward -> (num_genes,) predictions
 
 ``backbone="resnet"`` is ResNet-50 (2048-d), ``"uni"`` the bit-exact Pillow
-resize to 224 + ViT-L/16 (1024-d, the full default ``UniViTConfig``, its
-weights cast to the compute dtype once).  All-zero patches are padding and
+bilinear resize to 224 + ViT-L/16 (1024-d, the full default
+``UniViTConfig``), ``"virchow2"`` the bicubic resize + Virchow2's ViT-H/14
+(2560-d, the full default ``Virchow2Config``); a ViT's weights are cast to
+the compute dtype once.  All-zero patches are padding and
 are masked out of clustering.  ``kernels=True`` runs the kernel
 configuration: ResNet ``early_pallas`` (K2/K3), k-means ``use_pallas`` (K5
 in every Lloyd step) and the fused ViS block stack (K1) where
 ``cuda_vis.kernel_takes`` accepts the ViS config (UNI's reference ViS,
-input_dim 1024 against 2P = 2048, does not fit the packed layout).  It is
+input_dim 1024 against 2P = 2048, and Virchow2's at 2560 do not fit the
+packed layout).  It is
 off by default, as the JAX program runs none of its kernels.
 """
 
@@ -27,6 +30,7 @@ from sequoia_tpu_torch.ops import cuda_vis
 from sequoia_tpu_torch.ops import kmeans as km
 from sequoia_tpu_torch.ops.nn import compute_dtype as _dtype
 from sequoia_tpu_torch.ops.nn import precision
+from sequoia_tpu_torch.pipeline.features import FEAT_TYPES, vit_config
 from sequoia_tpu_torch.utils.device import resolve_device, tree_to
 
 
@@ -37,8 +41,8 @@ def make_slide_program(backbone_params, vis_cfg: vis.ViSConfig, vis_params, *,
 
     ``patch_batches_u8``: (n_batches, B, H, W, 3) uint8; ``gen``: a
     ``torch.Generator`` on the program's device, seeding kmeans++."""
-    if backbone not in ("resnet", "uni"):
-        raise ValueError('backbone must be "resnet" or "uni"')
+    if backbone not in FEAT_TYPES:
+        raise ValueError(f"backbone must be one of {FEAT_TYPES}, got {backbone!r}")
     dev = resolve_device(device)
     dt = precision(compute_dtype)
     params = tree_to(backbone_params, dev)
@@ -48,7 +52,7 @@ def make_slide_program(backbone_params, vis_cfg: vis.ViSConfig, vis_params, *,
         def one_batch(u8):
             return resnet.extract_from_uint8(rcfg, params, u8)
     else:
-        ucfg = uni_vit.UniViTConfig(compute_dtype=dt)
+        ucfg = vit_config(backbone, compute_dtype=dt)
         params = uni_vit.prepare(ucfg, params)
 
         def one_batch(u8):

@@ -7,8 +7,8 @@ counts then); the two warning counts and the counter must agree.
 
 Paths: ``features`` (``predict_features`` of host (N, 2048) features, K5
 and K1), ``vit`` and ``he2rna`` (the same through ViT and HE2RNA folds, K5),
-``resnet`` and ``uni`` (``predict_patches`` of host uint8 patches; K4 for
-ResNet), ``wsi_rgb`` and ``wsi_screened`` (``predict_wsi`` of an in-memory
+``resnet``, ``uni`` and ``virchow2`` (``predict_patches`` of host uint8
+patches; K4 for ResNet), ``wsi_rgb`` and ``wsi_screened`` (``predict_wsi`` of an in-memory
 slide at AppMag 20 and 40; the second resizes with Pillow and is left out
 without it).  :func:`slides` serves further readers through ``predict_wsi``
 too (``chip_smoke.py`` phase 15 adds the raw-plane modes, ``ycbcr`` and
@@ -36,7 +36,7 @@ from sequoia_tpu_torch.data.wsi import ArrayReader
 from sequoia_tpu_torch.models import he2rna, vis, vit
 from sequoia_tpu_torch.utils import profiling
 
-PATHS = ("features", "vit", "he2rna", "resnet", "uni", "wsi_rgb", "wsi_screened")
+PATHS = ("features", "vit", "he2rna", "resnet", "uni", "virchow2", "wsi_rgb", "wsi_screened")
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -82,6 +82,7 @@ def slides(dev, readers=None) -> dict:
     u8 = rng.integers(0, 256, (300, 256, 256, 3), dtype=np.uint8)
     resnet, _ = build_predictor("resnet", "random", folds(2048), device=dev)
     uni, _ = build_predictor("uni", "random", folds(1024), device=dev)
+    virchow2, _ = build_predictor("virchow2", "random", folds(2560), device=dev)
     out = {"features": (lambda: resnet.predict_features(feats), None)}
     for kind in ("vit", "he2rna"):
         pred, _ = build_predictor("resnet", "random", folds(2048, 2, kind), device=dev,
@@ -89,6 +90,7 @@ def slides(dev, readers=None) -> dict:
         out[kind] = (lambda p=pred: p.predict_features(feats), None)
     out["resnet"] = (lambda: resnet.predict_patches(u8), None)
     out["uni"] = (lambda: uni.predict_patches(u8[:100]), None)
+    out["virchow2"] = (lambda: virchow2.predict_patches(u8[:100]), None)
     wsi = {"wsi_rgb": slide_reader(20)}
     try:
         import PIL  # noqa: F401  (the AppMag 40 path resizes with Pillow)
