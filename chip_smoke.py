@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only stem16,bottleneck_chain_cp   # the f32 K2, K3 rows too
     python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
     python3 chip_smoke.py --only kmeans_seed   # phases 1-2, the kmeans++ kernel's line
+    python3 chip_smoke.py --only vit_attention # phases 1-2, the ViTs' attention kernel's line
     python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
     python3 chip_smoke.py --only train_path    # phases 1-2 and 8
     python3 chip_smoke.py --only aggregators_path   # phases 1-2 and 9
@@ -48,7 +49,15 @@ Phases, each printing one JSON line:
    masked padding rows and at (60, 2048), k = 100, 20 seeds each: equal
    indices and centers, any parting only where a pick's race is within
    1e-12 of a tie; its ms, bound (the larger of its bytes and k picks at
-   the least time a pick of any shape) and launches a fit.  K1 and K2
+   the least time a pick of any shape) and launches a fit.  A
+   ``vit_attention`` line: the ViTs' attention kernel (``vit_attention.cu``,
+   one launch a block and batch) against its plain twin at UNI's (128, 197,
+   16 heads of 64) and Virchow2's (128, 261, 16 of 80) shapes and at ragged
+   token counts 1, 65, 257 and 512 at both widths: the relative Frobenius
+   error (at most ``VIT_ATTN_FRO``) and the widest element's distance as a
+   share of its row's max |out| (at most ``VIT_ATTN_ELEM``), then ms, bound,
+   plain ms and ``F.scaled_dot_product_attention``'s as the library
+   yardstick (the port never calls it).  K1 and K2
    (bf16: the tensor-core kernels of
    ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: their 3xTF32 tensor-core
    kernels in the same sources) also report their share of the bound, GB/s
@@ -349,6 +358,14 @@ LLOYD_WIDE_K = (129, 200, 256)
 # in order only)
 SEED_SHAPES = ((PATCHES, D, 64), (4000, 1024, 64), (500, D, 64), (SMALL_SLIDE, D, 0))
 SEED_SEEDS, SEED_TIE = 20, 1e-12
+# vit_attention against its plain twin: (batch, tokens, heads, dh) of the two
+# ViTs, then ragged token counts at both widths; the kernel and the twin
+# round p and the output to bf16 at the same points but sum in other orders,
+# so a value can round one bf16 ulp apart: the relative Frobenius error, and
+# each element's distance over its row's max |out|, are held to
+VIT_ATTN_SHAPES = ((FEAT_BATCH, 197, 16, 64), (FEAT_BATCH, 261, 16, 80),
+                   *((4, n, 16, dh) for n in (1, 65, 257, 512) for dh in (64, 80)))
+VIT_ATTN_FRO, VIT_ATTN_ELEM = 2e-3, 2 ** -6
 STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
 # the UNI path: feature width, the UNI_SCAN_CHUNK sweep, the LayerScale
 # gammas of the random weights, and bf16 features against f32 on one batch:
@@ -407,6 +424,8 @@ SOURCES = {
                     "sequoia_tpu/ops/pallas_kmeans.py:81"),
     "kmeans_seed": ("sequoia_tpu_torch/csrc/kmeans_seed.cu",
                     "no TPU kernel: sequoia_tpu/ops/kmeans.py:40 (XLA)"),
+    "vit_attention": ("sequoia_tpu_torch/csrc/vit_attention.cu",
+                      "no TPU kernel: sequoia_tpu/models/uni_vit.py:68-70 (XLA einsums)"),
 }
 
 
@@ -1023,6 +1042,60 @@ def check_kmeans_seed(torch, dev) -> dict:
     return {"shapes": rows, "pick_us": pick_ms * 1e3, "library_ms": None,
             **{k: rows[0][k] for k in ("ms", "bound_ms", "bound_by", "bound_share",
                                        "plain_ms", "max_abs_err", "launches_per_fit")}}
+
+
+def check_vit_attention(torch, dev) -> dict:
+    """vit_attention (csrc/vit_attention.cu) against its plain twin at
+    VIT_ATTN_SHAPES on the same seeded bf16 qkv (the scores' spread of a
+    trained ViT: q and k of unit variance times 2); launches a call; at the
+    two ViTs' shapes ms, bound (qkv read and the output written once, or the
+    two products at the bf16 peak), the plain twin's ms and
+    ``F.scaled_dot_product_attention``'s from the same qkv (a yardstick:
+    the port never calls it)."""
+    import torch.nn.functional as F
+
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.ops import cuda_vit as cv
+
+    rows = []
+    for b, n, h, dh in VIT_ATTN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(50 + n + dh)
+        qkv = (2 * torch.randn((b * n, 3 * h * dh), generator=g, device=dev)).bfloat16()
+        before = _build.LAUNCHES["vit_attention"]
+        got = cv.vit_attention(qkv, b, n, h).float()
+        launches = _build.LAUNCHES["vit_attention"] - before
+        want = cv.vit_attention_plain(qkv, b, n, h).float()
+        if not bool(torch.isfinite(got).all()) or launches != 1:
+            raise AssertionError(f"vit_attention {(b, n, h, dh)}: output not finite or "
+                                 f"{launches} launches a call")
+        fro = float((got - want).norm() / want.norm())
+        row_max = want.abs().amax(1, keepdim=True).clamp_min(1e-30)
+        elem = float(((got - want).abs() / row_max).max())
+        if fro > VIT_ATTN_FRO or elem > VIT_ATTN_ELEM:
+            raise AssertionError(f"vit_attention {(b, n, h, dh)}: Frobenius {fro:.3g} "
+                                 f"(tol {VIT_ATTN_FRO:g}), widest element {elem:.3g} of its "
+                                 f"row's max (tol {VIT_ATTN_ELEM:g})")
+        row = {"batch": b, "tokens": n, "heads": h, "dh": dh, "fro_rel_err": fro,
+               "max_elem_over_row_max": elem, "max_abs_err": float((got - want).abs().max()),
+               "launches_per_call": launches}
+        if b == FEAT_BATCH:
+            def lib(qkv=qkv, b=b, n=n, h=h, dh=dh):
+                q, k, v = qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+                o = F.scaled_dot_product_attention(q, k, v)
+                return o.transpose(1, 2).reshape(b * n, h * dh)
+
+            ms = time_ms(torch, lambda: cv.vit_attention(qkv, b, n, h), 20)
+            row.update({"ms": ms, "plain_ms": time_ms(
+                torch, lambda: cv.vit_attention_plain(qkv, b, n, h), 5),
+                "library_ms": time_ms(torch, lib, 20)})
+            moved = nbytes(qkv) * 4 / 3
+            row.update(kernel_bounds(moved, 4.0 * b * h * n * n * dh, "bfloat16", ms, False))
+        rows.append(row)
+    uni, v2 = rows[0], rows[1]
+    return {"shapes": rows, "virchow2": {k: v2[k] for k in ("ms", "bound_ms", "bound_share",
+                                                          "plain_ms", "library_ms")},
+            **{k: uni[k] for k in ("ms", "bound_ms", "bound_by", "bound_share", "plain_ms",
+                                   "library_ms", "max_abs_err", "launches_per_call")}}
 
 
 def lloyd_backends(torch, km, x, mask, init, max_iter: int = 300) -> dict:
@@ -2084,6 +2157,11 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
         ref, plain_s, _ = timed(plain.predict_patches, patches)
         if y.shape != (1, GENES) or not np.isfinite(y).all() or lc["lloyd_stats"] == 0:
             raise AssertionError(f"uni {n}-patch slide: {y.shape}, launches {lc}")
+        # the attention kernel: once a block and extractor batch
+        attn = uni_vit.UniViTConfig().depth * -(-n // FEAT_BATCH)
+        if lc["vit_attention"] != attn:
+            raise AssertionError(f"uni {n}-patch slide: {lc['vit_attention']} vit_attention "
+                                 f"launches, not depth x batches = {attn}")
         r = r_min_check(pearson(np, y, ref), 0.99)
         res = {"phase": "uni_slide", "source": "patches", "patches": n,
                "shape": list(y.shape), "finite": True, "seconds": secs,
@@ -2107,6 +2185,7 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
         kept_plain = plain.io_stats["kept"] - k0
         if y.shape != (1, GENES) or not np.isfinite(y).all() or lc["lloyd_stats"] == 0:
             raise AssertionError(f"uni WSI slide {i}: {y.shape}, launches {lc}")
+        check_launched(lc, ("vit_attention",), f"uni WSI slide {i}")
         if kept != kept_plain or resnet_kept[i] not in (None, kept):
             raise AssertionError(f"uni WSI slide {i}: kept {kept} / plain {kept_plain}, the "
                                  f"ResNet predictor {resnet_kept[i]}")
@@ -2159,6 +2238,7 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
                 raise AssertionError(f"uni_serve_cli: {name} CSV {vals.shape}")
         if runs["kernels"]["launches"]["lloyd_stats"] == 0:
             raise AssertionError("uni_serve_cli: the kernel run launched no K5")
+        check_launched(runs["kernels"]["launches"], ("vit_attention",), "uni_serve_cli")
         add(runs["kernels"]["launches"])
         r = min(pearson(np, runs["kernels"]["csv"][2][i], runs["plain"]["csv"][2][i])
                 for i in range(len(paths)))
@@ -5054,6 +5134,21 @@ def sync_path(torch, dev) -> None:
     if missing:
         raise AssertionError(f"sync census: no path {sorted(missing)} here")
     sc.warned(lambda: None)  # the first switch of the mode warns once itself
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.models import uni_vit
+
+    # the ViT paths through the attention kernel: a whole number of launches
+    # a block (one a block and extractor batch)
+    for name, depth in (("uni", uni_vit.UniViTConfig().depth),
+                        ("virchow2", uni_vit.Virchow2Config().depth)):
+        before = _build.LAUNCHES["vit_attention"]
+        runs[name][0]()
+        n = _build.LAUNCHES["vit_attention"] - before
+        if n == 0 or n % depth:
+            raise AssertionError(f"sync census: the {name} path made {n} vit_attention "
+                                 f"launches, not a multiple of its depth {depth}")
+        emit({"phase": "sync_census_vit_attention", "path": name, "launches": n,
+              "depth": depth})
     bad = []
     for name, (fn, mode) in runs.items():
         row = {"path": name, "mode": mode, **sc.census(fn)}
@@ -5089,7 +5184,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
-                    "for these alone; lloyd_stats, kmeans_seed) and/or uni_path (phase 7), "
+                    "for these alone; lloyd_stats, kmeans_seed, vit_attention) and/or "
+                    "uni_path (phase 7), "
                     "train_path (phase 8), aggregators_path (phase 9), stages_path "
                     "(phase 10), parallel_path "
                     "(phase 11), raw_planes_path (phase 12), tools_path (phase 13), "
@@ -5123,7 +5219,8 @@ def main() -> int:
               ("bottleneck_chain_cp", functools.partial(check_chain, kname="bottleneck_chain_cp")),
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
-    known = [k for k, _ in checks] + ["lloyd_stats", "kmeans_seed", "uni_path", "train_path",
+    known = [k for k, _ in checks] + ["lloyd_stats", "kmeans_seed", "vit_attention",
+                                      "uni_path", "train_path",
                                       "aggregators_path", "stages_path", "parallel_path",
                                       "raw_planes_path", "tools_path", "bench_path",
                                       "sync_path"]
@@ -5159,6 +5256,10 @@ def main() -> int:
         r = check_kmeans_seed(torch, dev)
         emit({"phase": "kernel", "name": "kmeans_seed", "dtype": "float32", **r})
         results["kmeans_seed"] = r
+    if not only or "vit_attention" in only:
+        r = check_vit_attention(torch, dev)
+        emit({"phase": "kernel", "name": "vit_attention", "dtype": "bfloat16", **r})
+        results["vit_attention"] = r
     if only:
         if "uni_path" in only:
             emit({"phase": "uni_launches", **uni_path(torch, dev, [None, None])})
@@ -5220,7 +5321,8 @@ def main() -> int:
                 + stages[k] + par[k] + tools[k] + benched[k] for k in results}
 
     rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"],
-                 "kmeans_seed": results["kmeans_seed"]} for dt, r in by_dtype.items()}
+                 "kmeans_seed": results["kmeans_seed"],
+                 "vit_attention": results["vit_attention"]} for dt, r in by_dtype.items()}
     emit({"phase": "slide_cost", "per": "slide",
           "from_patches": slide_costs(rows["bfloat16"], totals["bfloat16"], main_slide),
           "from_patches_f32": slide_costs(rows["float32"], totals["float32"], main32_slide),

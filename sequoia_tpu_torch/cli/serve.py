@@ -25,7 +25,9 @@ Where the port differs from the JAX CLI:
   UNI's 1024-d and Virchow2's 2560-d folds do not, and never for ViT or
   HE2RNA folds) and prints
   one stderr line naming it and why K1 was left out; ``--kernels off`` or
-  ``--device cpu`` serves with the plain PyTorch versions;
+  ``--device cpu`` serves with the plain PyTorch versions, but for the
+  ViTs' attention (``vit_attention``), which runs wherever its input is a
+  CUDA bf16 tensor of a shape it takes (``ops/cuda_vit.takes``);
 * ``--compute_dtype`` also sets the ViS and ViT folds' compute dtype (the
   JAX CLI serves them in f32 whatever the flag; ``--compute_dtype float32``
   gives its numerics); HE2RNA folds run in f32;

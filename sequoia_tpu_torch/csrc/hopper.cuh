@@ -6,7 +6,9 @@
 //   - the wgmma shared-memory matrix descriptor for the 128-byte swizzle;
 //   - wgmma.mma_async m64nNk16, bf16 operands from shared memory, f32
 //     accumulators in registers, with its fence, commit and wait; m64n104k16
-//     also with an MN-major (transposed) A; m64nNk8 with TF32 operands (N =
+//     also with an MN-major (transposed) A; with A in registers (N = 64, 80,
+//     104, 128, 136), an accumulator's fragment rounded to bf16 in pairs
+//     being the A of the next product; m64nNk8 with TF32 operands (N =
 //     64, 104, 128), the TF32 rounding (cvt.rna.tf32.f32) that makes them,
 //     the 3xTF32 split of an f32 into TF32 hi and lo stored to shared
 //     memory, and a loader that transposes a row-major f32 slab into the
@@ -14,6 +16,9 @@
 //   - programmatic dependent launch (griddepcontrol) and thread-block
 //     clusters: the cluster barrier, a CTA's rank, and loads from another
 //     CTA's shared memory (distributed shared memory).
+//
+// A 32-byte-swizzled tile (sw32_offset, sw32_desc) holds rows of 16 bf16,
+// so a width of 80 takes five such tiles and no padding.
 //
 // Layout of a 128-byte-swizzled operand tile in shared memory: rows of 128
 // bytes (64 bf16); 16-byte chunk c of row r lies at chunk c ^ (r % 8) of its
@@ -60,6 +65,11 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
+// byte offset of 16-byte chunk c (0..1) of row r in a 32-byte-swizzled tile
+__device__ __forceinline__ uint32_t sw32_offset(int r, int c) {
+  return r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
+}
+
 // wgmma matrix descriptor of a 128-byte-swizzled tile starting at shared
 // address `addr`: bits 0-13 the address, 16-29 the leading byte offset,
 // 32-45 the stride byte offset (all >> 4), 62-63 the swizzle mode (1 = 128B).
@@ -70,6 +80,17 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// the same descriptor for a 32-byte-swizzled tile: rows of 32 bytes (16
+// bf16), 16-byte chunk c of row r at chunk c ^ ((r / 4) % 2) (sw32_offset),
+// each 8-row atom of 256 bytes on a 256-byte boundary.  K-major: one k16 step
+// is a whole row; sbo = 256.  MN-major: a row holds 16 M/N values of one K
+// index; lbo = the stride between 16-wide M/N blocks, sbo = 256, and the k16
+// steps start 16 rows (512 bytes) apart.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (3ull << 62);
 }
 
 // order the warpgroup's register and shared-memory accesses before the
@@ -197,6 +218,123 @@ template <int TRANS_A, int TRANS_B> struct Wgmma104 {
   }
 };
 
+// d (64 x N f32) += A (64 x 16) . B (16 x N, descriptor b), bf16, with A in
+// registers: a[0..3] hold two bf16 each (the lower column in the low half),
+// laid out as the accumulator fragment above: for thread t, rows 16*(t/32) +
+// (t%32)/4 (a[0], a[2]) and 8 below (a[1], a[3]), columns 2*(t%4), +1 (a[0],
+// a[1]) and 8 to the right (a[2], a[3]).  So the accumulator of one product
+// becomes the A of the next in the thread that holds it: d[8k .. 8k+7] of a
+// 64 x N tile, rounded in pairs, are A's k16 step k.  N = 64, 80, 104, 128,
+// 136; TRANS_B as above.  scale_d = 0 ignores d's old value: d = A . B.
+template <int N, int TRANS_B> struct WgmmaRA;
+
+template <int TRANS_B> struct WgmmaRA<64, TRANS_B> {
+  __device__ static __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct WgmmaRA<80, TRANS_B> {
+  __device__ static __forceinline__ void mma(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct WgmmaRA<104, TRANS_B> {
+  __device__ static __forceinline__ void mma(float (&d)[52], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51"
+        "}, {%52, %53, %54, %55}, %56, p, 1, 1, %58;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct WgmmaRA<128, TRANS_B> {
+  __device__ static __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct WgmmaRA<136, TRANS_B> {
+  __device__ static __forceinline__ void mma(float (&d)[68], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67"
+        "}, {%68, %69, %70, %71}, %72, p, 1, 1, %74;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+
 // d (64 x N f32) += A (64 x 8) . B (8 x N), TF32, both K-major (the only
 // layout wgmma takes for 32-bit operands) from shared memory: a k8 step of
 // TF32 is 32 bytes deep, as a k16 step of bf16, so the 128-byte-swizzled
@@ -260,6 +398,15 @@ template <> struct WgmmaTf32<128> {
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
+
+// as fence_regs, for registers a wgmma reads (an A fragment): they stay
+// untouched until the wgmma_wait after which this is placed
+template <int R> __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
 
 // v rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
 // from zero; the 13 bits below are returned as zero

@@ -31,27 +31,33 @@ Precision.  f32 is the parity path: every product in IEEE f32 (TF32 off,
 ``ops/nn.precision``).  In bf16 every GEMM takes bf16 operands on the tensor
 cores with f32 accumulation and one rounding of its output, bias included
 (``torch.addmm``; cuBLAS is told not to reduce in bf16).  The attention
-scores come out of their product in f32, the softmax runs in f32 and its
-probabilities are rounded to bf16 for the product with V, as the JAX
-einsums do.  LayerNorm statistics are f32 (``F.layer_norm`` accumulates in
+(``ops/cuda_vit.attention``, from the qkv GEMM's output to proj's input):
+scores from bf16 products summed in f32, scaled in f32, a softmax over each
+whole row in f32, probabilities rounded to bf16 for the product with V, as
+the JAX einsums do; on the card in bf16 one hand-written kernel
+(``csrc/vit_attention.cu``, ``vit_attention``) does all of it, for dh 64 or
+80 and up to 512 tokens; on the CPU, in f32 and at other shapes its plain
+twin runs, the same mathematics as separate PyTorch ops.  LayerNorm
+statistics are f32 (``F.layer_norm`` accumulates in
 f32); the residual stream, the LayerScale products and the GELU are bf16
 tensors, and the output leaves as f32.  The SwiGLU gate takes two roundings
 to bf16: ``silu(a)`` (computed in f32 inside the op) and its product with
 ``b``.  Virchow2's patch mean is taken in f32 over the bf16 normalised
 tokens.  :func:`prepare` casts the GEMM weights, biases, LayerNorm affines,
 gammas and embeddings to the compute type once, so no forward casts them
-again.  The attention is plain ``torch.matmul`` + softmax: the JAX package
-computes it with XLA einsums, not a Pallas kernel.
+again.  The JAX package computes the attention with XLA einsums, not a
+Pallas kernel: the port's kernel replaces none.
 
 Spans (``utils/profiling``, recorded only under a profiler):
 ``vit.preprocess`` around the resize and normalisation of
-:func:`extract_from_uint8`, ``vit.mlp`` around each block's MLP branch.
+:func:`extract_from_uint8`, ``vit.attn`` around each block's attention
+(after the qkv GEMM, before proj), ``vit.mlp`` around each block's MLP
+branch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any
 
 import numpy as np
@@ -59,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from sequoia_tpu_torch.models.resnet import IMAGENET_MEAN, IMAGENET_STD
-from sequoia_tpu_torch.ops import pil_resize
+from sequoia_tpu_torch.ops import cuda_vit, pil_resize
 from sequoia_tpu_torch.ops.nn import LN_EPS, compute_dtype, linear
 from sequoia_tpu_torch.utils.profiling import count, span
 
@@ -168,33 +174,15 @@ def _swiglu(h: torch.Tensor) -> torch.Tensor:
     return F.silu(a) * b
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
-    """``q . k^T * scale`` in f32 from (B, H, N, dh) operands of the compute
-    type: bf16 products accumulate in f32 and come out in f32 (``out_dtype``
-    on the card; on the CPU the same values from the operands widened).  A
-    power-of-two scale (dh = 64: 1/8) multiplies q instead, which gives the
-    same bits without a pass over the (N, N) scores."""
-    b, h, n, dh = q.shape
-    exact = math.frexp(scale)[0] == 0.5
-    q3 = (q * scale if exact else q).reshape(b * h, n, dh)
-    kt = k.reshape(b * h, n, dh).transpose(1, 2)
-    if q.dtype != torch.float32 and q.is_cuda:
-        s = torch.bmm(q3, kt, out_dtype=torch.float32)
-    else:
-        s = torch.bmm(q3.float(), kt.float())
-    return (s if exact else s * scale).reshape(b, h, n, n)
-
-
 def _block(cfg: UniViTConfig, x: torch.Tensor, bp: dict) -> torch.Tensor:
     b, n, d = x.shape
-    h, dh = cfg.heads, cfg.dim_head
+    h = cfg.heads
 
     y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.ln_eps)
-    qkv = _linear(y, bp["w_qkv"], bp["b_qkv"]).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    attn = torch.softmax(_scores(q, k, dh ** -0.5), dim=-1).to(v.dtype)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, h * dh)
-    out = _linear(out, bp["w_proj"], bp["b_proj"])
+    qkv = _linear(y, bp["w_qkv"], bp["b_qkv"]).reshape(b * n, 3 * d)
+    with span("vit.attn"):
+        out = cuda_vit.attention(qkv, b, n, h)
+    out = _linear(out.reshape(b, n, d), bp["w_proj"], bp["b_proj"])
     # the LayerScale gammas in the activation's type, as JAX casts them down
     x = torch.addcmul(x, out, bp["ls1"].to(out.dtype))
 

@@ -161,12 +161,12 @@ def test_tc_chain_keeps_the_identity_check():
 # the C entries' ctypes signatures
 # ---------------------------------------------------------------------------
 
-_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 
 def _c_entries():
     """name -> the ctypes type of each argument, from every extern "C" entry
-    of csrc/*.cu: a pointer is c_void_p, else the C integer type."""
+    of csrc/*.cu: a pointer is c_void_p, else the C integer or float type."""
     entries = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         text = src.read_text()

@@ -9,8 +9,8 @@ of 14-px patches.  Virchow2 has no JAX counterpart.
 Also: planted faults that the comparison must fail, the bicubic resize
 against Pillow, the timm state-dict loader, the serving entry points with
 ``feat_type="virchow2"``, UNI's forward pinned bit for bit to what it was
-before Virchow2 joined its module, and the spans ``vit.mlp`` and
-``vit.preprocess`` with the two benchmark readers of them."""
+before Virchow2 joined its module, and the spans ``vit.mlp``,
+``vit.preprocess`` and ``vit.attn`` with the benchmark readers of them."""
 
 import dataclasses
 import hashlib
@@ -408,15 +408,18 @@ def test_spans_once_per_block_and_batch(feat_type):
 def _canned():
     def s(count, device):
         return {"count": count, "host_ms": device, "self_host_ms": device, "device_ms": device}
-    return {"spans": {"vit.mlp": s(96, 300.0), "vit.preprocess": s(3, 12.0)}, "counters": {}}
+    return {"spans": {"vit.mlp": s(96, 300.0), "vit.preprocess": s(3, 12.0),
+                      "vit.attn": s(96, 90.0)}, "counters": {}}
 
 
 @pytest.mark.parametrize("name, value", [("vit_mlp_ms_per_kpatch", 150.0),
-                                         ("vit_preprocess_ms_per_kpatch", 6.0)])
+                                         ("vit_preprocess_ms_per_kpatch", 6.0),
+                                         ("vit_attn_ms_per_kpatch", 45.0)])
 def test_span_readers_known_value(monkeypatch, name, value):
-    """Per thousand of the traced slides' patches: 300 ms of ``vit.mlp`` and
-    12 ms of ``vit.preprocess`` over 2,000 traced patches; nothing from an
-    untraced run, a program without the recorder or without the spans."""
+    """Per thousand of the traced slides' patches: 300 ms of ``vit.mlp``,
+    12 ms of ``vit.preprocess`` and 90 ms of ``vit.attn`` over 2,000 traced
+    patches; nothing from an untraced run, a program without the recorder or
+    without the spans."""
     reader = bench_run.reader(common.ROOT, name)
     rec = {"trace": {"window_s": 1.0}, "items": {"patches": 40000, "patches_traced": 2000}}
     monkeypatch.setattr(profiling, "summary", _canned)
