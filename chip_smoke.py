@@ -14,7 +14,7 @@
     python3 chip_smoke.py --only parallel_path # phases 1-2 and 11
     python3 chip_smoke.py --only raw_planes_path   # phases 1-2 and 12
     python3 chip_smoke.py --only tools_path    # phases 1-2 and 13
-    python3 chip_smoke.py --only bench_path    # phases 1-2 and 14
+    python3 chip_smoke.py --only entry_path    # phases 1-2 and 14
     python3 chip_smoke.py --only sync_path     # phases 1-2 and 15
 
 Phases, each printing one JSON line:
@@ -96,9 +96,12 @@ Phases, each printing one JSON line:
    then a ``torch.profiler`` trace of one extractor batch of each predictor
    (device ms by kernel, idle share) and each stage's time, with the Lloyd
    steps of ``kmeans_fit`` and, from one seeding, of K5, plain f32 and plain
-   f64 with their labels' agreement with f64.  Then the f32 leg
-   (``main_path_f32``): ``pipeline.fused.make_slide_program`` with
-   ``compute_dtype`` f32, ``kernels=True`` against ``kernels=False``, and a
+   f64 with their labels' agreement with f64; and
+   ``pipeline.fused.make_slide_program`` (fold 0, bf16) on the 4096-patch
+   slide with ``kernels=True`` against ``kernels=False`` (K2, K3, K5 and K1
+   must launch, the plain program none, r >= 0.99).  Then the f32 leg
+   (``main_path_f32``): the same program with
+   ``compute_dtype`` f32, and a
    ``SlidePredictor`` at ``ResNetConfig(f32, early_pallas=True)`` with f32
    ViS folds, on the same 4096-patch slide: K2, K3, K5 and K1 (all on the
    tensor cores in f32) must launch, the features within 1e-4 of the plain
@@ -137,10 +140,13 @@ Phases, each printing one JSON line:
    is off this path).  ``uni_resize``: the Pillow-exact resize of one batch
    on the card, bit-equal to the port's CPU result and to Pillow where it
    imports; ``uni_batch``: one batch's bf16 features against the f32
-   forward, ms per batch of 128 against its bound (FLOP / 989 TFLOP/s), the
-   ``UNI_SCAN_CHUNK`` sweep and a ``torch.profiler`` trace; ``uni_lloyd``: K5
+   forward, ms per batch of 128 against its bound (FLOP / 989 TFLOP/s) and
+   a ``torch.profiler`` trace; ``uni_lloyd``: K5
    at (4096, 1024), k = 100, against ``lloyd_stats_tc_plain``;
-   ``uni_slide``: ``predict_patches`` on a 4096- and a 60-patch slide and
+   ``uni_slide``: ``make_slide_program(backbone="uni")`` (fold 0, bf16) on
+   a 4096-patch slide with the kernels against without (K5 and
+   ``vit_attention`` must launch, the plain program no K5, r >= 0.99),
+   ``predict_patches`` on a 4096- and a 60-patch slide and
    ``predict_wsi`` on the two slides of phase 5, K5 against the plain
    k-means (kept counts equal to the ResNet predictor's); ``uni_serve_cli``:
    ``cli.serve.main --feat_type uni --weights random`` on the slides as
@@ -283,21 +289,10 @@ Phases, each printing one JSON line:
    --wsis`` (its TIFFs read back equal to their levels) and ``parity_check``
    on a pair of pickles that passes and one that fails;
    ``tools_launches`` (K1-K4 must rise) with ``phase_seconds``;
-14. the whole-slide bench (``bench_*`` lines): every leg of
-   ``sequoia_tpu_torch.bench`` (``probe``, ``resnet``, ``uni``, ``spatial``,
-   ``train``, ``decode``, ``e2e``, ``e2e_uni``, ``e2e_aperio``) run in this
-   process at its full constants with the kernels on, its one JSON line as
-   the ``bench`` line and each leg's unrounded seconds and audit as
-   ``bench_seconds``; ``e2e_aperio`` serves 240-px :class:`PlanarSlide`
-   readers of the e2e fixture (``'mosaic'``), and every leg but ``decode``
-   (absent where the native reader does not build) must succeed, each
-   launching its kernels (``resnet`` K1, K2, K3, K5; ``e2e`` and
-   ``e2e_aperio`` K4, K5, K1; the UNI legs K5); ``bench_kernels_off``, the
-   ``resnet`` leg again with the kernels off, s/slide both ways;
-   ``bench_entry``, ``dryrun.entry()``'s forward (plain f32 ``vis.apply``,
-   no kernel) finite at (16, 20,820), its ms and its error against a
-   float64 run of the same ViS (``tools/goldens.vis_forward``) within
-   1e-4; ``bench_launches`` with ``phase_seconds``;
+14. ``dryrun.entry()`` (the ``entry`` line): its forward (plain f32
+   ``vis.apply``, no kernel) finite at (16, 20,820), its ms and its error
+   against a float64 run of the same ViS (``tools/goldens.vis_forward``)
+   within 1e-4, with ``phase_seconds``;
 15. the ``host_syncs`` gate (``sync_census`` lines): one slide of each
    serving path of ``tools/sync_census.py`` (host features through ViS, ViT
    and HE2RNA folds; ResNet and UNI patches; ``predict_wsi`` in ``'rgb'``
@@ -309,7 +304,7 @@ Phases, each printing one JSON line:
    ``sync_census_seconds``.
 
 The last lines are the kernels table (``launches`` sums the counts of the
-kernel runs of phases 4-7 and 9-14, each read from 0), the script's run time, the
+kernel runs of phases 4-7 and 9-13, each read from 0), the script's run time, the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or without the package beside it, the
@@ -328,7 +323,7 @@ import subprocess
 import sys
 import time
 
-# the main path's shapes (bench.py's slide: 4096 patches of 256 px, extractor
+# the main path's shapes (a slide of 4096 patches of 256 px, extractor
 # batch 128, k = 100 padded to 128 centers, ViS D = 2048 over 100 tokens)
 PATCHES, SMALL_SLIDE, PATCH, FEAT_BATCH = 4096, 60, 256, 128
 K, KPAD, D, GENES, FOLDS = 100, 128, 2048, 20820, 5
@@ -367,10 +362,10 @@ VIT_ATTN_SHAPES = ((FEAT_BATCH, 197, 16, 64), (FEAT_BATCH, 261, 16, 80),
                    *((4, n, 16, dh) for n in (1, 65, 257, 512) for dh in (64, 80)))
 VIT_ATTN_FRO, VIT_ATTN_ELEM = 2e-3, 2 ** -6
 STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
-# the UNI path: feature width, the UNI_SCAN_CHUNK sweep, the LayerScale
-# gammas of the random weights, and bf16 features against f32 on one batch:
-# max |bf16 - f32| / max |f32| (bf16 rounds the residual stream of 24 blocks)
-UNI_DIM, UNI_CHUNKS, UNI_LAYER_SCALE, UNI_BF16_TOL = 1024, (16, 32, 64, 128), 0.1, 5e-2
+# the UNI path: feature width, the LayerScale gammas of the random weights,
+# and bf16 features against f32 on one batch: max |bf16 - f32| / max |f32|
+# (bf16 rounds the residual stream of 24 blocks)
+UNI_DIM, UNI_LAYER_SCALE, UNI_BF16_TOL = 1024, 0.1, 5e-2
 
 # the training plane at full width: the reference's batch 16 and lr 1e-3 over
 # (100, 2048) cluster features, steps timed a variant; train_parity at depth 2,
@@ -383,10 +378,6 @@ CV_SLIDES, CV_PATIENTS, FT_GENES = 80, 40, 1000
 # bytes a parameter that the AdamW step must move: p, m, v read and written, g read
 ADAMW_BYTES = {"float32": 28, "bfloat16": 20}
 
-# card peaks (H100 SXM data sheet, dense): the bound of a kernel is the
-# larger of bytes / HBM rate and operations / peak rate for their type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
 # the rate of a read that hits the 50 MB L2 (no data-sheet figure; taken
 # high, as a bound should be): kmeans_seed's passes after the first
 L2_BYTES_PER_S = 8e12
@@ -437,8 +428,13 @@ def emit(obj) -> None:
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    """The bound of a kernel: the larger of bytes at the HBM rate and
+    operations at the peak of their route (``bench.PEAK_FLOPS``: the H100
+    SXM data sheet's dense rates)."""
+    from sequoia_tpu_torch import bench
+
+    t_bytes = nbytes / bench.HBM_BYTES_PER_S
+    t_ops = flops / bench.PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -575,14 +571,16 @@ def kernel_bounds(moved: float, flops: float, dtype: str, ms: float, tf32: bool)
     """bound_ms / bound_by / bound_share of a kernel row.  A 3xTF32 kernel
     (``tf32``) is bound by its three TF32 products on the tensor cores (as
     K5's row); its f32 FMA bound on the CUDA cores is given beside it."""
+    from sequoia_tpu_torch import bench
+
     if not tf32:
         b, by = bound_ms(moved, flops, dtype)
         return {"bound_ms": b, "bound_by": by, "bound_share": b / ms}
-    b, by = bound_ms(moved, 3 * flops, "tfloat32")
+    b, by = bound_ms(moved, 3 * flops, "tf32")
     bc, bcby = bound_ms(moved, flops, "float32")
     return {"bound_ms": b, "bound_by": by, "bound_share": b / ms,
-            "bound_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
-            "bound_bytes_share": moved / HBM_BYTES_PER_S * 1e3 / ms,
+            "bound_bytes_ms": moved / bench.HBM_BYTES_PER_S * 1e3,
+            "bound_bytes_share": moved / bench.HBM_BYTES_PER_S * 1e3 / ms,
             "bound_cuda_cores_ms": bc, "bound_cuda_cores_by": bcby,
             "bound_cuda_cores_share": bc / ms}
 
@@ -889,7 +887,7 @@ def check_lloyd(torch, dev) -> dict:
     moved = nbytes(x, mask, centers, s1, c1, i1, b1)
     # the f32-accurate product as three TF32 products on the tensor cores, and
     # as one f32 product on the CUDA cores
-    res["bound_ms"], res["bound_by"] = bound_ms(moved, 3 * flops + n_valid * D, "tfloat32")
+    res["bound_ms"], res["bound_by"] = bound_ms(moved, 3 * flops + n_valid * D, "tf32")
     res["bound_cuda_cores_ms"], res["bound_cuda_cores_by"] = bound_ms(
         moved, flops + n_valid * D, "float32")
     res.update(rates(res, moved, 3 * flops))
@@ -928,7 +926,7 @@ def check_lloyd_k(torch, dev, k: int, dim: int = D) -> dict:
                              f"inertia {inertia_rel:.3g} from lloyd_stats_tc_plain")
     flops = 2 * PATCHES * dim * k
     moved = nbytes(x, mask, centers, s1, c1, i1, b1)
-    bnd, by = bound_ms(moved, 3 * flops + int(mask.sum()) * dim, "tfloat32")
+    bnd, by = bound_ms(moved, 3 * flops + int(mask.sum()) * dim, "tf32")
     res = {"k": k, "points": PATCHES, "dim": dim, "counts_equal": True, "labels_equal": True,
            "sums_max_rel_err": sums_rel, "best_max_rel_err": best_rel,
            "inertia_rel_err": inertia_rel, "tol": tol,
@@ -985,7 +983,7 @@ def check_kmeans_seed(torch, dev) -> dict:
     per-pick latency, the least time a pick of any shape (at every shape
     the bytes are the lesser: a grid barrier and the dependent reads around
     it a pick)."""
-    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch import _build, bench
     from sequoia_tpu_torch.ops import cuda_kmeans as ck
 
     rows = []
@@ -1029,7 +1027,7 @@ def check_kmeans_seed(torch, dev) -> dict:
         rows.append({"points": n, "dim": dim, "masked": pad, "k": K, "seeds": SEED_SEEDS,
                      "seeds_parted": parted, "worst_tie_gap": worst, "tie_tol": SEED_TIE,
                      "max_abs_err": err, "launches_per_fit": launches, "ms": ms,
-                     "bytes_ms": (pass_bytes / HBM_BYTES_PER_S
+                     "bytes_ms": (pass_bytes / bench.HBM_BYTES_PER_S
                                   + (K - 2) * pass_bytes / L2_BYTES_PER_S) * 1e3,
                      "plain_ms": time_ms(torch, lambda: ck.kmeans_seed_plain(x, mask, u), 3)})
         if launches != 1:
@@ -1313,6 +1311,49 @@ def check_launched(launches: dict, kernels, path: str) -> None:
         raise AssertionError(f"{path} did not launch {missing}")
 
 
+def slide_program_leg(torch, dev, bparams, fold, u8, dtype, kernels, backbone="resnet",
+                      always=()) -> tuple[dict, dict]:
+    """``pipeline/fused.make_slide_program`` (one ViS fold) on the slide
+    ``u8`` at ``dtype``, with the kernels against without: the kernel run
+    must launch ``kernels``, the plain run nothing but the kernels that
+    decide from their input (``always``), and the two must agree (finite
+    (20,820,), Pearson r >= 0.99).  Returns the line's fields and the kernel
+    run's launch counts."""
+    import numpy as np
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.pipeline.fused import make_slide_program
+
+    batches = u8.reshape(-1, FEAT_BATCH, *u8.shape[1:])
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    progs = {on: make_slide_program(bparams, *fold, n_clusters=K, compute_dtype=dtype,
+                                    backbone=backbone, kernels=on, device=dev)
+             for on in (True, False)}
+    for prog in progs.values():  # warm-up: cuDNN plans, allocator
+        prog(batches[:1], gen())
+    runs = {}
+    for on, prog in progs.items():
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = prog(batches, gen())
+        torch.cuda.synchronize()
+        runs[on] = (out.cpu().numpy(), time.perf_counter() - t0, dict(_build.LAUNCHES))
+    (y, secs, counts), (ref, plain_s, plain_counts) = runs[True], runs[False]
+    path = f"the {backbone} slide program at {dtype}"
+    check_launched(counts, kernels, path)
+    stray = {k: v for k, v in plain_counts.items() if v and k not in always}
+    if stray:
+        raise AssertionError(f"{path} without the kernels launched {stray}")
+    r = pearson(np, y, ref)
+    res = {"entry": "make_slide_program", "backbone": backbone,
+           "dtype": str(dtype).replace("torch.", ""), "patches": len(u8),
+           "shape": list(y.shape), "finite": bool(np.isfinite(y).all()), "seconds": secs,
+           "plain_seconds": plain_s, "launches": counts, "pearson_r_vs_plain": r,
+           "max_rel_diff_vs_plain": float(np.abs(y - ref).max() / np.abs(ref).max())}
+    if y.shape != (GENES,) or not res["finite"] or r < 0.99:
+        raise AssertionError(f"{path} disagrees with the plain program: {res}")
+    return res, counts
+
+
 def main_path(torch, dev, rparams, folds) -> tuple[dict, dict]:
     """Phase 4; returns the kernels' launch counts of the kernel path's run
     and those of its 4096-patch slide."""
@@ -1348,8 +1389,9 @@ def main_path(torch, dev, rparams, folds) -> tuple[dict, dict]:
         secs[n] = time.perf_counter() - t0
         per_slide[n] = {k: _build.LAUNCHES[k] - before[k] for k in before}
     launches = dict(_build.LAUNCHES)
-    check_launched(launches, ("stem16", "bottleneck_chain_cp", "vis_blocks_fused",
-                              "lloyd_stats", "kmeans_seed"), "main path")
+    kernels = ("stem16", "bottleneck_chain_cp", "vis_blocks_fused", "lloyd_stats",
+               "kmeans_seed")
+    check_launched(launches, kernels, "main path")
 
     for n, u8 in slides.items():
         y = preds[n]
@@ -1376,6 +1418,12 @@ def main_path(torch, dev, rparams, folds) -> tuple[dict, dict]:
               "features_max_rel_diff": feat_rel, "vis_pearson_r_same_clusters": vis_r})
         if vis_r < 0.999 or feat_rel > 0.05 or r < 0.99:
             raise AssertionError(f"{n}-patch slide disagrees with the plain path")
+
+    # the slide program (fold 0) at bf16 on the 4096-patch slide
+    res, counts = slide_program_leg(torch, dev, rparams, folds[0], slides[PATCHES],
+                                    torch.bfloat16, kernels)
+    emit({"phase": "main_path", **res})
+    launches = {k: launches[k] + counts[k] for k in launches}
 
     # where a slide's time goes: one extractor batch traced, then each stage
     # of predict_patches alone, host clock around work that ends in a
@@ -1429,7 +1477,6 @@ def main_path_f32(torch, dev, rparams, folds) -> tuple[dict, dict]:
     from sequoia_tpu_torch import _build
     from sequoia_tpu_torch.models import resnet
     from sequoia_tpu_torch.pipeline.features import FeatureExtractor
-    from sequoia_tpu_torch.pipeline.fused import make_slide_program
     from sequoia_tpu_torch.serve import SlidePredictor
 
     f32, kernels = torch.float32, ("stem16", "bottleneck_chain_cp", "lloyd_stats",
@@ -1438,8 +1485,6 @@ def main_path_f32(torch, dev, rparams, folds) -> tuple[dict, dict]:
     g = torch.Generator(device=dev).manual_seed(6)  # main_path's first slide
     u8 = torch.randint(0, 256, (PATCHES, PATCH, PATCH, 3), generator=g, device=dev,
                        dtype=torch.uint8)
-    batches = u8.reshape(PATCHES // FEAT_BATCH, FEAT_BATCH, PATCH, PATCH, 3)
-    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
 
     def timed(fn, *args):
         _build.reset_launches()
@@ -1448,25 +1493,8 @@ def main_path_f32(torch, dev, rparams, folds) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
 
-    total = dict.fromkeys(_build.LAUNCHES, 0)
-    progs = {on: make_slide_program(rparams, *ffolds[0], n_clusters=K, compute_dtype=f32,
-                                    kernels=on, device=dev) for on in (True, False)}
-    for prog in progs.values():  # warm-up: cuDNN plans, allocator
-        prog(batches[:1], gen())
-    (y, secs, counts), (ref, plain_s, plain_counts) = (timed(progs[on], batches, gen())
-                                                      for on in (True, False))
-    check_launched(counts, kernels, "f32 slide program")
-    if any(plain_counts.values()):
-        raise AssertionError(f"the plain f32 slide program launched {plain_counts}")
-    y, ref = y.cpu().numpy(), ref.cpu().numpy()
-    r = pearson(np, y, ref)
-    emit({"phase": "main_path_f32", "entry": "make_slide_program", "patches": PATCHES,
-          "shape": list(y.shape), "finite": bool(np.isfinite(y).all()), "seconds": secs,
-          "plain_seconds": plain_s, "launches": counts, "pearson_r_vs_plain": r,
-          "max_rel_diff_vs_plain": float(np.abs(y - ref).max() / np.abs(ref).max())})
-    if y.shape != (GENES,) or not np.isfinite(y).all() or r < 0.99:
-        raise AssertionError("the f32 slide program disagrees with the plain program")
-    total = {k: total[k] + counts[k] for k in total}
+    res, total = slide_program_leg(torch, dev, rparams, ffolds[0], u8, f32, kernels)
+    emit({"phase": "main_path_f32", **res})
 
     def predictor(on: bool) -> SlidePredictor:
         rcfg = resnet.ResNetConfig(compute_dtype=f32, early_pallas=on)
@@ -2059,8 +2087,8 @@ def uni_resize(torch, dev, u8) -> dict:
 
 def uni_batch(torch, dev, params, u8) -> dict:
     """One extractor batch of 128 through the bf16 ViT-L against the f32
-    forward; ms per batch against the bound, the UNI_SCAN_CHUNK sweep, the
-    f32 forward's time and a trace of one batch."""
+    forward; ms per batch against the bound, the f32 forward's time and a
+    trace of one batch."""
     from sequoia_tpu_torch.models import uni_vit
     from sequoia_tpu_torch.pipeline.features import FeatureExtractor
 
@@ -2082,17 +2110,10 @@ def uni_batch(torch, dev, params, u8) -> dict:
         v.numel() * 2 for v in fast.params["blocks"].values())
     bnd, by = bound_ms(moved, flops, "bfloat16")
     run = lambda: fast.raw_fwd(fast.params, u8)  # noqa: E731
-    sweep = {}
-    for ck in UNI_CHUNKS:
-        fast.UNI_SCAN_CHUNK = ck
-        sweep[ck] = time_ms(torch, run, 5)
-    del fast.UNI_SCAN_CHUNK  # back to the class default
     ms = time_ms(torch, run, 5)
     res = {"batch": FEAT_BATCH, "bf16_vs_f32_max_rel": rel, "tol": UNI_BF16_TOL,
            "bf16_vs_f32_cosine_min": cos, "f32_spread_over_patches": spread,
-           "scan_chunk_default": type(fast).UNI_SCAN_CHUNK, "ms": ms,
-           "ms_by_scan_chunk": sweep, "f32_ms": time_ms(torch, lambda: full.raw_fwd(
-               full.params, u8), 2),
+           "ms": ms, "f32_ms": time_ms(torch, lambda: full.raw_fwd(full.params, u8), 2),
            "tflop_per_batch": flops / 1e12, "bound_ms": bnd, "bound_by": by,
            "bound_share": bnd / ms, "tflops": flops / ms / 1e9}
     del ext, full, f32
@@ -2103,7 +2124,7 @@ def uni_batch(torch, dev, params, u8) -> dict:
 
 def uni_path(torch, dev, resnet_kept: list) -> dict:
     """Phase 7; returns the kernels' launch counts of the kernel runs (K5:
-    from patches, from the WSI and through the CLI)."""
+    in the slide program, from patches, from the WSI and through the CLI)."""
     import pickle
     import shutil
     import tempfile
@@ -2124,6 +2145,16 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
     emit({"phase": "uni_batch", **uni_batch(torch, dev, params, u8)})
     emit({"phase": "uni_lloyd", "name": "lloyd_stats", "dtype": "float32",
           **check_lloyd_k(torch, dev, K, UNI_DIM)})
+    # the slide program (fold 0, bf16) on a 4096-patch slide: K5 with the
+    # kernels only, the attention kernel both ways (it decides from its input)
+    slide = torch.randint(0, 256, (PATCHES, PATCH, PATCH, 3), dtype=torch.uint8, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(14))
+    res, prog_counts = slide_program_leg(
+        torch, dev, params, folds[0], slide, torch.bfloat16,
+        ("lloyd_stats", "kmeans_seed", "vit_attention"), backbone="uni",
+        always=("vit_attention",))
+    emit({"phase": "uni_slide", "source": "make_slide_program", **res})
+    del slide
 
     ext = FeatureExtractor("uni", params, batch_size=FEAT_BATCH, device=dev,
                            cfg=uni_vit.UniViTConfig(compute_dtype=torch.bfloat16))
@@ -2150,6 +2181,8 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
     def add(counts):
         for k, v in counts.items():
             launches[k] += v
+
+    add(prog_counts)
 
     for n, patches in slides.items():
         y, secs, lc = timed(fast.predict_patches, patches)
@@ -5017,34 +5050,27 @@ def tools_path(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the whole-slide bench (sequoia_tpu_torch.bench) and dryrun.entry
+# phase 14: dryrun.entry
 # ---------------------------------------------------------------------------
 
-# the kernels each bench leg must launch in its timed region: the
-# from-patches program (K2 + K3 early_pallas, K5, K1), the serving
-# predictor of cli.serve.build_predictor (K4, K5, K1), and UNI's (K5: its
-# 1024-d ViS is outside K1's layout)
-BENCH_LAUNCHES = {"resnet": ("stem16", "bottleneck_chain_cp", "lloyd_stats", "vis_blocks_fused"),
-                  "e2e": ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
-                  "e2e_aperio": ("bottleneck_chain", "lloyd_stats", "vis_blocks_fused"),
-                  "uni": ("lloyd_stats",), "e2e_uni": ("lloyd_stats",)}
 # dryrun.entry()'s f32 forward against the float64 oracle of the same ViS:
 # max |f32 - f64| / max |f64|
 ENTRY_TOL = 1e-4
 
 
-def bench_entry(torch, dev) -> dict:
-    """``dryrun.entry()`` on the card: its forward (plain ``vis.apply`` in
-    f32, no kernel) finite at (16, 20,820), its ms, and its error against a
-    float64 run of the same ViS math.  ``vis.apply`` computes in f32 whatever
-    its operands' type (``ops/nn`` upcasts to f32), so the f64 run is
-    ``tools/goldens.vis_forward`` on the entry's weights in the reference
-    layout (``convert.vis_to_torch``)."""
+def entry_path(torch, dev) -> None:
+    """Phase 14: ``dryrun.entry()`` on the card: its forward (plain
+    ``vis.apply`` in f32, no kernel) finite at (16, 20,820), its ms, and its
+    error against a float64 run of the same ViS math.  ``vis.apply``
+    computes in f32 whatever its operands' type (``ops/nn`` upcasts to f32),
+    so the f64 run is ``tools/goldens.vis_forward`` on the entry's weights in
+    the reference layout (``convert.vis_to_torch``)."""
     from sequoia_tpu_torch import _build, dryrun
     from sequoia_tpu_torch.models import convert
     from sequoia_tpu_torch.tools import goldens
     from sequoia_tpu_torch.train import loop
 
+    t0 = time.perf_counter()
     forward, (params, feats) = dryrun.entry()
     cfg = dryrun.entry_config()
     before = dict(_build.LAUNCHES)
@@ -5063,54 +5089,7 @@ def bench_entry(torch, dev) -> dict:
            "launches": launched}
     if out.shape != (16, GENES) or not finite or rel > ENTRY_TOL or launched:
         raise AssertionError(f"dryrun.entry: {res}")
-    return res
-
-
-def bench_path(torch, dev) -> dict:
-    """Phase 14: every leg of ``sequoia_tpu_torch.bench`` in this process at
-    its full constants with the kernels on (``e2e_aperio`` on 240-px
-    :class:`PlanarSlide` readers of the e2e fixture: the native reader that
-    its files need does not build on the card's machine), its JSON as a
-    ``bench`` line; every leg but ``decode`` must succeed (``decode`` may
-    only report itself absent), and each leg's launches must include its
-    kernels (:data:`BENCH_LAUNCHES`).  Then the ``resnet`` leg with the
-    kernels off, and ``dryrun.entry()``.  Returns the kernels' launch
-    counts of the kernel run."""
-    from sequoia_tpu_torch import _build, bench
-    from sequoia_tpu_torch.data.wsi import ArrayReader
-
-    t0 = time.perf_counter()
-    aperio = [PlanarSlide(torch, dev, ArrayReader(bench.e2e_levels(100 + i, dev)),
-                          bench.APERIO_TILE, (2, 2)) for i in range(2)]
-    torch.cuda.empty_cache()
-    setup_s = time.perf_counter() - t0
-    _build.reset_launches()
-    out, rc, legs = bench.run_bench(kernels=True, aperio_slides=aperio)
-    launches = dict(_build.LAUNCHES)
-    del aperio
-    emit({"phase": "bench", **out})
-    emit({"phase": "bench_seconds", "aperio_readers_setup_s": setup_s,
-          **{leg: {k: v for k, v in res.items() if k != "launches"}
-             for leg, res in legs.items()}})
-    failed = {leg: why for leg, why in out.get("leg_failures", {}).items()
-              if not (leg == "decode" and why.startswith("LegAbsent"))}
-    if rc or failed:
-        raise AssertionError(f"bench: exit {rc}, failed legs {failed}")
-    for leg, kernels in BENCH_LAUNCHES.items():
-        check_launched(out["launches"][leg], kernels, f"bench {leg} leg")
-    torch.cuda.empty_cache()
-
-    off, rc_off, off_legs = bench.run_bench(kernels=False, legs=("resnet",))
-    if rc_off or any(off["launches"]["resnet"].values()):
-        raise AssertionError(f"bench --kernels off: exit {rc_off}, {off}")
-    on_s, off_s = legs["resnet"]["s_per_slide"], off_legs["resnet"]["s_per_slide"]
-    emit({"phase": "bench_kernels_off", "leg": "resnet", "s_per_slide_kernels": on_s,
-          "s_per_slide_plain": off_s, "plain_over_kernels": off_s / on_s,
-          "slides_per_hour_kernels": 3600.0 / on_s, "slides_per_hour_plain": 3600.0 / off_s})
-    torch.cuda.empty_cache()
-    emit({"phase": "bench_entry", **bench_entry(torch, dev)})
-    emit({"phase": "bench_launches", **launches, "phase_seconds": time.perf_counter() - t0})
-    return launches
+    emit({"phase": "entry", **res, "phase_seconds": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -5189,7 +5168,7 @@ def main() -> int:
                     "train_path (phase 8), aggregators_path (phase 9), stages_path "
                     "(phase 10), parallel_path "
                     "(phase 11), raw_planes_path (phase 12), tools_path (phase 13), "
-                    "bench_path (phase 14), sync_path (phase 15); prints no result line")
+                    "entry_path (phase 14), sync_path (phase 15); prints no result line")
     only = [k for k in ap.parse_args().only.split(",") if k]
 
     if not torch.cuda.is_available():
@@ -5222,7 +5201,7 @@ def main() -> int:
     known = [k for k, _ in checks] + ["lloyd_stats", "kmeans_seed", "vit_attention",
                                       "uni_path", "train_path",
                                       "aggregators_path", "stages_path", "parallel_path",
-                                      "raw_planes_path", "tools_path", "bench_path",
+                                      "raw_planes_path", "tools_path", "entry_path",
                                       "sync_path"]
     unknown = set(only) - set(known)
     if unknown:
@@ -5275,8 +5254,8 @@ def main() -> int:
             raw_planes_path(torch, dev)
         if "tools_path" in only:
             tools_path(torch, dev)
-        if "bench_path" in only:
-            bench_path(torch, dev)
+        if "entry_path" in only:
+            entry_path(torch, dev)
         if "sync_path" in only:
             sync_path(torch, dev)
         print(smi, flush=True)
@@ -5314,11 +5293,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tools = tools_path(torch, dev)
     torch.cuda.empty_cache()
-    benched = bench_path(torch, dev)
+    entry_path(torch, dev)
     torch.cuda.empty_cache()
     sync_path(torch, dev)
     launches = {k: main[k] + main32[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k]
-                + stages[k] + par[k] + tools[k] + benched[k] for k in results}
+                + stages[k] + par[k] + tools[k] for k in results}
 
     rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"],
                  "kmeans_seed": results["kmeans_seed"],

@@ -70,12 +70,6 @@ class FeatureExtractor:
     extractor's).  The compute dtype comes from ``cfg`` or
     ``compute_dtype`` (f32 by default)."""
 
-    #: ViT batches (UNI and Virchow2) run in chunks of this many patches
-    #: where the batch is larger and a multiple of it (0: never); the upload
-    #: granularity stays ``batch_size``.  The value is the H100's, from the
-    #: chunk sweep of ``chip_smoke.py``'s ``uni_path`` (PERF.md).
-    UNI_SCAN_CHUNK = 0
-
     def __init__(self, feat_type: str, params, batch_size: int = 256,
                  compute_dtype=None, patch_size: int = 256, cfg=None, mesh=None,
                  device=None):
@@ -144,8 +138,7 @@ class FeatureExtractor:
 
     def raw_fwd(self, params, u8: torch.Tensor) -> torch.Tensor:
         """(N, ps, ps, 3) uint8 on the device -> (N, D) f32 features through
-        ``cfg`` (its kernel options included); a ViT in chunks of
-        :attr:`UNI_SCAN_CHUNK`.  Under a mesh, data parallel
+        ``cfg`` (its kernel options included).  Under a mesh, data parallel
         (:meth:`map_shards`)."""
         if self.mesh is not None:
             return self.map_shards(self._one_fwd, params, u8)
@@ -154,12 +147,6 @@ class FeatureExtractor:
     def _one_fwd(self, params, u8: torch.Tensor) -> torch.Tensor:
         if self.feat_type == "resnet":
             return resnet_mod.extract_from_uint8(self.cfg, params, u8)
-        n, ck = u8.shape[0], self.UNI_SCAN_CHUNK
-        # under a mesh each device takes its whole shard in one call (the
-        # chunking is a single-device tiling choice, as in JAX)
-        if ck and n > ck and n % ck == 0 and self.mesh is None:
-            return torch.cat([uni_vit.extract_from_uint8(self.cfg, params, u8[s:s + ck])
-                              for s in range(0, n, ck)])
         return uni_vit.extract_from_uint8(self.cfg, params, u8)
 
     @torch.no_grad()

@@ -38,7 +38,7 @@ import time
 
 import torch
 
-from sequoia_tpu_torch import _build
+from sequoia_tpu_torch import _build, bench
 from sequoia_tpu_torch.models import resnet
 from sequoia_tpu_torch.ops import cuda_resnet
 from sequoia_tpu_torch.ops.nn import compute_dtype, precision
@@ -46,10 +46,6 @@ from sequoia_tpu_torch.utils.device import resolve_device
 
 STAGES = ("stem", "pool", "layer1", "layer2", "layer3", "layer4", "mean")
 EARLY = "stem+pool+layer1"
-HBM_BYTES_PER_S = 3.35e12
-#: dense FLOP/s of the products a stage's type runs: bf16 on the tensor cores;
-#: f32 as 3xTF32, three TF32 products at 495 TFLOP/s for each f32 product
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 
 
 def make_config(dtype: str = "bfloat16", fused=(), cp=(), early_pallas: bool = False):
@@ -137,13 +133,15 @@ def _nbytes(t: torch.Tensor) -> int:
 def stage_bounds(cfg, params, u8: torch.Tensor, outs: dict) -> dict[str, dict]:
     """Per stage: bytes (input read, output written, weights read once), FLOP,
     and the bound ms with what bounds it."""
-    dt = "bfloat16" if compute_dtype(cfg.compute_dtype) == torch.bfloat16 else "float32"
+    # bf16 on the tensor cores; f32 as 3xTF32, three TF32 products an f32 product
+    route, products = (("bfloat16", 1) if compute_dtype(cfg.compute_dtype) == torch.bfloat16
+                       else ("tf32", 3))
     esize = torch.finfo(compute_dtype(cfg.compute_dtype)).bits // 8
     rows, prev = {}, u8
     for name, y in outs.items():
         moved = _nbytes(prev) + _nbytes(y) + _param_bytes(_stage_weights(params, name), esize)
         flops = _stage_flops(params, name, prev, y)
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        t_bytes, t_ops = moved / bench.HBM_BYTES_PER_S, products * flops / bench.PEAK_FLOPS[route]
         rows[name] = {"bytes": moved, "gflop": flops / 1e9,
                       "bound_ms": max(t_bytes, t_ops) * 1e3,
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}

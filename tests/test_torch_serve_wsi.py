@@ -3,6 +3,8 @@ against the JAX package's on the CPU, on the synthetic slide of
 tests/test_pipeline_e2e.py: the same kept patches, features within the
 extractor's tolerance, and the same prediction through shared clustering."""
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -122,3 +124,47 @@ def test_screened_mode_keeps_the_jax_patches(predictors):
     got = tpred.extract_patches(tslide)
     assert got.shape == want.shape and got.shape[1:] == (PS, PS, 3) and len(got) > 0
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("reader", ["pil_tiff", "array_reader"])
+def test_predict_slides_through_the_cards_reader(predictors, tmp_path, monkeypatch, reader):
+    """The H100 machine builds no native tiff reader and has no OpenSlide, so
+    its slide files are read by Pillow: a Pillow-written pyramid TIFF opened
+    by ``data/wsi.open_slide`` with both masked, and the same levels as an
+    ``ArrayReader``, each served through ``predict_slides`` in ``'rgb'``,
+    give the genes ``predict_patches`` gives on the patches the JAX
+    package's tiling keeps."""
+    from PIL import Image
+
+    from sequoia_tpu_torch import native
+    from sequoia_tpu_torch.data import wsi
+
+    jpred, tpred = predictors
+    levels = [lv.copy() for lv in synthetic_wsi(w=1024, h=768, seed=2).levels]
+    kept = jpred.extract_patches(JReader(levels))
+    np.testing.assert_array_equal(tpred.extract_patches(ArrayReader(levels)), kept)
+    want = tpred.predict_patches(kept)
+    if reader == "pil_tiff":
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setitem(sys.modules, "openslide", None)
+        slide = str(tmp_path / "slide.tiff")
+        Image.fromarray(levels[0]).save(slide, save_all=True,
+                                        append_images=[Image.fromarray(lv) for lv in levels[1:]])
+        assert isinstance(wsi.open_slide(slide), wsi.PILReader)
+    else:
+        slide = ArrayReader(levels)
+    modes = []
+    start = tpred._start_producer
+
+    def spy(*args, **kw):
+        out = start(*args, **kw)
+        modes.append(out[4])
+        return out
+
+    monkeypatch.setattr(tpred, "_start_producer", spy)
+    before = tpred.io_stats["kept"]
+    (path, got), = list(tpred.predict_slides([slide]))
+    assert path is slide and modes == ["rgb"]
+    assert tpred.io_stats["kept"] - before == len(kept) > K
+    assert got.shape == want.shape == (1, 5) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

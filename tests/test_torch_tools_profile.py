@@ -15,6 +15,7 @@ import torch
 import jax
 
 from sequoia_tpu.models import resnet as jresnet
+from sequoia_tpu_torch import bench
 from sequoia_tpu_torch.models import convert, vis
 from sequoia_tpu_torch.tools import profile_backbone as pb
 from sequoia_tpu_torch.tools import profile_train_step as pts
@@ -190,7 +191,7 @@ def test_profile_vis_keys_and_floors():
     # FeedForward (two 64 x 64); then the head 64 -> 10; the backward twice
     per_block = 6 * (2 * 64 * 2 * 32 + 2 * 2 * 32 * 16 + 2 * 32 * 64 + 4 * 64 * 64)
     flops = 3 * (2 * per_block + 2 * 64 * 10) * 3
-    assert pts.vis_train_flops(cfg, 3) == flops
+    assert bench._vis_train_flops(cfg, 3) == flops
     assert res["mxu_floor_ms"] == pytest.approx(flops / 989e12 * 1e3)
     assert res["head_fwd_floor_ms"] == pytest.approx(64 * 10 * 4 / 3.35e12 * 1e3)
     assert res["adamw_floor_ms"] == pytest.approx(28 * n / 3.35e12 * 1e3)
