@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only lloyd_stats   # phases 1-2, K5 and its k-means lines
     python3 chip_smoke.py --only kmeans_seed   # phases 1-2, the kmeans++ kernel's line
     python3 chip_smoke.py --only vit_attention # phases 1-2, the ViTs' attention kernel's line
+    python3 chip_smoke.py --only vit_swiglu,vit_residual_ln   # phases 1-2, the ViTs' glue
     python3 chip_smoke.py --only uni_path      # phases 1-2 and 7
     python3 chip_smoke.py --only train_path    # phases 1-2 and 8
     python3 chip_smoke.py --only aggregators_path   # phases 1-2 and 9
@@ -57,7 +58,16 @@ Phases, each printing one JSON line:
    error (at most ``VIT_ATTN_FRO``) and the widest element's distance as a
    share of its row's max |out| (at most ``VIT_ATTN_ELEM``), then ms, bound,
    plain ms and ``F.scaled_dot_product_attention``'s as the library
-   yardstick (the port never calls it).  K1 and K2
+   yardstick (the port never calls it).  ``vit_swiglu`` and
+   ``vit_residual_ln`` lines: the ViT block's glue kernels
+   (``vit_glue.cu``) against their plain twins at Virchow2's gate (128
+   images x 261 tokens, fc1 of 6832), at both ViTs' residual widths (UNI's
+   25,216 x 1024, Virchow2's 33,408 x 1280) and at ragged rows and widths:
+   the gate every element within ``VIT_GLUE_ULPS`` bf16 ulp, the residual's
+   x' bit for bit with ``torch.addcmul`` and its LayerNorm within
+   ``VIT_GLUE_ULPS`` ulp of ``F.layer_norm`` (of ``max(|y|, VIT_LN_FLOOR)``:
+   the two sum the statistics in other orders), then ms, the byte bound and
+   the plain twin's ms at the ViTs' shapes.  K1 and K2
    (bf16: the tensor-core kernels of
    ``vis_wgmma.cu`` and ``stem_wgmma.cu``; f32: their 3xTF32 tensor-core
    kernels in the same sources) also report their share of the bound, GB/s
@@ -361,6 +371,20 @@ SEED_SEEDS, SEED_TIE = 20, 1e-12
 VIT_ATTN_SHAPES = ((FEAT_BATCH, 197, 16, 64), (FEAT_BATCH, 261, 16, 80),
                    *((4, n, 16, dh) for n in (1, 65, 257, 512) for dh in (64, 80)))
 VIT_ATTN_FRO, VIT_ATTN_ELEM = 2e-3, 2 ** -6
+# the ViT glue kernels against their plain twins: the gate's rows of fc1's
+# output (Virchow2's 128 x 261 tokens, fc1 of 6832, then ragged rows and
+# halves); the residual's (rows, width, eps), UNI's and Virchow2's first,
+# then ragged rows and widths (1000: a lane's last chunk past the row).  The
+# gate rounds at the same points with the same f32 ops; the residual's x'
+# too; its LayerNorm sums mean and variance in another order than
+# F.layer_norm's Welford, so y may round one ulp apart, and by more than an
+# ulp of an element much nearer 0 than the row's spread: each y is held to
+# an ulp of max(|y|, VIT_LN_FLOOR)
+VIT_GATE_SHAPES = ((FEAT_BATCH * 261, 3416), (1, 3416), (37, 424), (5, 8))
+VIT_LN_SHAPES = ((FEAT_BATCH * 197, 1024, 1e-5), (FEAT_BATCH * 261, 1280, 1e-6),
+                 (1, 1280, 1e-6), (37, 1024, 1e-5), (7, 1000, 1e-6), (3, 2048, 1e-6),
+                 (5, 8, 1e-5))
+VIT_GLUE_ULPS, VIT_LN_FLOOR = 1, 2 ** -8
 STEM_EDGES = ((1, 128, 128), (3, 128, 128), (2, 56, 72))
 # the UNI path: feature width, the LayerScale gammas of the random weights,
 # and bf16 features against f32 on one batch: max |bf16 - f32| / max |f32|
@@ -417,6 +441,10 @@ SOURCES = {
                     "no TPU kernel: sequoia_tpu/ops/kmeans.py:40 (XLA)"),
     "vit_attention": ("sequoia_tpu_torch/csrc/vit_attention.cu",
                       "no TPU kernel: sequoia_tpu/models/uni_vit.py:68-70 (XLA einsums)"),
+    "vit_swiglu": ("sequoia_tpu_torch/csrc/vit_glue.cu",
+                   "no TPU kernel: Virchow2 has no JAX counterpart"),
+    "vit_residual_ln": ("sequoia_tpu_torch/csrc/vit_glue.cu",
+                        "no TPU kernel: sequoia_tpu/models/uni_vit.py (XLA)"),
 }
 
 
@@ -1094,6 +1122,112 @@ def check_vit_attention(torch, dev) -> dict:
                                                           "plain_ms", "library_ms")},
             **{k: uni[k] for k in ("ms", "bound_ms", "bound_by", "bound_share", "plain_ms",
                                    "library_ms", "max_abs_err", "launches_per_call")}}
+
+
+def bf16_ulps(torch, got, want):
+    """Per element, how many bf16 steps ``got`` lies from ``want`` (both
+    bf16): their bit patterns in one ordered integer line."""
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def bf16_next(torch, t):
+    """The bf16 value one step above each positive bf16 ``t``."""
+    return (t.contiguous().view(torch.int16) + 1).view(torch.bfloat16)
+
+
+def glue_row(torch, launches, fn, plain, moved) -> dict:
+    """ms of ``fn`` against its byte bound ``moved`` and the plain twin's ms."""
+    ms = time_ms(torch, fn, 20)
+    row = {"launches_per_call": launches, "ms": ms, "plain_ms": time_ms(torch, plain, 5)}
+    row.update(kernel_bounds(moved, 0.0, "bfloat16", ms, False))
+    return row
+
+
+def check_vit_swiglu(torch, dev) -> dict:
+    """vit_swiglu (csrc/vit_glue.cu) against its plain twin at
+    VIT_GATE_SHAPES on seeded bf16 fc1 outputs; at Virchow2's shape ms,
+    bound (fc1's output read and the gate's written once) and the plain
+    twin's ms."""
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.ops import cuda_vit_glue as cg
+
+    rows = []
+    for m, hid in VIT_GATE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(60 + m + hid)
+        h = (2 * torch.randn((m, 2 * hid), generator=g, device=dev)).bfloat16()
+        before = _build.LAUNCHES["vit_swiglu"]
+        got = cg.vit_swiglu(h)
+        launches = _build.LAUNCHES["vit_swiglu"] - before
+        want = cg.swiglu_plain(h)
+        ulps = bf16_ulps(torch, got, want)
+        row = {"rows": m, "hidden": hid, "max_ulps": int(ulps.max()),
+               "elements_off": int((ulps > 0).sum()),
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "launches_per_call": launches}
+        if launches != 1 or row["max_ulps"] > VIT_GLUE_ULPS:
+            raise AssertionError(f"vit_swiglu {(m, hid)}: {row}")
+        if m == VIT_GATE_SHAPES[0][0]:
+            row.update(glue_row(torch, launches, lambda: cg.vit_swiglu(h),
+                                lambda: cg.swiglu_plain(h), nbytes(h, got)))
+        rows.append(row)
+    return {"shapes": rows, "library_ms": None,
+            **{k: rows[0][k] for k in ("ms", "bound_ms", "bound_by", "bound_share",
+                                       "plain_ms", "max_abs_err", "launches_per_call")}}
+
+
+def check_vit_residual_ln(torch, dev) -> dict:
+    """vit_residual_ln (csrc/vit_glue.cu) against its plain twin at
+    VIT_LN_SHAPES: a residual stream of mean 1 and spread 2, a branch output
+    of spread 2, LayerScale gammas 0.1 +- 20%, a LayerNorm affine 1 +- 0.2
+    and 0 +- 0.1; x' bit for bit, y within VIT_GLUE_ULPS ulp of
+    max(|y|, VIT_LN_FLOOR); at the ViTs' shapes ms, bound (x and the branch
+    read, x' and y written once) and the plain twin's ms."""
+    import torch.nn.functional as F
+
+    from sequoia_tpu_torch import _build
+    from sequoia_tpu_torch.ops import cuda_vit_glue as cg
+
+    rows = []
+    for m, d, eps in VIT_LN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(70 + m + d)
+
+        def rnd(*shape, mean=0.0, std=1.0):
+            return (mean + std * torch.randn(shape, generator=g, device=dev)).bfloat16()
+
+        x, out = rnd(m, d, mean=1.0, std=2.0), rnd(m, d, std=2.0)
+        gamma, scale, bias = rnd(d, mean=0.1, std=0.02), rnd(d, mean=1.0, std=0.2), rnd(d, std=0.1)
+        args = (x, out, gamma, scale, bias, eps)
+        before = _build.LAUNCHES["vit_residual_ln"]
+        xs, y = cg.vit_residual_ln(*args)
+        launches = _build.LAUNCHES["vit_residual_ln"] - before
+        want_x = torch.addcmul(x, out, gamma)
+        want_y = F.layer_norm(want_x, (d,), scale, bias, eps)
+        ulps = bf16_ulps(torch, y, want_y)
+        big = want_y.abs().clamp_min(VIT_LN_FLOOR)
+        # one ulp of max(|y|, floor): the next bf16 above it, less it
+        ulp = (bf16_next(torch, big).float() - big.float())
+        err = (y.float() - want_y.float()).abs()
+        row = {"rows": m, "dim": d, "eps": eps, "x_equal": bool(torch.equal(xs, want_x)),
+               "max_ulps": int(ulps.max()), "elements_off": int((ulps > 0).sum()),
+               "max_err_over_ulp": float((err / ulp).max()),
+               "max_abs_err": float(err.max()), "launches_per_call": launches}
+        if (launches != 1 or not row["x_equal"]
+                or row["max_err_over_ulp"] > VIT_GLUE_ULPS):
+            raise AssertionError(f"vit_residual_ln {(m, d)}: {row}")
+        if m >= FEAT_BATCH:
+            row.update(glue_row(torch, launches, lambda: cg.vit_residual_ln(*args),
+                                lambda: cg.residual_ln_plain(*args),
+                                nbytes(x, out, xs, y, gamma, scale, bias)))
+        rows.append(row)
+    uni, v2 = rows[0], rows[1]
+    return {"shapes": rows, "library_ms": None,
+            "virchow2": {k: v2[k] for k in ("ms", "bound_ms", "bound_share", "plain_ms")},
+            **{k: uni[k] for k in ("ms", "bound_ms", "bound_by", "bound_share", "plain_ms",
+                                   "max_abs_err", "launches_per_call")}}
 
 
 def lloyd_backends(torch, km, x, mask, init, max_iter: int = 300) -> dict:
@@ -2146,13 +2280,14 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
     emit({"phase": "uni_lloyd", "name": "lloyd_stats", "dtype": "float32",
           **check_lloyd_k(torch, dev, K, UNI_DIM)})
     # the slide program (fold 0, bf16) on a 4096-patch slide: K5 with the
-    # kernels only, the attention kernel both ways (it decides from its input)
+    # kernels only, the attention and residual kernels both ways (they decide
+    # from their input)
     slide = torch.randint(0, 256, (PATCHES, PATCH, PATCH, 3), dtype=torch.uint8, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(14))
     res, prog_counts = slide_program_leg(
         torch, dev, params, folds[0], slide, torch.bfloat16,
-        ("lloyd_stats", "kmeans_seed", "vit_attention"), backbone="uni",
-        always=("vit_attention",))
+        ("lloyd_stats", "kmeans_seed", "vit_attention", "vit_residual_ln"), backbone="uni",
+        always=("vit_attention", "vit_residual_ln"))
     emit({"phase": "uni_slide", "source": "make_slide_program", **res})
     del slide
 
@@ -2190,11 +2325,13 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
         ref, plain_s, _ = timed(plain.predict_patches, patches)
         if y.shape != (1, GENES) or not np.isfinite(y).all() or lc["lloyd_stats"] == 0:
             raise AssertionError(f"uni {n}-patch slide: {y.shape}, launches {lc}")
-        # the attention kernel: once a block and extractor batch
-        attn = uni_vit.UniViTConfig().depth * -(-n // FEAT_BATCH)
-        if lc["vit_attention"] != attn:
-            raise AssertionError(f"uni {n}-patch slide: {lc['vit_attention']} vit_attention "
-                                 f"launches, not depth x batches = {attn}")
+        # the attention kernel once a block and extractor batch, the residual
+        # twice, the gate never
+        depth, batches = uni_vit.UniViTConfig().depth, -(-n // FEAT_BATCH)
+        want = {"vit_attention": depth * batches, "vit_residual_ln": 2 * depth * batches,
+                "vit_swiglu": 0}
+        if any(lc[k] != v for k, v in want.items()):
+            raise AssertionError(f"uni {n}-patch slide: launches {lc}, not {want}")
         r = r_min_check(pearson(np, y, ref), 0.99)
         res = {"phase": "uni_slide", "source": "patches", "patches": n,
                "shape": list(y.shape), "finite": True, "seconds": secs,
@@ -2218,7 +2355,7 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
         kept_plain = plain.io_stats["kept"] - k0
         if y.shape != (1, GENES) or not np.isfinite(y).all() or lc["lloyd_stats"] == 0:
             raise AssertionError(f"uni WSI slide {i}: {y.shape}, launches {lc}")
-        check_launched(lc, ("vit_attention",), f"uni WSI slide {i}")
+        check_launched(lc, ("vit_attention", "vit_residual_ln"), f"uni WSI slide {i}")
         if kept != kept_plain or resnet_kept[i] not in (None, kept):
             raise AssertionError(f"uni WSI slide {i}: kept {kept} / plain {kept_plain}, the "
                                  f"ResNet predictor {resnet_kept[i]}")
@@ -2271,7 +2408,8 @@ def uni_path(torch, dev, resnet_kept: list) -> dict:
                 raise AssertionError(f"uni_serve_cli: {name} CSV {vals.shape}")
         if runs["kernels"]["launches"]["lloyd_stats"] == 0:
             raise AssertionError("uni_serve_cli: the kernel run launched no K5")
-        check_launched(runs["kernels"]["launches"], ("vit_attention",), "uni_serve_cli")
+        check_launched(runs["kernels"]["launches"], ("vit_attention", "vit_residual_ln"),
+                       "uni_serve_cli")
         add(runs["kernels"]["launches"])
         r = min(pearson(np, runs["kernels"]["csv"][2][i], runs["plain"]["csv"][2][i])
                 for i in range(len(paths)))
@@ -5116,18 +5254,22 @@ def sync_path(torch, dev) -> None:
     from sequoia_tpu_torch import _build
     from sequoia_tpu_torch.models import uni_vit
 
-    # the ViT paths through the attention kernel: a whole number of launches
-    # a block (one a block and extractor batch)
-    for name, depth in (("uni", uni_vit.UniViTConfig().depth),
-                        ("virchow2", uni_vit.Virchow2Config().depth)):
-        before = _build.LAUNCHES["vit_attention"]
+    # the ViT paths through the attention and glue kernels: a whole number of
+    # launches an extractor batch (attention once a block, the residual twice,
+    # Virchow2's gate once a block)
+    for name, cfg in (("uni", uni_vit.UniViTConfig()), ("virchow2", uni_vit.Virchow2Config())):
+        depth = cfg.depth
+        per = {"vit_attention": depth, "vit_residual_ln": 2 * depth,
+               "vit_swiglu": depth if cfg.mlp == "swiglu_packed" else 0}
+        before = dict(_build.LAUNCHES)
         runs[name][0]()
-        n = _build.LAUNCHES["vit_attention"] - before
-        if n == 0 or n % depth:
-            raise AssertionError(f"sync census: the {name} path made {n} vit_attention "
-                                 f"launches, not a multiple of its depth {depth}")
+        n = {k: _build.LAUNCHES[k] - before[k] for k in per}
+        batches = n["vit_attention"] // depth
+        if batches == 0 or any(n[k] != v * batches for k, v in per.items()):
+            raise AssertionError(f"sync census: the {name} path made launches {n}, not "
+                                 f"{per} an extractor batch")
         emit({"phase": "sync_census_vit_attention", "path": name, "launches": n,
-              "depth": depth})
+              "depth": depth, "batches": batches})
     bad = []
     for name, (fn, mode) in runs.items():
         row = {"path": name, "mode": mode, **sc.census(fn)}
@@ -5163,7 +5305,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated kernel names (phases 1-3 "
-                    "for these alone; lloyd_stats, kmeans_seed, vit_attention) and/or "
+                    "for these alone; lloyd_stats, kmeans_seed, vit_attention, vit_swiglu, "
+                    "vit_residual_ln) and/or "
                     "uni_path (phase 7), "
                     "train_path (phase 8), aggregators_path (phase 9), stages_path "
                     "(phase 10), parallel_path "
@@ -5199,7 +5342,7 @@ def main() -> int:
               ("bottleneck_chain", functools.partial(check_chain, kname="bottleneck_chain")),
               ("vis_blocks_fused", check_vis))
     known = [k for k, _ in checks] + ["lloyd_stats", "kmeans_seed", "vit_attention",
-                                      "uni_path", "train_path",
+                                      "vit_swiglu", "vit_residual_ln", "uni_path", "train_path",
                                       "aggregators_path", "stages_path", "parallel_path",
                                       "raw_planes_path", "tools_path", "entry_path",
                                       "sync_path"]
@@ -5239,6 +5382,12 @@ def main() -> int:
         r = check_vit_attention(torch, dev)
         emit({"phase": "kernel", "name": "vit_attention", "dtype": "bfloat16", **r})
         results["vit_attention"] = r
+    for kname, check in (("vit_swiglu", check_vit_swiglu),
+                         ("vit_residual_ln", check_vit_residual_ln)):
+        if not only or kname in only:
+            r = check(torch, dev)
+            emit({"phase": "kernel", "name": kname, "dtype": "bfloat16", **r})
+            results[kname] = r
     if only:
         if "uni_path" in only:
             emit({"phase": "uni_launches", **uni_path(torch, dev, [None, None])})
@@ -5299,9 +5448,9 @@ def main() -> int:
     launches = {k: main[k] + main32[k] + wsi[k] + served[k] + raw[k] + uni[k] + agg[k]
                 + stages[k] + par[k] + tools[k] for k in results}
 
-    rows = {dt: {**r, "lloyd_stats": results["lloyd_stats"],
-                 "kmeans_seed": results["kmeans_seed"],
-                 "vit_attention": results["vit_attention"]} for dt, r in by_dtype.items()}
+    rows = {dt: {**r, **{k: results[k] for k in ("lloyd_stats", "kmeans_seed", "vit_attention",
+                                                 "vit_swiglu", "vit_residual_ln")}}
+            for dt, r in by_dtype.items()}
     emit({"phase": "slide_cost", "per": "slide",
           "from_patches": slide_costs(rows["bfloat16"], totals["bfloat16"], main_slide),
           "from_patches_f32": slide_costs(rows["float32"], totals["float32"], main32_slide),

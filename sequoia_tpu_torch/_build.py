@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"vis_blocks_fused": 0, "stem16": 0,
                             "bottleneck_chain_cp": 0, "bottleneck_chain": 0,
-                            "lloyd_stats": 0, "kmeans_seed": 0, "vit_attention": 0}
+                            "lloyd_stats": 0, "kmeans_seed": 0, "vit_attention": 0,
+                            "vit_swiglu": 0, "vit_residual_ln": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "sq_stem_tf32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sq_kmeans_seed": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "sq_vit_attention": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "sq_vit_swiglu": [_P, _P, _I, _I, _P],
+    "sq_vit_residual_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
 }
 
 _lib = None

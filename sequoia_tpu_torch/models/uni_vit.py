@@ -42,7 +42,15 @@ statistics are f32 (``F.layer_norm`` accumulates in
 f32); the residual stream, the LayerScale products and the GELU are bf16
 tensors, and the output leaves as f32.  The SwiGLU gate takes two roundings
 to bf16: ``silu(a)`` (computed in f32 inside the op) and its product with
-``b``.  Virchow2's patch mean is taken in f32 over the bf16 normalised
+``b``.  Each LayerScale residual ``x + out * gamma`` (``torch.addcmul``'s
+f32 op-math, one rounding) feeds the LayerNorm after it: the attention's
+LN2, the MLP's the next block's LN1, the last block's the final norm over
+every token (UNI's pool then reads the CLS row alone).  On the card in
+bf16 each such pair is one kernel, ``vit_residual_ln``, and the gate one
+pass, ``vit_swiglu`` (``csrc/vit_glue.cu``, ``ops/cuda_vit_glue``); on the
+CPU, in f32 and at other shapes their plain twins run the ops above.  The
+first block's LN1, after the position embedding, stays ``F.layer_norm``.
+Virchow2's patch mean is taken in f32 over the bf16 normalised
 tokens.  :func:`prepare` casts the GEMM weights, biases, LayerNorm affines,
 gammas and embeddings to the compute type once, so no forward casts them
 again.  The JAX package computes the attention with XLA einsums, not a
@@ -52,7 +60,9 @@ Spans (``utils/profiling``, recorded only under a profiler):
 ``vit.preprocess`` around the resize and normalisation of
 :func:`extract_from_uint8`, ``vit.attn`` around each block's attention
 (after the qkv GEMM, before proj), ``vit.mlp`` around each block's MLP
-branch.
+branch: fc1, the GELU or gate, fc2 and the MLP's residual with the
+LayerNorm after it.  LN2 runs with the attention's residual, just before
+``vit.mlp``.
 """
 
 from __future__ import annotations
@@ -65,7 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from sequoia_tpu_torch.models.resnet import IMAGENET_MEAN, IMAGENET_STD
-from sequoia_tpu_torch.ops import cuda_vit, pil_resize
+from sequoia_tpu_torch.ops import cuda_vit, cuda_vit_glue, pil_resize
 from sequoia_tpu_torch.ops.nn import LN_EPS, compute_dtype, linear
 from sequoia_tpu_torch.utils.profiling import count, span
 
@@ -169,29 +179,36 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def _swiglu(h: torch.Tensor) -> torch.Tensor:
     """timm's ``GluMlp(gate_last=False)`` gate: ``silu(a) * b`` of fc1's
-    halves ``a, b``."""
-    a, b = h.chunk(2, dim=-1)
-    return F.silu(a) * b
+    halves ``a, b`` (``ops/cuda_vit_glue.swiglu``)."""
+    return cuda_vit_glue.swiglu(h)
 
 
-def _block(cfg: UniViTConfig, x: torch.Tensor, bp: dict) -> torch.Tensor:
+def _residual(x: torch.Tensor, out: torch.Tensor, gamma: torch.Tensor, ln,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The LayerScale residual ``x + out * gamma`` and the LayerNorm after it,
+    ``ln = (scale, bias)``, as one pass (``ops/cuda_vit_glue.residual_ln``)."""
+    # the LayerScale gammas in the activation's type, as JAX casts them down
+    return cuda_vit_glue.residual_ln(x, out, gamma.to(out.dtype), ln[0].to(x.dtype),
+                                     ln[1].to(x.dtype), eps)
+
+
+def _block(cfg: UniViTConfig, x: torch.Tensor, y: torch.Tensor, bp: dict,
+           ln_next) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm block from the residual stream ``x`` and its LN1 ``y``:
+    the new stream and its LayerNorm by ``ln_next = (scale, bias)`` (the next
+    block's LN1 or the final norm)."""
     b, n, d = x.shape
-    h = cfg.heads
-
-    y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.ln_eps)
     qkv = _linear(y, bp["w_qkv"], bp["b_qkv"]).reshape(b * n, 3 * d)
     with span("vit.attn"):
-        out = cuda_vit.attention(qkv, b, n, h)
+        out = cuda_vit.attention(qkv, b, n, cfg.heads)
     out = _linear(out.reshape(b, n, d), bp["w_proj"], bp["b_proj"])
-    # the LayerScale gammas in the activation's type, as JAX casts them down
-    x = torch.addcmul(x, out, bp["ls1"].to(out.dtype))
+    x, y = _residual(x, out, bp["ls1"], (bp["ln2_scale"], bp["ln2_bias"]), cfg.ln_eps)
 
     with span("vit.mlp"):
-        y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.ln_eps)
         y = _linear(y, bp["w_fc1"], bp["b_fc1"])
         y = F.gelu(y) if cfg.mlp == "gelu" else _swiglu(y)
         y = _linear(y, bp["w_fc2"], bp["b_fc2"])
-        return torch.addcmul(x, y, bp["ls2"].to(y.dtype))
+        return _residual(x, y, bp["ls2"], ln_next, cfg.ln_eps)
 
 
 def forward(cfg: UniViTConfig, params: Params, images: torch.Tensor) -> torch.Tensor:
@@ -210,20 +227,23 @@ def forward(cfg: UniViTConfig, params: Params, images: torch.Tensor) -> torch.Te
         prefix.append(params["reg_token"].to(dt).expand(b, cfg.reg_tokens, cfg.dim))
     x = torch.cat([*prefix, x], dim=1) + params["pos_emb"].to(dt)
     blocks = params["blocks"]
+    # each block's last residual carries the LayerNorm after it: the next
+    # block's LN1, the last block's the final norm
+    lns = [(blocks["ln1_scale"][i], blocks["ln1_bias"][i]) for i in range(1, cfg.depth)]
+    lns.append((params["norm_scale"], params["norm_bias"]))
+    y = _layer_norm(x, blocks["ln1_scale"][0], blocks["ln1_bias"][0], cfg.ln_eps)
     for i in range(cfg.depth):
-        x = _block(cfg, x, {k: v[i] for k, v in blocks.items()})
-    return _pool(cfg, x, params)
+        x, y = _block(cfg, x, y, {k: v[i] for k, v in blocks.items()}, lns[i])
+    return _pool(cfg, y)
 
 
-def _pool(cfg: UniViTConfig, x: torch.Tensor, params: Params) -> torch.Tensor:
-    """The final LayerNorm and the output, in f32: the CLS row (``"cls"``),
-    or CLS ⊕ the mean of the patch tokens, registers left out
-    (``"cls_mean"``)."""
+def _pool(cfg: UniViTConfig, y: torch.Tensor) -> torch.Tensor:
+    """The output, in f32, from the final LayerNorm ``y`` of every token:
+    the CLS row (``"cls"``), or CLS ⊕ the mean of the patch tokens,
+    registers left out (``"cls_mean"``)."""
     if cfg.pool == "cls":
-        # LayerNorm is per token: normalising the CLS row alone gives its values
-        return _layer_norm(x[:, 0], params["norm_scale"], params["norm_bias"],
-                           cfg.ln_eps).float()
-    y = _layer_norm(x, params["norm_scale"], params["norm_bias"], cfg.ln_eps).float()
+        return y[:, 0].float()
+    y = y.float()
     return torch.cat([y[:, 0], y[:, cfg.prefix:].mean(1)], dim=-1)
 
 

@@ -125,7 +125,8 @@ def test_profile_json_has_every_row_and_bound(capsys, setting, names):
     assert res["features"] == [2, 2048]  # the top-left AvgPool2d(7) window of the 8x8 map
     assert set(res["launches_per_forward"]) == {"vis_blocks_fused", "stem16",
                                                 "bottleneck_chain_cp", "bottleneck_chain",
-                                                "lloyd_stats", "kmeans_seed", "vit_attention"}
+                                                "lloyd_stats", "kmeans_seed", "vit_attention",
+                                                "vit_swiglu", "vit_residual_ln"}
     assert not any(res["launches_per_forward"].values())  # the CPU runs the plain versions
     assert (res["fold_ms"] > 0) == bool(setting)
     assert "not measured" in res["trace"] and res["device"] == "cpu"

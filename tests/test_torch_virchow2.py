@@ -133,14 +133,25 @@ def _gate_swapped(h):
     return a * F.silu(b)
 
 
-def _registers_in_mean(cfg, x, params):
-    y = tuni._layer_norm(x, params["norm_scale"], params["norm_bias"], cfg.ln_eps).float()
+def _registers_in_mean(cfg, y):
+    y = y.float()
     return torch.cat([y[:, 0], y[:, 1:].mean(1)], dim=-1)
 
 
-def _final_ln_on_cls_only(cfg, x, params):
-    cls = tuni._layer_norm(x[:, 0], params["norm_scale"], params["norm_bias"], cfg.ln_eps)
-    return torch.cat([cls, x[:, cfg.prefix:].mean(1)], dim=-1).float()
+def _final_ln_on_cls_only():
+    """A ``_residual`` whose final norm (the last of a forward's 2 * depth
+    residuals) reaches the CLS row alone: the patch tokens go to the pool
+    unnormalised."""
+    calls, plain = [], tuni._residual
+
+    def residual(x, out, gamma, ln, eps):
+        xs, y = plain(x, out, gamma, ln, eps)
+        calls.append(1)
+        if len(calls) % (2 * TINY["depth"]) == 0:
+            y = torch.cat([y[:, :1], xs[:, 1:]], dim=1)
+        return xs, y
+
+    return residual
 
 
 @pytest.mark.parametrize("fault", ["gate_swapped", "registers_in_mean", "final_ln_cls_only",
@@ -155,7 +166,7 @@ def test_planted_faults_fail(monkeypatch, fault):
     elif fault == "registers_in_mean":
         monkeypatch.setattr(tuni, "_pool", _registers_in_mean)
     elif fault == "final_ln_cls_only":
-        monkeypatch.setattr(tuni, "_pool", _final_ln_on_cls_only)
+        monkeypatch.setattr(tuni, "_residual", _final_ln_on_cls_only())
     else:
         cfg = dataclasses.replace(cfg, resize="bilinear")
     assert _gap(_program(u8, cfg=cfg), _reference(_params(), u8)) > BF16_TOL
